@@ -1,0 +1,163 @@
+"""Dataset ingestion and train-ray sampling (port of
+``f2nerf_tpu/data/dataset.py``).
+
+Loads the reference formats (Dataset.cpp:16-125): cams_meta.npy ([n, 27]
+f64 rows: 12 c2w pose + 9 intrinsics + 4 distortion + 2 bounds),
+image_list.txt, optional split.npy and poses_render.npy. The host side is a
+numpy copy of the JAX package's ``Dataset``; images stay uint8 on the
+device and are converted to [0, 1] floats at gather time.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..core import camera
+
+
+class Dataset:
+    def __init__(self, data_path: str, cfg: dict, load_images: bool = True):
+        self.data_path = data_path
+        factor = float(cfg.get("factor", 1.0))
+        self.factor = factor
+        bounds_factor = cfg.get("bounds_factor", [1.0, 1.0])
+
+        cams = np.load(os.path.join(data_path, "cams_meta.npy"))
+        if cams.ndim != 2 or cams.shape[1] != 27:
+            raise ValueError(f"cams_meta.npy must be [n, 27], got {cams.shape}")
+        cams = cams.astype(np.float32)
+        self.n_images = cams.shape[0]
+        poses = cams[:, :12].reshape(-1, 3, 4).copy()
+        intri = cams[:, 12:21].reshape(-1, 3, 3).copy()
+        intri[:, :2, :] /= factor
+        dist = cams[:, 21:25].copy()
+        bounds = cams[:, 25:27].copy()
+
+        poses, bounds, self.center, self.radius = camera.normalize_scene(poses, bounds)
+        self.poses = poses
+        self.w2c = camera.invert_pose(poses)
+        self.intri = intri
+        self.dist = dist
+
+        render_path = os.path.join(data_path, "poses_render.npy")
+        if os.path.exists(render_path):
+            rp = np.load(render_path).astype(np.float32).reshape(-1, 3, 4).copy()
+            rp[:, :3, 3] = (rp[:, :3, 3] - self.center) / self.radius
+            self.render_poses = rp
+        else:
+            self.render_poses = None
+
+        bounds = np.stack([bounds[:, 0] * bounds_factor[0],
+                           bounds[:, 1] * bounds_factor[1]], axis=-1)
+        self.bounds = np.clip(bounds, 1e-2, 1e9).astype(np.float32)
+        self.near = float(self.bounds.min())
+
+        split_path = os.path.join(data_path, "split.npy")
+        if os.path.exists(split_path):
+            sp = np.load(split_path).astype(np.uint8)
+            if sp.shape[0] != self.n_images:
+                raise ValueError("split.npy length != number of images")
+            self.train_set = np.nonzero(sp & 1)[0].astype(np.int32)
+            self.test_set = np.nonzero(sp & 2)[0].astype(np.int32)
+            self.val_set = np.nonzero(sp & 4)[0].astype(np.int32)
+        else:
+            idx = np.arange(self.n_images)
+            self.test_set = idx[idx % 8 == 0].astype(np.int32)
+            self.train_set = idx[idx % 8 != 0].astype(np.int32)
+            self.val_set = np.zeros((0,), np.int32)
+
+        self.images = None
+        self.height = self.width = 0
+        if load_images:
+            self._load_images()
+
+    def _load_images(self):
+        from PIL import Image
+        list_path = os.path.join(self.data_path, "image_list.txt")
+        if os.path.exists(list_path):
+            with open(list_path) as f:
+                paths = [line.strip() for line in f if line.strip()]
+        else:  # read-only dataset dir: glob directly
+            paths = glob_images(self.data_path, self.factor)
+        if len(paths) < self.n_images:
+            raise ValueError(f"{len(paths)} images for {self.n_images} cameras")
+        imgs = []
+        for p in paths[: self.n_images]:
+            with Image.open(p) as im:
+                imgs.append(np.asarray(im.convert("RGB"), np.uint8))
+        self.images = np.stack(imgs, axis=0)
+        self.height, self.width = self.images.shape[1:3]
+
+    def device_arrays(self, device="cpu") -> dict:
+        """Camera metadata and the train-image pool [n_train, H, W, 3]
+        uint8 on ``device``."""
+        ids = self.train_set
+        out = dict(
+            poses=torch.as_tensor(self.poses, device=device),
+            intri=torch.as_tensor(self.intri, device=device),
+            dist=torch.as_tensor(self.dist, device=device),
+            bounds=torch.as_tensor(self.bounds, device=device),
+            train_ids=torch.as_tensor(ids.astype(np.int32), device=device),
+        )
+        if self.images is not None:
+            out["train_images"] = torch.as_tensor(
+                np.ascontiguousarray(self.images[ids]), device=device)
+        return out
+
+    @property
+    def train_arrays(self):
+        """Train-camera subsets for octree construction (c2w, w2c, intri,
+        bounds)."""
+        t = self.train_set
+        return self.poses[t], self.w2c[t], self.intri[t], self.bounds[t]
+
+
+def draw_rays(data: dict, generator: torch.Generator, n_rays: int,
+              height: int, width: int) -> dict:
+    """Random (train camera, pixel) picks for ``sample_rays``."""
+    dev = generator.device
+    n_train = data["train_ids"].shape[0]
+    kw = dict(generator=generator, device=dev)
+    return dict(cam_pick=torch.randint(0, n_train, (n_rays,), **kw),
+                i=torch.randint(0, height, (n_rays,), **kw),
+                j=torch.randint(0, width, (n_rays,), **kw))
+
+
+def sample_rays(data: dict, cam_pick: torch.Tensor, i: torch.Tensor,
+                j: torch.Tensor):
+    """Train rays for explicit draws (RandRaysData, Dataset.cpp:275-298):
+    cam_pick indexes the train cameras, (i, j) the integer pixel row/col.
+    Returns (rays_o, rays_d, bounds, gt, img_idx)."""
+    cam_pick = cam_pick.long()
+    il, jl = i.long(), j.long()
+    img_idx = data["train_ids"][cam_pick].long()
+    gt = data["train_images"][cam_pick, il, jl].to(torch.float32) / 255.0
+    fi = il.to(torch.float32) + 0.5
+    fj = jl.to(torch.float32) + 0.5
+    rays_o, rays_d = camera.pixel_to_ray(
+        data["poses"][img_idx], data["intri"][img_idx], data["dist"][img_idx],
+        fi, fj)
+    bounds = data["bounds"][img_idx]
+    return rays_o, rays_d, bounds, gt, img_idx.to(torch.int32)
+
+
+def glob_images(data_path: str, factor: float) -> list[str]:
+    """Image paths under images_{factor}/ (scripts/run.py:18-34 semantics)."""
+    import glob
+    suffixes = ["*.jpg", "*.png", "*.JPG", "*.jpeg"]
+    image_list = []
+    if 0.999 < factor < 1.001:
+        for suf in suffixes:
+            image_list += glob.glob(os.path.join(data_path, "images", suf))
+            image_list += glob.glob(os.path.join(data_path, "images_1", suf))
+    else:
+        f_int = int(round(factor))
+        for suf in suffixes:
+            image_list += glob.glob(os.path.join(data_path, f"images_{f_int}", suf))
+    if not image_list:
+        raise FileNotFoundError(f"No image found under {data_path}")
+    image_list.sort()
+    return image_list

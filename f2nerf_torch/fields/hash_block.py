@@ -1,0 +1,259 @@
+"""Block-anchored multi-resolution hash encoding (port of
+``f2nerf_tpu/fields/hash_block.py``): kernels K2 (encode) and K3 (table
+gradient scatter) with their plain PyTorch versions and autograd wiring.
+
+Layout, as in the JAX package: each level's table is [n_blocks, 128] f32;
+a row holds the 4x4x4 corner lattice of one 3x3x3-cell block (+1 halo) x
+2 channels, lane = lx*32 + ly*8 + lz*2 + ch. A sample needs one row per
+level: hash = (bx*pa ^ by*pb ^ bz*pc) & (n_blocks-1) on block coords with
+per-(level, volume) primes and bias (Hash3DAnchored.cpp:38-69).
+
+Index math (``_locate``) is the same in the plain version and the kernels:
+x = p*scale + bias rounded per operation (no FMA), floor, block = floor//3,
+local corner c = floor - 3*block, and per-axis tent weights
+max(0, 1 - |lane - (c + a)|) as the JAX lane weights compute them.
+
+The plain version runs for CPU tensors only; CUDA tensors launch the
+kernels in csrc/hash_block.cu or raise.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .hash_encoding import N_CHANNELS, N_LEVELS, _random_primes, level_scales
+
+BLOCK_CELLS = 3
+BLOCK_LAT = 4
+LANES = BLOCK_LAT ** 3 * N_CHANNELS  # = 128
+_M32 = 0xFFFFFFFF
+
+
+def n_blocks(log2_table_size: int) -> int:
+    """Blocks per level."""
+    return max(16, (1 << log2_table_size) >> 5)
+
+
+def init_block_state(generator: torch.Generator, log2_table_size: int,
+                     n_volumes: int, rand_bias: bool = True, device="cpu"):
+    """(feat_tables [N_LEVELS, n_blocks, 128] f32, prim_pool [N_LEVELS,
+    n_volumes, 3] int32 holding the uint32 primes, bias_pool f32) with the
+    reference's init distribution (Hash3DAnchored.cpp:33,38-69)."""
+    nb = n_blocks(log2_table_size)
+    gdev = generator.device
+    feat = (torch.rand((N_LEVELS, nb, LANES), generator=generator,
+                       device=gdev) * 0.2 - 1.0) * 1e-4
+    seeds = torch.randint(1 << 28, 1 << 30, (N_LEVELS * n_volumes * 3,),
+                          generator=generator, device=gdev)
+    prim = _random_primes(seeds.cpu().numpy()).reshape(N_LEVELS, n_volumes, 3)
+    if rand_bias:
+        bias = torch.rand((N_LEVELS, n_volumes, 3), generator=generator,
+                          device=gdev) * 1000.0 + 100.0
+    else:
+        bias = torch.zeros((N_LEVELS, n_volumes, 3))
+    return (feat.to(device), torch.from_numpy(prim.astype(np.int32)).to(device),
+            bias.to(device=device, dtype=torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _scales(device: str) -> torch.Tensor:
+    return torch.from_numpy(level_scales()).to(device)
+
+
+# ----------------------------------------------------------- plain version
+
+def _locate(pts, prim_l, bias_l, scale: float, nb: int):
+    """One level's row index [n] and per-axis (c [n] int64, w0, w1 [n]) for
+    the two lattice points a sample interpolates between."""
+    x = pts * scale + bias_l
+    f = torch.floor(x)
+    fi = f.to(torch.int64)
+    b = torch.div(fi, BLOCK_CELLS, rounding_mode="floor")
+    c = fi - BLOCK_CELLS * b
+    t = c.to(torch.float32) + (x - f)
+    bu = b & _M32
+    p = prim_l.to(torch.int64)
+    h = ((bu[:, 0] * p[:, 0]) & _M32) ^ ((bu[:, 1] * p[:, 1]) & _M32) \
+        ^ ((bu[:, 2] * p[:, 2]) & _M32)
+    row = h & (nb - 1)
+    axes = []
+    for ax in range(3):
+        ca = c[:, ax]
+        w = [torch.clamp(1.0 - torch.abs((ca + d).to(torch.float32) - t[:, ax]),
+                         min=0.0) for d in range(2)]
+        axes.append((ca, w))
+    return row, axes
+
+
+def _corners(axes):
+    """(lane offset [n], weight [n]) for the 8 trilerp corners, weights
+    multiplied x*y*z in that order."""
+    (cx, wx), (cy, wy), (cz, wz) = axes
+    for dx in range(2):
+        for dy in range(2):
+            for dz in range(2):
+                lane = (cx + dx) * 32 + (cy + dy) * 8 + (cz + dz) * 2
+                yield lane, wx[dx] * wy[dy] * wz[dz]
+
+
+def hash_block_fwd_plain(feat, prim, bias, pts, vol, log2_table_size: int):
+    """Plain PyTorch version of K2: [n, 32] features, level-major pairs."""
+    nb = n_blocks(log2_table_size)
+    scales = level_scales()
+    vol = vol.long()
+    flat = feat.reshape(-1)
+    out = []
+    for l in range(N_LEVELS):
+        row, axes = _locate(pts, prim[l, vol], bias[l, vol], float(scales[l]), nb)
+        base = (l * nb + row) * LANES
+        acc0 = torch.zeros_like(pts[:, 0])
+        acc1 = torch.zeros_like(pts[:, 0])
+        for lane, w in _corners(axes):
+            acc0 = acc0 + flat[base + lane] * w
+            acc1 = acc1 + flat[base + lane + 1] * w
+        out += [acc0, acc1]
+    return torch.stack(out, dim=-1)
+
+
+def hash_block_bwd_plain(g, prim, bias, pts, vol, log2_table_size: int,
+                         table_shape):
+    """Plain PyTorch version of K3: table gradient [N_LEVELS, nb, 128]."""
+    nb = n_blocks(log2_table_size)
+    scales = level_scales()
+    vol = vol.long()
+    d = torch.zeros(int(np.prod(table_shape)), dtype=torch.float32,
+                    device=g.device)
+    for l in range(N_LEVELS):
+        row, axes = _locate(pts, prim[l, vol], bias[l, vol], float(scales[l]), nb)
+        base = (l * nb + row) * LANES
+        g0, g1 = g[:, 2 * l], g[:, 2 * l + 1]
+        for lane, w in _corners(axes):
+            d.index_add_(0, base + lane, g0 * w)
+            d.index_add_(0, base + lane + 1, g1 * w)
+    return d.reshape(table_shape)
+
+
+# ----------------------------------------------------------- kernel wrappers
+
+def _check_inputs(name, feat_or_g, prim, bias, pts, vol):
+    if prim.dtype != torch.int32 or vol.dtype != torch.int32:
+        raise ValueError(f"{name}: prim_pool and vol_idx must be int32")
+    for t in (feat_or_g, bias, pts):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if pts.dim() != 2 or pts.shape[1] != 3 or vol.shape != pts.shape[:1]:
+        raise ValueError(f"{name}: pts [n,3] / vol [n] mismatch "
+                         f"{tuple(pts.shape)} {tuple(vol.shape)}")
+    kernels.require_cuda(name, feat_or_g, prim, bias, pts, vol)
+
+
+def hash_block_fwd(feat, prim, bias, pts, vol, log2_table_size: int):
+    """K2 encode: [n, 32] f32. CPU tensors take the plain version."""
+    if pts.device.type == "cpu":
+        return hash_block_fwd_plain(feat, prim, bias, pts, vol, log2_table_size)
+    if pts.device.type != "cuda":
+        raise ValueError(f"hash_block_fwd: unsupported device {pts.device}")
+    nb = n_blocks(log2_table_size)
+    if tuple(feat.shape) != (N_LEVELS, nb, LANES):
+        raise ValueError(f"hash_block_fwd: table shape {tuple(feat.shape)}")
+    pts, vol = pts.contiguous(), vol.contiguous()
+    _check_inputs("hash_block_fwd", feat, prim, bias, pts, vol)
+    n = pts.shape[0]
+    out = torch.empty((n, N_LEVELS * N_CHANNELS), dtype=torch.float32,
+                      device=pts.device)
+    code = kernels.library().f2_hash_block_fwd(
+        feat.data_ptr(), prim.data_ptr(), bias.data_ptr(),
+        _scales(str(pts.device)).data_ptr(), pts.data_ptr(), vol.data_ptr(),
+        out.data_ptr(), n, prim.shape[1], nb, kernels.stream_ptr(pts.device))
+    kernels.check(code, "hash_block_fwd")
+    hash_block_fwd.launches += 1
+    return out
+
+
+hash_block_fwd.launches = 0
+
+
+def hash_block_bwd(g, prim, bias, pts, vol, log2_table_size: int, table_shape):
+    """K3 table-gradient scatter: [N_LEVELS, nb, 128] f32 (atomics on the
+    card, so the summation order is not fixed)."""
+    if pts.device.type == "cpu":
+        return hash_block_bwd_plain(g, prim, bias, pts, vol, log2_table_size,
+                                    table_shape)
+    if pts.device.type != "cuda":
+        raise ValueError(f"hash_block_bwd: unsupported device {pts.device}")
+    nb = n_blocks(log2_table_size)
+    if tuple(table_shape) != (N_LEVELS, nb, LANES):
+        raise ValueError(f"hash_block_bwd: table shape {tuple(table_shape)}")
+    g, pts, vol = g.contiguous(), pts.contiguous(), vol.contiguous()
+    if tuple(g.shape) != (pts.shape[0], N_LEVELS * N_CHANNELS):
+        raise ValueError(f"hash_block_bwd: grad shape {tuple(g.shape)}")
+    _check_inputs("hash_block_bwd", g, prim, bias, pts, vol)
+    d = torch.zeros(tuple(table_shape), dtype=torch.float32, device=pts.device)
+    code = kernels.library().f2_hash_block_bwd(
+        g.data_ptr(), prim.data_ptr(), bias.data_ptr(),
+        _scales(str(pts.device)).data_ptr(), pts.data_ptr(), vol.data_ptr(),
+        d.data_ptr(), pts.shape[0], prim.shape[1], nb,
+        kernels.stream_ptr(pts.device))
+    kernels.check(code, "hash_block_bwd")
+    hash_block_bwd.launches += 1
+    return d
+
+
+hash_block_bwd.launches = 0
+
+
+# ----------------------------------------------------------------- autograd
+
+class _HashBlockEncode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, prim, bias, pts, vol, log2_table_size):
+        ctx.save_for_backward(prim, bias, pts, vol)
+        ctx.meta = (log2_table_size, tuple(feat.shape))
+        return hash_block_fwd(feat.detach(), prim, bias, pts.detach(), vol,
+                              log2_table_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        prim, bias, pts, vol = ctx.saved_tensors
+        log2t, shape = ctx.meta
+        d = hash_block_bwd(g, prim, bias, pts, vol, log2t, shape)
+        return d, None, None, None, None, None
+
+
+def hash_block_encode(feat_tables, prim_pool, bias_pool, points01, vol_idx,
+                      log2_table_size: int):
+    """Block-anchored multi-res hash lookup: [n, 32] f32. Gradient flows to
+    the tables only (Hash3DAnchored.cu:82-155)."""
+    return _HashBlockEncode.apply(feat_tables, prim_pool, bias_pool,
+                                  points01, vol_idx, log2_table_size)
+
+
+class _GatherCached(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, prim, bias, pts, vol, log2_table_size,
+                cached_feat, src_idx):
+        ctx.save_for_backward(prim, bias, pts, vol)
+        ctx.meta = (log2_table_size, tuple(feat.shape))
+        return cached_feat.detach()[src_idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        prim, bias, pts, vol = ctx.saved_tensors
+        log2t, shape = ctx.meta
+        d = hash_block_bwd(g, prim, bias, pts, vol, log2t, shape)
+        return d, None, None, None, None, None, None, None
+
+
+def hash_block_gather_cached(feat_tables, prim_pool, bias_pool, points01,
+                             vol_idx, log2_table_size: int, cached_feat,
+                             src_idx):
+    """Encode ``points01`` given that ``cached_feat[src_idx]`` already holds
+    this exact encoding (the no-grad prefilter pass over the superset A
+    buffer). Forward: one row gather of the cache. Backward: the same
+    table-gradient scatter as ``hash_block_encode`` (K3)."""
+    return _GatherCached.apply(feat_tables, prim_pool, bias_pool, points01,
+                               vol_idx, log2_table_size, cached_feat, src_idx)

@@ -1,0 +1,134 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+All ``csrc/*.cu`` files are compiled by nvcc into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds),
+targeting Hopper (``sm_90a``), and loaded with ctypes. The library is
+built at first use into ``f2nerf_torch/_build/`` under a name keyed by a
+hash of the sources and flags, so an edited kernel is rebuilt and a
+current one is reused.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` turns a non-zero code into an exception. Pointers and the
+stream go in as ``c_void_p`` (a bare Python int would be cut to 32 bits).
+
+Nothing here runs at import: importing the package must work on a host
+with no nvcc and no GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+# no --use_fast_math: K2/K3's index math must round exactly like the
+# plain version (see csrc/hash_block.cu)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "f2_fused_adam": [_vp, _vp, _vp, _vp, _ll, _vp, _vp,
+                      _f, _f, _f, _f, _f, _f, _vp],
+    "f2_hash_block_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                          _i, _i, _i, _vp],
+    "f2_hash_block_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                          _i, _i, _i, _vp],
+}
+
+
+class _State:
+    lib: ctypes.CDLL | None = None
+    build_seconds: float | None = None
+    ptxas_log: str = ""
+
+
+_state = _State()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels cannot be built on this host")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libf2kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if no current build exists; return the path."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)
+    _state.build_seconds = time.perf_counter() - t0
+    _state.ptxas_log = proc.stderr
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    if _state.lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _state.lib = lib
+    return _state.lib
+
+
+def build_info() -> dict:
+    """Seconds the last build in this process took (None if the library
+    was already built) and ptxas's register/shared-memory report."""
+    return dict(seconds=_state.build_seconds, ptxas=_state.ptxas_log)
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed: cudaError {code}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """The kernels take contiguous CUDA tensors on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous and on "
+                             f"{dev}; got {t.device}, contiguous="
+                             f"{t.is_contiguous()}")

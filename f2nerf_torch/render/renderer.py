@@ -1,0 +1,315 @@
+"""Render pipeline: sample -> prefilter -> field/shader -> composite (port
+of ``f2nerf_tpu/render/renderer.py``; reference Renderer::Render,
+Renderer.cpp:52-213).
+
+  1. octree traversal + parallel ray marching into dense per-ray buffers,
+     compacted to a flat capacity-CAP1 buffer A;
+  2. no-grad density prefilter: keep samples with transmittance > 1e-4,
+     compacted to CAP2 (buffer B); the raw A encodings are kept so B's
+     encodings are a gather of them (cached-B);
+  3. occupancy votes from the prefilter weights/alphas;
+  4. grad pass: HashBlock field on B (+ 8192x2 TV edge samples in
+     training), SH shader with the per-image appearance embedding,
+     early-training gradient scaling;
+  5. compositing with segmented sums.
+
+Shapes are fixed by ``RenderStatics`` as in the JAX package. Random draws
+enter as tensors (``draws``: jitter, bg, edge_idx, edge_coord), so both
+packages can be fed the same numbers.
+
+Ported: training statics with the HashBlock field, the parallel marcher
+and the two-pass (prefilter + cached-B) path. Eval statics,
+Hash3DAnchored, the lockstep marcher and single-pass mode raise
+NotImplementedError (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..fields.hash_block import hash_block_encode, hash_block_gather_cached
+from ..fields.mlp import mlp_apply
+from ..fields.sh import sh_encode
+from ..ops.activations import density_activation, gradient_scaling
+from ..ops.segment import (first_flags_from_ray_id, local_index,
+                           segment_cumsum, segment_sum)
+from ..sampler import device as dv
+from ..utils.spans import Spans
+
+
+class RenderStatics(NamedTuple):
+    """Static render configuration (same fields as the JAX package's)."""
+    max_hits: int
+    max_s: int
+    cap1: int
+    cap2: int
+    n_edge: int
+    log2_table_size: int
+    sh_degree: int
+    sample_l: float
+    global_near: float
+    scale_by_dis: bool
+    use_app_emb: bool
+    bg_mode: str          # 'rand_noise' | 'white' | 'black'
+    train: bool
+    single_pass: bool = False
+    field_type: str = "HashBlock"
+    march_mode: str = "parallel"
+
+
+def check_supported(st: RenderStatics) -> None:
+    if not st.train:
+        raise NotImplementedError(
+            "eval statics (render_image) are not ported (ROADMAP queue 1, "
+            "eval rendering)")
+    if st.field_type != "HashBlock":
+        raise NotImplementedError(
+            f"field type {st.field_type!r}: only HashBlock is ported "
+            "(ROADMAP queue 1, off-main-path variants)")
+    if st.march_mode != "parallel":
+        raise NotImplementedError(
+            f"march_mode {st.march_mode!r}: only the parallel marcher is "
+            "ported (ROADMAP queue 1, off-main-path variants)")
+    if st.single_pass:
+        raise NotImplementedError(
+            "single_pass rendering is not ported (ROADMAP queue 1, "
+            "off-main-path variants)")
+
+
+def _compact(valid_flat: torch.Tensor, cap: int, fields: dict, n_rays: int,
+             ray_id_src=None, max_s: int = None):
+    """Compact flat sample arrays keeping `valid` rows, padded to `cap`.
+
+    Returns (gathered fields, ray_id, valid_mask, kept_idx). Padding rows
+    get zeros, ray_id == n_rays and kept index n-1 (the JAX fill index)."""
+    n = valid_flat.shape[0]
+    dev = valid_flat.device
+    pos = torch.cumsum(valid_flat.to(torch.int64), dim=0) - 1
+    target = torch.where(valid_flat & (pos < cap), pos,
+                         torch.full_like(pos, cap))          # cap = dump slot
+    idx = torch.full((cap + 1,), n, dtype=torch.int64, device=dev)
+    idx.scatter_(0, target, torch.arange(n, device=dev))
+    idx = idx[:cap]
+    ok = idx < n
+    idx_c = torch.clamp(idx, max=n - 1)
+    out = {k: torch.where(ok.reshape((-1,) + (1,) * (v.dim() - 1)),
+                          v[idx_c], torch.zeros_like(v[:1]))
+           for k, v in fields.items()}
+    if ray_id_src is None:
+        rid = idx_c // max_s
+    else:
+        rid = ray_id_src[idx_c].to(torch.int64)
+    rid = torch.where(ok, rid, torch.full_like(rid, n_rays)).to(torch.int32)
+    return out, rid, ok, idx_c
+
+
+def _compact_rowpacked(n_s: torch.Tensor, cap: int, fields: dict,
+                       n_rays: int, max_s: int):
+    """Compact a row-packed dense [n_rays, max_s] source (valid samples
+    occupy the first n_s[r] slots of each row) into a flat cap buffer.
+    Output identical to ``_compact(pos < n_s, ...)`` except the fourth
+    return (source index, 0 for padding). Slot j belongs to the first ray
+    whose end exceeds j (``searchsorted`` over the ray ends)."""
+    dev = n_s.device
+    n_s = n_s.to(torch.int64)
+    ends = torch.cumsum(n_s, dim=0)
+    starts = ends - n_s
+    total = ends[-1]
+    j = torch.arange(cap, device=dev)
+    r = torch.searchsorted(ends, j, right=True).clamp(max=n_rays - 1)
+    ok = j < total
+    src = r * max_s + (j - starts[r])
+    src_c = torch.where(ok, src, torch.zeros_like(src))
+    out = {k: torch.where(ok.reshape((-1,) + (1,) * (v.dim() - 1)),
+                          v[src_c], torch.zeros_like(v[:1]))
+           for k, v in fields.items()}
+    rid = torch.where(ok, r, torch.full_like(r, n_rays)).to(torch.int32)
+    return out, rid, ok, src_c
+
+
+def _shader_query(params, shading_feat, dirs, statics: RenderStatics):
+    """SH encode + shader MLP + eps-widened sigmoid (SHShader.cpp:23-29)."""
+    enc = sh_encode(dirs, statics.sh_degree)
+    x = torch.cat([shading_feat, enc], dim=-1)
+    out = mlp_apply(params["shader_mlp"], x)
+    eps = 1e-3
+    return (1.0 + 2.0 * eps) * torch.sigmoid(out) - eps
+
+
+def draw_render(generator: torch.Generator, statics: RenderStatics,
+                n_rays: int, tree: dv.DeviceTree) -> dict:
+    """The random draws of one training render: jitter [R, max_s] in
+    [1e-4, 1), bg [R, 3] in [0, 1), and the edge picks."""
+    dev = generator.device
+    jitter = torch.rand((n_rays, statics.max_s), generator=generator,
+                        device=dev) * (1.0 - 1e-4) + 1e-4
+    bg = torch.rand((n_rays, 3), generator=generator, device=dev)
+    edge_idx, edge_coord = dv.draw_edges(tree, generator, statics.n_edge)
+    return dict(jitter=jitter, bg=bg, edge_idx=edge_idx, edge_coord=edge_coord)
+
+
+def render(params: dict, consts: dict, tree: dv.DeviceTree,
+           rays_o: torch.Tensor, rays_d: torch.Tensor, emb_idx: torch.Tensor,
+           draws: dict | None, fineness, grad_progress,
+           statics: RenderStatics):
+    """Render a fixed-size ray batch. Returns (result dict, occupancy-vote
+    dict or None); the caller folds the votes into the tree with
+    ``apply_occupancy_adders``.
+
+    params: feat_pool, field_mlp, shader_mlp, app_emb. consts: prim_pool
+    (int32 bits of the uint32 primes), bias_pool. emb_idx: [R] image index.
+    draws: jitter/bg/edge_idx/edge_coord (``draw_render``).
+    fineness / grad_progress: 0-d tensors.
+    """
+    st = statics
+    check_supported(st)
+    R = rays_o.shape[0]
+    dev = rays_o.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    l2t = st.log2_table_size
+    feat_pool, prim, bias = params["feat_pool"], consts["prim_pool"], consts["bias_pool"]
+
+    spans = Spans()
+    spans("render.traverse")
+    rays_d = rays_d / dv.norm3(rays_d)[:, None]
+
+    # --- sampling (GetSamples ignores per-ray bounds: PersSampler.cu:322-325)
+    near = torch.full((R,), st.global_near, **f32)
+    far = torch.full((R,), 1e8, **f32)
+    hit_idx, hit_near, hit_far, n_hits, trav_trunc, trav_iters = dv.traverse(
+        tree, rays_o, rays_d, near, far, st.max_hits)
+    spans("render.march")
+    out_t, out_dt, out_node, n_s, first_oct = dv.ray_march_parallel(
+        tree, rays_o, rays_d, hit_idx, hit_near, hit_far, n_hits,
+        draws["jitter"], fineness, st.sample_l, st.scale_by_dis, st.max_s)
+
+    # --- compact dense -> flat buffer A [CAP1]
+    spans("render.compact_a_warp")
+    a, rid_a, ok_a, _ = _compact_rowpacked(
+        n_s, st.cap1, dict(t=out_t.reshape(-1), dt=out_dt.reshape(-1),
+                           node=out_node.reshape(-1)), R, max_s=st.max_s)
+    rid_ac = torch.clamp(rid_a, max=R - 1).long()
+    node_a = torch.where(ok_a, a["node"], torch.zeros_like(a["node"]))
+    trans_a = torch.clamp(tree.trans_idx[node_a.long()], min=0)
+    xyz_a = rays_o[rid_ac] + rays_d[rid_ac] * a["t"][:, None]
+    warp_a = dv.apply_warp(tree, trans_a, xyz_a)
+    # invalid A slots are pinned to the volume center: their warp can be
+    # non-finite, and the cached-B fill index forwards enc_a[cap1-1] into
+    # the grad pass
+    pts01_a = torch.where(ok_a[:, None], (warp_a + 1.0) * 0.5,
+                          torch.full_like(warp_a, 0.5))
+    dirs_a = rays_d[rid_ac]
+
+    # --- no-grad prefilter (Renderer.cpp:106-137)
+    spans("render.prefilter")
+    with torch.no_grad():
+        enc_a = hash_block_encode(feat_pool.detach(), prim, bias, pts01_a,
+                                  trans_a, l2t)
+        feat_a = mlp_apply([w.detach() for w in params["field_mlp"]], enc_a)
+        sigma_a = density_activation(feat_a[:, 0])
+        sigma_a = torch.where(ok_a, sigma_a, torch.zeros_like(sigma_a))
+        sec_a = sigma_a * a["dt"]
+        first_a = first_flags_from_ray_id(rid_a, R)
+        acc_a = segment_cumsum(sec_a, first_a, exclusive=True)
+        trans_vis_a = torch.exp(-acc_a)
+        alpha_a = 1.0 - torch.exp(-sec_a)
+        weights_a = trans_vis_a * alpha_a
+        keep = ok_a & (trans_vis_a > 1e-4)
+        n_keep = keep.to(torch.float32).sum()
+        occ = dv.compute_occupancy_adders(
+            tree, torch.where(ok_a, a["node"], torch.full_like(a["node"], -1)),
+            rid_a, weights_a, alpha_a, R)
+
+    # --- compact A -> B [CAP2]
+    spans("render.compact_b")
+    b, rid_b, ok_b, idx_b = _compact(
+        keep, st.cap2, dict(t=a["t"], dt=a["dt"], pts01=pts01_a,
+                            trans=trans_a, dirs=dirs_a, node=a["node"]),
+        R, ray_id_src=rid_a)
+    rid_bc = torch.clamp(rid_b, max=R - 1).long()
+    vol_b = torch.where(ok_b, b["trans"], torch.zeros_like(b["trans"]))
+
+    # --- grad-enabled field query (+ edge samples for the TV loss)
+    spans("render.field_shader")
+    enc_b = hash_block_gather_cached(feat_pool, prim, bias, b["pts01"], vol_b,
+                                     l2t, enc_a, idx_b)
+    enc_b = torch.where(ok_b[:, None], enc_b, torch.zeros_like(enc_b))
+    edge_pts, edge_anchor = dv.sample_edges(tree, draws["edge_idx"],
+                                            draws["edge_coord"])
+    edge_pts01 = (edge_pts.reshape(-1, 3) + 1.0) * 0.5
+    edge_vol = edge_anchor.reshape(-1)
+    enc_edge = hash_block_encode(feat_pool, prim, bias, edge_pts01, edge_vol, l2t)
+    all_feat = mlp_apply(params["field_mlp"], torch.cat([enc_b, enc_edge], dim=0))
+    scene_feat = all_feat[: st.cap2]
+    edge_feat = all_feat[st.cap2:].reshape(st.n_edge, 2, -1)
+
+    sigma = density_activation(scene_feat[:, :1])
+    sigma = torch.where(ok_b[:, None], sigma, torch.zeros_like(sigma))
+    shading_feat = torch.cat([torch.ones_like(scene_feat[:, :1]),
+                              scene_feat[:, 1:]], dim=-1)
+    if st.use_app_emb:
+        # index_select: its backward is an index_add (atomics); an indexing
+        # backward sorts 262k duplicate indices on the card
+        shading_feat = shading_feat + params["app_emb"].index_select(
+            0, emb_idx.long()[rid_bc])
+
+    colors_s = _shader_query(params, shading_feat, b["dirs"], st)
+
+    i_local = local_index(rid_b, R)
+    counts_b = segment_sum(torch.ones_like(rid_b, dtype=torch.float32), rid_b, R)
+    count_of = torch.clamp(counts_b[rid_bc], min=1.0)
+    a_norm = (i_local.to(torch.float32) + 0.5) / count_of
+    sigma = gradient_scaling(sigma, a_norm, grad_progress)
+    colors_s = gradient_scaling(colors_s, a_norm, grad_progress)
+
+    # --- composite (Renderer.cpp:196-208)
+    spans("render.composite")
+    sampled_t = b["t"] + 1e-2
+    sec = sigma[:, 0] * b["dt"]
+    first_b = first_flags_from_ray_id(rid_b, R)
+    acc = segment_cumsum(sec, first_b, exclusive=True)
+    trans_vis = torch.exp(-acc)
+    alpha = 1.0 - torch.exp(-sec)
+    weights = trans_vis * alpha
+    weights = torch.where(ok_b, weights, torch.zeros_like(weights))
+
+    if st.bg_mode == "white":
+        bg = torch.ones((R, 3), **f32)
+    elif st.bg_mode == "black":
+        bg = torch.zeros((R, 3), **f32)
+    else:
+        bg = draws["bg"]
+
+    last_trans = torch.exp(-segment_sum(sec, rid_b, R))
+    colors = segment_sum(weights[:, None] * colors_s, rid_b, R)
+    colors = colors + last_trans[:, None] * bg
+    disparity = segment_sum(weights / sampled_t, rid_b, R)
+    depth = segment_sum(weights * sampled_t, rid_b, R) / (1.0 - last_trans + 1e-4)
+
+    spans.close()
+    n_ok_a = ok_a.to(torch.float32).sum()
+    result = dict(
+        colors=colors,
+        first_oct_dis=first_oct,
+        disparity=disparity,
+        depth=depth,
+        edge_feats=edge_feat,
+        weights=weights,
+        ray_id=rid_b,
+        i_local=i_local,
+        last_trans=last_trans,
+        stats=dict(
+            n_sampled=n_ok_a,
+            n_meaningful=n_keep,
+            n_oct_hits=n_hits.to(torch.float32).sum(),
+            max_oct_hits=n_hits.max().to(torch.float32),
+            overflow_a=n_s.to(torch.float32).sum() - n_ok_a,
+            n_saturated=(n_s >= st.max_s).to(torch.float32).sum(),
+            n_trav_truncated=trav_trunc.to(torch.float32).sum(),
+            overflow_b=n_keep - ok_b.to(torch.float32).sum(),
+        ),
+        trav_iters=trav_iters,
+    )
+    return result, occ

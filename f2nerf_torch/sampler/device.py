@@ -1,0 +1,501 @@
+"""Device-side octree sampling: traversal, ray marching, warping, occupancy
+(port of ``f2nerf_tpu/sampler/device.py``).
+
+  * ``traverse`` — the rope traversal (FindRayOctreeIntersectionKernel,
+    PersSampler.cu:53-152, redesigned), as a lockstep loop over all rays in
+    plain torch. It keeps the JAX package's ulp-floored eps, the
+    no-progress and skip-stall escalations and ``trunc`` exactly. The loop
+    syncs once per iteration to test ``done``; it reports its iteration
+    count so a one-thread-per-ray kernel can be weighed against it.
+  * ``ray_march_parallel`` — entry-point warp Jacobian per (ray, hit),
+    jittered-grid samples per hit. The JAX slot->hit indicator sum over
+    [R, H, S] becomes ``searchsorted`` on the per-ray hit ends plus a
+    gather (exactly the same values: one hit contributes to each slot).
+  * occupancy votes (MarkVistNodeKernel, PersSampler.cu:475-534) as
+    scatter-max / index_add, and their fold into the hysteresis counters.
+
+The tree lives on the device as a dataclass of fixed-capacity padded
+tensors (``DeviceTree``). Index tensors are int32 as in the JAX package
+and widened to int64 where torch indexes with them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .octree import OctreeHost, build_ropes
+from .warp import N_PROS
+
+# occupancy constants (reference PersSampler.cu:11-17)
+OCC_WEIGHT_BASE = 512
+ABS_WEIGHT_THRES = 0.01
+REL_WEIGHT_THRES = 0.1
+OCC_ALPHA_BASE = 32
+ABS_ALPHA_THRES = 0.02
+REL_ALPHA_THRES = 0.1
+
+
+@dataclass
+class DeviceTree:
+    """Padded SoA octree + warp table + edge pool on the device."""
+    center: torch.Tensor      # [N, 3]
+    side: torch.Tensor        # [N]
+    child: torch.Tensor       # [N, 8] i32
+    is_leaf: torch.Tensor     # [N] bool (padding reads as a leaf)
+    trans_idx: torch.Tensor   # [N] i32 (mutated by occupancy culling)
+    rope: torch.Tensor        # [N, 6] i32 face neighbors (-1 = border)
+    weight_stats: torch.Tensor  # [N] i32
+    alpha_stats: torch.Tensor   # [N] i32
+    visit_cnt: torch.Tensor     # [N] i32
+    # warp tables, flat: w2xz[m, 8k + 4r + c] = matrix k, row r, col c;
+    # weight[m, 12a + k] = output axis a, projection k
+    w2xz: torch.Tensor        # [M, 96]
+    weight: torch.Tensor      # [M, 36]
+    t_center: torch.Tensor    # [M, 3]
+    t_dis: torch.Tensor       # [M]
+    edge_t: torch.Tensor      # [E, 2] i32
+    edge_center: torch.Tensor  # [E, 3]
+    edge_dir0: torch.Tensor   # [E, 3]
+    edge_dir1: torch.Tensor   # [E, 3]
+    n_edges: int
+
+
+def _pad(x: np.ndarray, n: int, fill=0):
+    out = np.full((n,) + x.shape[1:], fill, x.dtype)
+    out[: x.shape[0]] = x
+    return out
+
+
+def to_device_tree(tree: OctreeHost, max_nodes: int, max_trans: int,
+                   max_edges: int, device="cpu") -> DeviceTree:
+    if tree.n_nodes > max_nodes or tree.n_trans > max_trans \
+            or tree.edge_t.shape[0] > max_edges:
+        raise ValueError(f"tree exceeds capacities: nodes {tree.n_nodes}/"
+                         f"{max_nodes}, trans {tree.n_trans}/{max_trans}, "
+                         f"edges {tree.edge_t.shape[0]}/{max_edges}")
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    return DeviceTree(
+        center=t(_pad(tree.center, max_nodes)),
+        side=t(_pad(tree.side, max_nodes)),
+        child=t(_pad(tree.childs, max_nodes, -1)),
+        is_leaf=t(_pad(tree.is_leaf.astype(np.int8), max_nodes, 1) > 0),
+        trans_idx=t(_pad(tree.trans_idx, max_nodes, -1)),
+        rope=t(_pad(build_ropes(tree), max_nodes, -1)),
+        weight_stats=t(_pad(tree.weight_stats, max_nodes)),
+        alpha_stats=t(_pad(tree.alpha_stats, max_nodes)),
+        visit_cnt=t(_pad(tree.visit_cnt, max_nodes)),
+        w2xz=t(_pad(tree.w2xz.reshape(-1, 96), max_trans)),
+        weight=t(_pad(tree.weight.reshape(-1, 36), max_trans)),
+        t_center=t(_pad(tree.t_center, max_trans)),
+        t_dis=t(_pad(tree.t_dis, max_trans, 1.0)),
+        edge_t=t(_pad(tree.edge_t, max_edges)),
+        edge_center=t(_pad(tree.edge_center, max_edges)),
+        edge_dir0=t(_pad(tree.edge_dir0, max_edges)),
+        edge_dir1=t(_pad(tree.edge_dir1, max_edges)),
+        n_edges=int(tree.edge_t.shape[0]),
+    )
+
+
+def sync_host_tree(tree: OctreeHost, dtree: DeviceTree) -> OctreeHost:
+    """Pull device-mutated state (trans_idx culling + occupancy stats) back
+    into the host tree."""
+    n = tree.n_nodes
+    tree.trans_idx = dtree.trans_idx[:n].cpu().numpy()
+    tree.weight_stats = dtree.weight_stats[:n].cpu().numpy()
+    tree.alpha_stats = dtree.alpha_stats[:n].cpu().numpy()
+    tree.visit_cnt = dtree.visit_cnt[:n].cpu().numpy()
+    return tree
+
+
+# ----------------------------------------------------------- geometry helpers
+
+def _slab(center, side, o, d, big=1e6):
+    """Ray-AABB intersection, matching GetIntersection (PersSampler.cu:21-51)
+    including the |d| < 1e-6 inside/outside convention. Returns (near, far)."""
+    hf = side[..., None] * 0.5
+    lo = center - hf
+    hi = center + hf
+    degenerate = d.abs() < 1e-6
+    safe_d = torch.where(degenerate, torch.ones_like(d), d)
+    t0 = (lo - o) / safe_d
+    t1 = (hi - o) / safe_d
+    tn = torch.minimum(t0, t1)
+    tf = torch.maximum(t0, t1)
+    inside = (o > lo) & (o < hi)
+    big_t = torch.full_like(tn, big)
+    tn = torch.where(degenerate, torch.where(inside, -big_t, big_t), tn)
+    tf = torch.where(degenerate, torch.where(inside, big_t, -big_t), tf)
+    return tn.amax(dim=-1), tf.amin(dim=-1)
+
+
+def norm3(v: torch.Tensor) -> torch.Tensor:
+    """|v| over the last axis of size 3, as elementwise ops (bitwise equal
+    on the CPU and the card, unlike a reduction)."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                      + v[..., 2] * v[..., 2])
+
+
+def _warp_rows(tree: DeviceTree, trans_idx: torch.Tensor):
+    """Per-point warp table rows, as 96 and 36 column vectors [n]."""
+    idx = trans_idx.long()
+    m = tree.w2xz[idx].t()
+    w = tree.weight[idx].t()
+    return m, w
+
+
+def apply_warp(tree: DeviceTree, trans_idx: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Warp world points [n, 3] through per-point leaf warps
+    (QueryFrameTransform, PersSampler.cu:155-168)."""
+    m, w = _warp_rows(tree, trans_idx)
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    out = [0.0, 0.0, 0.0]
+    for k in range(N_PROS):
+        a = m[8 * k] * x + m[8 * k + 1] * y + m[8 * k + 2] * z + m[8 * k + 3]
+        b = m[8 * k + 4] * x + m[8 * k + 5] * y + m[8 * k + 6] * z + m[8 * k + 7]
+        v = a / b
+        for ax in range(3):
+            out[ax] = out[ax] + w[12 * ax + k] * v
+    return torch.stack(out, dim=-1)
+
+
+def warp_jac_dir(m, w, pts, dirs):
+    """|J(x) @ d| per point, J the warp Jacobian (QueryFrameTransformJac,
+    PersSampler.cu:170-187). m: [96, n], w: [36, n] (``_warp_rows``)."""
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    dx, dy, dz = dirs[:, 0], dirs[:, 1], dirs[:, 2]
+    jd = [0.0, 0.0, 0.0]
+    for k in range(N_PROS):
+        a = m[8 * k] * x + m[8 * k + 1] * y + m[8 * k + 2] * z + m[8 * k + 3]
+        b = m[8 * k + 4] * x + m[8 * k + 5] * y + m[8 * k + 6] * z + m[8 * k + 7]
+        r0d = m[8 * k] * dx + m[8 * k + 1] * dy + m[8 * k + 2] * dz
+        r1d = m[8 * k + 4] * dx + m[8 * k + 5] * dy + m[8 * k + 6] * dz
+        dvd = r0d / b - (a / (b * b)) * r1d
+        for ax in range(3):
+            jd[ax] = jd[ax] + w[12 * ax + k] * dvd
+    return torch.sqrt(jd[0] ** 2 + jd[1] ** 2 + jd[2] ** 2)
+
+
+# ----------------------------------------------------------------- traversal
+
+def traverse(tree: DeviceTree, rays_o: torch.Tensor, rays_d: torch.Tensor,
+             near: torch.Tensor, far: torch.Tensor, max_hits: int,
+             max_iters: int = 4096):
+    """Ordered leaf intersections per ray via rope traversal.
+
+    Returns (hit_idx [R, H] i32, hit_near [R, H], hit_far [R, H],
+    n_hits [R] i32, trunc [R] bool, n_iters int). Ordering along the ray
+    is the reference's direction-ordered DFS order (leaf cells are
+    disjoint). Internal nodes point-locate one level down per iteration; on
+    leaf exit the ray follows the face-neighbor rope; corner exits that
+    land in a diagonal neighbor bounce to a root restart.
+
+    ``trunc`` marks rays whose traversal was cut short (hit buffer full or
+    max_iters reached). ``n_iters`` is the loop's iteration count.
+    """
+    R = rays_o.shape[0]
+    dev = rays_o.device
+    H = max_hits
+    root_side = tree.side[0]
+    eps0 = root_side * 1e-6
+
+    t_root_n, t_root_f = _slab(tree.center[0], root_side, rays_o, rays_d)
+    t = torch.maximum(t_root_n, near)
+    t_end = torch.minimum(t_root_f, far)
+    u = torch.zeros((R,), dtype=torch.int64, device=dev)
+    cnt = torch.zeros((R,), dtype=torch.int32, device=dev)
+    done = t >= t_end
+    # the ulp floor applies to the initial eps too (see the JAX package:
+    # distant-origin rays otherwise drop the first octant's leaves)
+    eps = torch.maximum(eps0.expand(R), t.abs() * 5e-7)
+    last = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    trunc = torch.zeros((R,), dtype=torch.bool, device=dev)
+    hit_idx = torch.full((R, H), -1, dtype=torch.int32, device=dev)
+    hit_near = torch.zeros((R, H), dtype=torch.float32, device=dev)
+    hit_far = torch.zeros((R, H), dtype=torch.float32, device=dev)
+    rows = torch.arange(R, device=dev)
+
+    degenerate = rays_d.abs() < 1e-6
+    safe_d = torch.where(degenerate, torch.ones_like(rays_d), rays_d)
+    sgn = torch.sign(safe_d)
+
+    it = 0
+    while it < max_iters and not bool(done.all()):
+        it += 1
+        p = rays_o + rays_d * (t + eps)[:, None]
+        c_u = tree.center[u]
+        s_u = tree.side[u]
+        leaf_u = tree.is_leaf[u]
+        tr_u = tree.trans_idx[u]
+
+        outside_u = ((p - c_u).abs().amax(dim=-1) > s_u * 0.5) & (u != 0)
+
+        # ---- leaf: emit (if valid) and follow the exit-face rope
+        n_l, f_l = _slab(c_u, s_u, rays_o, rays_d)
+        n_l = torch.maximum(n_l, near)
+        f_l = torch.minimum(f_l, far)
+        leaf_progress = f_l > t
+        emit = (~done) & (~outside_u) & leaf_u & (tr_u >= 0) & (n_l < f_l) \
+            & leaf_progress & (cnt < H) & (u != last)
+        # one slot per row: scatter_ along the hit axis (an index_put with
+        # row/slot index pairs sorts its indices on the card)
+        slot = torch.clamp(cnt, max=H - 1).long()[:, None]
+        for buf, val in ((hit_idx, u.to(torch.int32)), (hit_near, n_l),
+                         (hit_far, f_l)):
+            buf.scatter_(1, slot, torch.where(emit, val, buf.gather(1, slot)[:, 0])[:, None])
+        cnt = cnt + emit.to(torch.int32)
+
+        # exit face = the axis whose outgoing slab plane realizes f_l
+        t_ax = (c_u + sgn * s_u[:, None] * 0.5 - rays_o) / safe_d
+        t_ax = torch.where(degenerate, torch.full_like(t_ax, 1e9), t_ax)
+        face_ax = torch.argmin(t_ax, dim=-1)
+        face = face_ax * 2 + (rays_d[rows, face_ax] > 0).to(torch.int64)
+        rope_u = tree.rope[u, face].to(torch.int64)
+        leaf_t = torch.maximum(f_l, t)
+        # eps stays above the f32 ulp of t; a leaf visit with no t-progress
+        # escalates it geometrically (never below the carried eps)
+        leaf_eps = torch.maximum(torch.maximum(s_u * 1e-4, eps0),
+                                 leaf_t.abs() * 5e-7)
+        leaf_eps = torch.where(leaf_progress, leaf_eps,
+                               torch.maximum(leaf_eps, eps * 4.0))
+
+        # ---- internal: descend or skip empty region
+        ge = (p >= c_u).to(torch.int64)
+        st = (ge[:, 0] << 2) | (ge[:, 1] << 1) | ge[:, 2]
+        c = tree.child[u, st].to(torch.int64)
+        c_safe = c.clamp(min=0)
+        c_center = tree.center[c_safe]
+        c_side = tree.side[c_safe]
+        inside_c = (c >= 0) & \
+            ((p - c_center).abs().amax(dim=-1) <= c_side * 0.5)
+
+        oct_center = c_u + (ge.to(torch.float32) - 0.5) * s_u[:, None] * 0.5
+        oct_side = s_u * 0.5
+        _, f_o = _slab(oct_center, oct_side, rays_o, rays_d)
+        n_c, f_c = _slab(c_center, c_side, rays_o, rays_d)
+        hit_ahead = (c >= 0) & (n_c > t) & (n_c < f_o) & (n_c < f_c)
+        skip_t = torch.where(hit_ahead, n_c, f_o)
+        skip_t = torch.maximum(skip_t, t)
+        skip_eps = torch.maximum(torch.maximum(
+            torch.where(hit_ahead, c_side, oct_side) * 1e-4, eps0),
+            skip_t.abs() * 5e-7)
+
+        # ---- merge branches
+        new_t = torch.where(done | outside_u, t,
+                            torch.where(leaf_u, leaf_t,
+                                        torch.where(inside_c, t, skip_t)))
+        new_u = torch.where(done, u,
+                            torch.where(outside_u, torch.zeros_like(u),
+                                        torch.where(leaf_u, rope_u.clamp(min=0),
+                                                    torch.where(inside_c, c, u))))
+        new_eps = torch.where(done | outside_u | inside_c, eps,
+                              torch.where(leaf_u, leaf_eps, skip_eps))
+        # internal-skip stall: t unmoved at the same internal node
+        skip_stall = (~done) & (~outside_u) & (~leaf_u) & (~inside_c) & \
+            (new_t <= t)
+        new_eps = torch.where(skip_stall, torch.maximum(new_eps, eps * 4.0),
+                              new_eps)
+        rope_end = (~done) & (~outside_u) & leaf_u & (rope_u < 0)
+        reached_end = (~inside_c) & (~outside_u) & ((new_t + new_eps) >= t_end)
+        cap_hit = cnt >= H
+        new_done = done | rope_end | reached_end | cap_hit
+        trunc = trunc | ((~done) & cap_hit & (~reached_end) & (~rope_end))
+
+        last = torch.where(emit, u, last)
+        t, u, eps, done = new_t, new_u, new_eps, new_done
+
+    trunc = trunc | ~done  # ~done at exit == hit max_iters
+    return hit_idx, hit_near, hit_far, cnt, trunc, it
+
+
+# ------------------------------------------------------------------ marching
+
+def ray_march_parallel(tree: DeviceTree, rays_o: torch.Tensor,
+                       rays_d: torch.Tensor, hit_idx, hit_near, hit_far,
+                       n_hits, jitter: torch.Tensor, fineness,
+                       sample_l: float, scale_by_dis: bool, max_s: int):
+    """Jittered-grid marcher, no sequential loop:
+
+      per hit h:  step_h = sample_l * fineness / |J(entry) d|
+                  n_h    = floor((far_h - near_h) / step_h)
+      sample k of hit h:  t = near_h + (k + u) * step_h,  u in (0, 1]
+
+    jitter: [R, max_s] in (0, 1] (all-ones for eval). Returns dense buffers
+    out_t [R, max_s], out_dt [R, max_s] (warp-space dt), out_node [R, max_s]
+    i32, n_samples [R] i32, first_oct_dis [R].
+    """
+    R, H = hit_idx.shape
+    dev = rays_o.device
+    first_oct = torch.where(n_hits > 0, hit_near[:, 0],
+                            torch.full_like(hit_near[:, 0], 1e9))
+
+    valid_hit = torch.arange(H, device=dev)[None, :] < n_hits[:, None]
+    node_c = hit_idx.clamp(min=0).long()
+    tr = tree.trans_idx[node_c.reshape(-1)].clamp(min=0)          # [R*H]
+
+    o_rep = rays_o.repeat_interleave(H, dim=0)
+    d_rep = rays_d.repeat_interleave(H, dim=0)
+    xyz = o_rep + d_rep * hit_near.reshape(-1)[:, None]
+    m_rows, w_rows = _warp_rows(tree, tr)
+    pnorm = warp_jac_dir(m_rows, w_rows, xyz, d_rep) + 1e-6        # [R*H]
+    dt_warp = sample_l * fineness * torch.ones_like(pnorm)
+    if scale_by_dis:
+        trl = tr.long()
+        radius = norm3(o_rep - tree.t_center[trl]) / tree.t_dis[trl]
+        dt_warp = dt_warp * torch.clamp(radius, min=1.0)
+    step = (dt_warp / pnorm).reshape(R, H)                         # world
+    dt_warp = dt_warp.reshape(R, H)
+
+    # invalid hit slots evaluate the warp at the camera origin and can give
+    # nan/inf: zero them (they must not reach any sample)
+    good = valid_hit & torch.isfinite(step) & (step > 0)
+    step = torch.where(good, step, torch.zeros_like(step))
+    dt_warp = torch.where(good, dt_warp, torch.zeros_like(dt_warp))
+
+    span = torch.clamp(hit_far - hit_near, min=0.0)
+    n_steps = torch.where(good, torch.floor(span / torch.clamp(step, min=1e-12)),
+                          torch.zeros_like(span))
+    n_steps = torch.clamp(n_steps, max=float(max_s)).to(torch.int64)
+
+    ends = torch.cumsum(n_steps, dim=1)                            # [R, H]
+    starts = ends - n_steps
+    total = ends[:, -1]
+    n_samples = torch.clamp(total, max=max_s)
+
+    # slot s belongs to the first hit whose end exceeds s (empty hits have
+    # start == end and never own a slot); slots past the total own none
+    slots = torch.arange(max_s, device=dev)
+    h_of = torch.searchsorted(ends.contiguous(),
+                              slots[None, :].expand(R, max_s).contiguous(),
+                              right=True)                          # [R, S]
+    h_c = h_of.clamp(max=H - 1)
+    valid_s = slots[None, :] < n_samples[:, None]
+
+    def slot_field(f):
+        return torch.gather(f, 1, h_c)
+
+    near_s = slot_field(hit_near)
+    step_s = slot_field(step)
+    start_s = slot_field(starts).to(torch.float32)
+    dt_s = slot_field(dt_warp)
+    node_s = slot_field(hit_idx)
+
+    k_s = slots[None, :].to(torch.float32) - start_s
+    out_t = near_s + (k_s + jitter) * step_s
+    out_t = torch.where(valid_s, out_t, torch.zeros_like(out_t))
+    out_dt = torch.where(valid_s, dt_s, torch.zeros_like(dt_s))
+    out_node = torch.where(valid_s, node_s, torch.full_like(node_s, -1))
+    return out_t, out_dt, out_node, n_samples.to(torch.int32), first_oct
+
+
+# --------------------------------------------------------------- edge samples
+
+def sample_edges(tree: DeviceTree, edge_idx: torch.Tensor, coord: torch.Tensor):
+    """Points on leaf-face adjacencies, warped into both neighbor frames
+    (GetEdgeSamplesKernel, PersSampler.cu:436-473).
+
+    edge_idx: [n] picks in [0, max(n_edges, 1)); coord: [n, 2] in [-1, 1).
+    Returns (pts [n, 2, 3] warp coords, trans idx [n, 2] i32)."""
+    e = edge_idx.long()
+    world = tree.edge_center[e] + tree.edge_dir0[e] * coord[:, :1] + \
+        tree.edge_dir1[e] * coord[:, 1:]
+    ta = tree.edge_t[e, 0]
+    tb = tree.edge_t[e, 1]
+    pa = apply_warp(tree, ta, world)
+    pb = apply_warp(tree, tb, world)
+    return torch.stack([pa, pb], dim=1), torch.stack([ta, tb], dim=1)
+
+
+def draw_edges(tree: DeviceTree, generator: torch.Generator, n_pts: int):
+    """Random (edge_idx, coord) for ``sample_edges``."""
+    dev = generator.device
+    e = torch.randint(0, max(tree.n_edges, 1), (n_pts,), generator=generator,
+                      device=dev)
+    coord = torch.rand((n_pts, 2), generator=generator, device=dev) * 2.0 - 1.0
+    return e.to(torch.int32), coord
+
+
+# ---------------------------------------------------------- occupancy update
+
+def _scatter_max(base: torch.Tensor, idx: torch.Tensor, src: torch.Tensor):
+    return base.scatter_reduce(0, idx.long(), src, "amax", include_self=True)
+
+
+def compute_occupancy_adders(tree: DeviceTree, node_idx: torch.Tensor,
+                             ray_id: torch.Tensor, weights: torch.Tensor,
+                             alphas: torch.Tensor, n_rays: int) -> dict:
+    """Per-batch occupancy vote tensors (MarkVistNodeKernel,
+    PersSampler.cu:475-534): max-combinable [n_nodes] i32 arrays adder_w,
+    adder_a, mark, visit_max. node_idx/ray_id: [cap] flat sample buffer
+    (padding: ray_id == n_rays, node_idx == -1)."""
+    from ..ops.segment import segment_max
+
+    n_nodes = tree.trans_idx.shape[0]
+    dev = node_idx.device
+    valid = (ray_id < n_rays) & (node_idx >= 0)
+    rid = torch.where(valid, ray_id, torch.full_like(ray_id, n_rays))
+    nid = torch.where(valid, node_idx, torch.full_like(node_idx, n_nodes))
+
+    w = torch.where(valid, weights, torch.zeros_like(weights))
+    a = torch.where(valid, alphas, torch.zeros_like(alphas))
+    ray_max_w = segment_max(w, rid, n_rays)
+    ray_max_a = segment_max(a, rid, n_rays)
+    thres_w = torch.clamp(ray_max_w * REL_WEIGHT_THRES, max=ABS_WEIGHT_THRES)
+    thres_a = torch.clamp(ray_max_a * REL_ALPHA_THRES, max=ABS_ALPHA_THRES)
+    rid_c = torch.clamp(rid, max=n_rays - 1).long()
+    vote_w = valid & (w > thres_w[rid_c])
+    vote_a = valid & (a > thres_a[rid_c])
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    minus1 = torch.full((n_nodes + 1,), -1, **i32)
+    adder_w = _scatter_max(minus1, nid, torch.where(
+        vote_w, torch.full_like(nid, OCC_WEIGHT_BASE), torch.full_like(nid, -1)))
+    adder_a = _scatter_max(minus1, nid, torch.where(
+        vote_a, torch.full_like(nid, OCC_ALPHA_BASE), torch.full_like(nid, -1)))
+    mark = _scatter_max(torch.zeros((n_nodes + 1,), **i32), nid,
+                        valid.to(torch.int32))
+
+    # per-(ray, node) run lengths -> visit_cnt (atomicMax in the reference)
+    prev_n = torch.cat([nid.new_full((1,), -2), nid[:-1]])
+    prev_r = torch.cat([rid.new_full((1,), -2), rid[:-1]])
+    run_first = (nid != prev_n) | (rid != prev_r)
+    run_id = torch.cumsum(run_first.to(torch.int64), dim=0) - 1
+    cap = node_idx.shape[0]
+    run_len = torch.zeros((cap,), **i32).index_add(0, run_id,
+                                                   valid.to(torch.int32))
+    per_sample_len = run_len[run_id]
+    visit_max = _scatter_max(torch.zeros((n_nodes + 1,), **i32),
+                             torch.where(valid & run_first, nid,
+                                         torch.full_like(nid, n_nodes)),
+                             per_sample_len)
+    return dict(adder_w=adder_w[:-1], adder_a=adder_a[:-1], mark=mark[:-1],
+                visit_max=visit_max[:-1])
+
+
+def apply_occupancy_adders(tree: DeviceTree, occ: dict) -> DeviceTree:
+    """Fold vote tensors into the hysteresis counters and cull dead nodes
+    (UpdateOctNodes host formulas + MarkInvalidNodes,
+    PersSampler.cu:536-615). Returns a new DeviceTree (the other tensors
+    are shared)."""
+    adder_w, adder_a = occ["adder_w"], occ["adder_a"]
+    mark = occ["mark"]
+    occ_w = (adder_w > 0).to(torch.int32)
+    wstats = torch.maximum(tree.weight_stats, occ_w * adder_w)
+    wstats = wstats + mark * (1 - occ_w) * adder_w
+    wstats = torch.clamp(wstats, -100, 1 << 20)
+    occ_a = (adder_a > 0).to(torch.int32)
+    astats = torch.maximum(tree.alpha_stats, occ_a * adder_a)
+    astats = astats + mark * (1 - occ_a) * adder_a
+    astats = torch.clamp(astats, -100, 1 << 20)
+
+    trans_idx = torch.where((wstats < 0) | (astats < 0),
+                            torch.full_like(tree.trans_idx, -1), tree.trans_idx)
+    visit_cnt = torch.maximum(tree.visit_cnt, occ["visit_max"])
+    return dataclasses.replace(tree, weight_stats=wstats, alpha_stats=astats,
+                               visit_cnt=visit_cnt, trans_idx=trans_idx)
