@@ -8,12 +8,21 @@ Phases:
   2. build   — compile the hand-written kernels from f2nerf_torch/csrc/.
   3. kernels — each kernel against its plain PyTorch version on the card at
                the slice's shapes: max error against the stated tolerance and
-               the median time of both (CUDA events).
+               the median time of both (CUDA events). K4 also at
+               micro_gather's shape; its slice shape (cap1, cap2) is taken
+               after the slice.
   4. slice   — the ball scene, confs/wanjinyou.yaml at full width with
                +train.fused_adam=true, 20 Trainer.train_one steps on the card;
                losses finite, grads finite, params moved, every kernel
                launched by the main path (launch counters reset just before).
   5. parity  — one step from one saved state with one set of draws on the
+               card (kernels) and on the CPU (plain versions), compared.
+  6. runner  — the port's CLI (f2nerf_torch.run.main) at full width on the
+               ball scene: mode=train for 40 iterations (report, stats, save,
+               vis cadences, then the test render), then mode=render_path
+               from the checkpoint; the artifact set, launch counts of both
+               runs, and Trainer.render_image timed over all 24 cameras.
+  7. eval_parity — one test camera rendered from the saved checkpoint on the
                card (kernels) and on the CPU (plain versions), compared.
   profile    — not run by default: torch.profiler over 3 more slice steps,
                per-span host/device time and the top kernels
@@ -45,10 +54,13 @@ TIME_FROM = 4          # steps 4..20 are timed (the first ones warm up)
 # operations in the same order (K2 rounds its index math per operation),
 # so they agree to a few ulps. K3 sums with atomics in no fixed order: the
 # error grows with the number of terms per table entry, so it is held
-# relative to the largest gradient magnitude.
+# relative to the largest gradient magnitude. K4 copies rows, so it is held
+# to index_select bit for bit.
 TOL_ADAM = 1e-6
 TOL_ENCODE = 1e-6
 TOL_SCATTER_REL = 1e-5
+RUNNER_ITERS = 40      # the runner phase's mode=train iterations
+PHASES = ("device", "build", "kernels", "slice", "parity", "runner", "eval_parity")
 
 
 def log(*a):
@@ -68,6 +80,54 @@ def cuda_time(fn, reps: int = 10) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def wrappers():
+    """Every kernel wrapper, each with its ``launches`` count."""
+    from f2nerf_torch.fields import hash_block as hb
+    from f2nerf_torch.ops import fused_adam as fa
+    from f2nerf_torch.ops import gather as ga
+    return (fa.fused_adam, hb.hash_block_fwd, hb.hash_block_bwd, ga.row_gather)
+
+
+def reset_counts() -> None:
+    for w in wrappers():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {w.__name__: w.launches for w in wrappers()}
+
+
+def check_counts(where: str, counts: dict, need: dict) -> None:
+    for k, lo in need.items():
+        if counts[k] < lo:
+            raise AssertionError(f"{k} launched {counts[k]} times in {where}, "
+                                 f"expected >= {lo}")
+
+
+def gather_check(table, idx, label: str) -> dict:
+    """K4 against index_select on one shape: bit for bit, then the median
+    time of both and the bytes each moves per second (rows read and
+    written, plus the indices)."""
+    from f2nerf_torch.ops import gather as ga
+    got = ga.row_gather(table, idx)
+    want = ga.row_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    err = (got - want).abs().max().item()
+    del got, want
+    ms = cuda_time(lambda: ga.row_gather(table, idx))
+    plain_ms = cuda_time(lambda: ga.row_gather_plain(table, idx))
+    n, w = idx.shape[0], table.shape[1]
+    gbytes = (2 * n * w * 4 + n * idx.element_size()) / 1e9
+    log(f"[kernels] K4 row_gather {label}: table {tuple(table.shape)} f32, n={n} "
+        f"{str(idx.dtype)[6:]}: max_abs_err {err:.3e} (bit for bit: {same}); "
+        f"kernel {ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s), "
+        f"plain {plain_ms:.4f} ms ({gbytes / plain_ms * 1e3:.1f} GB/s)")
+    if not same:
+        raise AssertionError(f"row_gather disagrees with index_select ({label})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
 # ------------------------------------------------------------------ phases
@@ -197,7 +257,34 @@ def phase_kernels() -> list[dict]:
                      source="f2nerf_torch/csrc/hash_block.cu",
                      replaces="f2nerf_tpu/fields/hash_block.py:191",
                      max_abs_err=err3, ms=ms3, plain_ms=plain3))
+    del feat, g, d_k, d_p, out_k, out_p
+
+    # ---- K4 at micro_gather's registered shape (:164): t 2^14, W 128, n 2^20;
+    # the slice's cached-B shape follows the slice (its cap1/cap2)
+    t, n4 = 1 << 14, 1 << 20
+    table = torch.randn((t, 128), generator=gen, device=dev)
+    idx = torch.randint(0, t, (n4,), generator=gen, device=dev).to(torch.int32)
+    r4 = gather_check(table, idx, "micro_gather shape")
+    rows.append(dict(name="row_gather", route="cuda",
+                     source="f2nerf_torch/csrc/row_gather.cu",
+                     replaces="benchmarks/micro_gather.py:102", **r4))
     return rows
+
+
+def kernels_at_slice_caps(rows: list[dict], cap1: int, cap2: int) -> None:
+    """K4 at the slice's cached-B shape: a [cap1, 32] cache of A's encodings,
+    cap2 increasing indices into it (the keep-set compaction keeps order).
+    Its numbers go into K4's row of the kernels JSON line."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cache = torch.randn((cap1, 32), generator=gen, device=dev)
+    idx = torch.randperm(cap1, generator=gen, device=dev)[:cap2].sort().values
+    r4 = gather_check(cache, idx, f"slice cached-B shape (cap1 {cap1}, cap2 {cap2})")
+    for r in rows:
+        if r["name"] == "row_gather":
+            r["max_abs_err"] = max(r["max_abs_err"], r4["max_abs_err"])
+            r["micro_gather_ms"], r["micro_gather_plain_ms"] = r["ms"], r["plain_ms"]
+            r["ms"], r["plain_ms"] = r4["ms"], r4["plain_ms"]
 
 
 def _compose():
@@ -206,9 +293,7 @@ def _compose():
                    ["+train.fused_adam=true"])
 
 
-def phase_slice(tmp: str) -> tuple[dict, object]:
-    from f2nerf_torch.fields import hash_block as hb
-    from f2nerf_torch.ops import fused_adam as fa
+def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
     from f2nerf_torch.train.trainer import Trainer
     from f2nerf_torch.utils.synthetic import write_ball_dataset
     from f2nerf_torch.utils.tree import named_leaves
@@ -226,9 +311,7 @@ def phase_slice(tmp: str) -> tuple[dict, object]:
     p0 = {k: v.detach().clone() for k, v in named_leaves(tr.params)}
     n_leaves = len(p0)
 
-    wrappers = (fa.fused_adam, hb.hash_block_fwd, hb.hash_block_bwd)
-    for w in wrappers:
-        w.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     rays = 0
     t_start = None
@@ -249,7 +332,7 @@ def phase_slice(tmp: str) -> tuple[dict, object]:
             raise AssertionError(f"non-finite gradients at step {step}")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t_start
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = read_counts()
     moved = max((v.detach() - p0[k]).abs().max().item()
                 for k, v in named_leaves(tr.params))
     n_timed = N_STEPS - TIME_FROM + 1
@@ -259,13 +342,10 @@ def phase_slice(tmp: str) -> tuple[dict, object]:
         f"max |param change| {moved:.3e}; launches {launches}")
     if not moved > 0:
         raise AssertionError("params did not move")
-    need = {"fused_adam": N_STEPS * n_leaves, "hash_block_fwd": N_STEPS,
-            "hash_block_bwd": N_STEPS}
-    for k, lo in need.items():
-        if launches[k] < lo:
-            raise AssertionError(f"{k} launched {launches[k]} times in the main "
-                                 f"path, expected >= {lo}")
-    return launches, tr
+    check_counts("the slice", launches, {
+        "fused_adam": N_STEPS * n_leaves, "hash_block_fwd": N_STEPS,
+        "hash_block_bwd": N_STEPS, "row_gather": N_STEPS})
+    return launches, tr, (m["cap1"], m["cap2"])
 
 
 def phase_profile(tr, n_steps: int = 3) -> None:
@@ -355,30 +435,187 @@ def phase_parity(tr) -> None:
         raise AssertionError("card and CPU steps disagree beyond the stated tolerances")
 
 
+def phase_runner(tmp: str):
+    """The port's CLI at full width: mode=train (40 iterations, then the
+    test render), then mode=render_path from the checkpoint. Checks the
+    artifact set and each run's launches; then times Trainer.render_image
+    over all 24 cameras. Returns the render_path run's Runner."""
+    from f2nerf_torch import run as cli
+    from f2nerf_torch.data import dataset as ds
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    from f2nerf_torch.utils.tree import named_leaves
+
+    work = os.path.join(tmp, "work")
+    data_dir = write_ball_dataset(os.path.join(work, "data", "synth", "ball"))
+    cams = np.load(os.path.join(data_dir, "cams_meta.npy"))
+    np.save(os.path.join(data_dir, "poses_render.npy"),
+            np.ascontiguousarray(cams[:3, :12].reshape(-1, 3, 4).astype(np.float64)))
+    args = ["--config-name=wanjinyou", f"+work_dir={work}", "dataset_name=synth",
+            "case_name=ball", "exp_name=smoke", "dataset.factor=1",
+            "+train.fused_adam=true", f"train.end_iter={RUNNER_ITERS}",
+            "train.report_freq=10", "train.vis_freq=20", "train.stats_freq=20",
+            "train.save_freq=30"]
+    cwd = os.getcwd()
+    os.chdir(work)              # the CLI writes runtime_config.yaml here
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        runner = cli.main(args + ["mode=train"])
+        torch.cuda.synchronize()
+        train_counts = read_counts()
+        log(f"[runner] mode=train: {time.perf_counter() - t0:.2f} s; launches "
+            f"{train_counts}")
+        tr = runner.trainer
+        n_leaves = len(list(named_leaves(tr.params)))
+        check_counts("mode=train", train_counts, {
+            "fused_adam": RUNNER_ITERS * n_leaves, "hash_block_fwd": RUNNER_ITERS,
+            "hash_block_bwd": RUNNER_ITERS, "row_gather": RUNNER_ITERS})
+        exp, test_set = runner.base_exp_dir, [int(i) for i in tr.dataset.test_set]
+        del runner, tr
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        t0 = time.perf_counter()
+        runner = cli.main(args + ["mode=render_path", "is_continue=true"])
+        torch.cuda.synchronize()
+        eval_counts = read_counts()
+        log(f"[runner] mode=render_path: {time.perf_counter() - t0:.2f} s; "
+            f"launches {eval_counts}")
+        # eval renders single-pass: one K2 launch per chunk, no cached gather
+        check_counts("mode=render_path", eval_counts, {"hash_block_fwd": 3})
+        if eval_counts["row_gather"] or eval_counts["fused_adam"]:
+            raise AssertionError(f"render_path launched training kernels: {eval_counts}")
+    finally:
+        os.chdir(cwd)
+
+    step = RUNNER_ITERS
+    want = ["train_info.txt", "stats.npy", "cam_pos.ply", "octree.obj",
+            "record/runtime_config.yaml", "record/f2nerf_torch/csrc/row_gather.cu",
+            "test_images/info.yaml", "test_images/info.json",
+            "checkpoints/00000030/state.npz", "checkpoints/latest/state.npz"]
+    want += [f"test_images/{k}_{step}_{i:03d}.png" for i in test_set
+             for k in ("color", "depth", "oct_depth")]
+    # the vis panels of iterations 20 and 40 (a swallowed vis failure fails here)
+    want += [f"images/{s}_{test_set[(s // 20) % len(test_set)]}.png" for s in (20, 40)]
+    want += [f"novel_images/{step}_{i:03d}.png" for i in range(3)]
+    missing = [w for w in want if not os.path.exists(os.path.join(exp, w))]
+    if missing:
+        raise AssertionError(f"the runner did not write {missing}")
+    with np.load(os.path.join(exp, "checkpoints", "latest", "state.npz")) as z:
+        if int(z["iter_step"]) != step:
+            raise AssertionError(f"checkpoints/latest is at {int(z['iter_step'])}")
+    import yaml
+    with open(os.path.join(exp, "test_images", "info.yaml")) as f:
+        info = yaml.safe_load(f)
+    with open(os.path.join(exp, "test_images", "info.json")) as f:
+        full = json.load(f)
+    log(f"[runner] test PSNR after {step} iterations: {info} (a smoke value); "
+        f"mean SSIM {full['ssim']['mean']:.4f}; lpips {full['lpips']['mean']}")
+    if not (np.isfinite(info["mean_psnr"]) and full["lpips"]["mean"] is None):
+        raise AssertionError(f"bad test metrics: {info}")
+
+    # eval throughput: every camera's rays in one render_image call
+    tr = runner.trainer
+    h, w = tr.dataset.height, tr.dataset.width
+    rays = [ds.camera_rays(tr.data, i, h, w) for i in range(tr.dataset.n_images)]
+    ro = torch.cat([r[0] for r in rays])
+    rd = torch.cat([r[1] for r in rays])
+    chunk = int(tr.cfg.get("eval", {}).get("chunk", 4096))
+    tr.render_image(ro, rd)                               # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        colors, _, _ = tr.render_image(ro, rd)            # returns host arrays
+        secs.append(time.perf_counter() - t0)
+    n = ro.shape[0]
+    log(f"[runner] render_image over {tr.dataset.n_images} cameras: {n} rays in "
+        f"{-(-n // chunk)} chunks of {chunk}: {[round(s, 4) for s in secs]} s, "
+        f"{n / min(secs):.1f} rays/s, {min(secs) / tr.dataset.n_images:.4f} s per "
+        f"{h}x{w} image; chunks rendered again {len(tr.last_redo)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not np.isfinite(colors).all():
+        raise AssertionError("non-finite colours in render_image")
+    return runner
+
+
+def phase_eval_parity(runner) -> None:
+    """One test camera from the saved checkpoint: render_image on the card
+    (kernels) and on the CPU (plain versions), held to EVAL_TOL
+    (f2nerf_torch/utils/parity.py), the same chunks rendered again."""
+    from f2nerf_torch.data import dataset as ds
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.parity import EVAL_TOL, eval_agrees, image_errors
+
+    card = runner.trainer
+    cpu = Trainer(card.cfg, card.base_exp_dir, card.dataset.data_path,
+                  device="cpu", tree_host=card.tree_host)
+    cpu.load_checkpoint()
+    if (cpu.iter_step, cpu.hit_cap, cpu.ema_sampled) != \
+            (card.iter_step, card.hit_cap, card.ema_sampled):
+        raise AssertionError("the CPU trainer did not load the card's state")
+    cam = int(cpu.dataset.test_set[0])
+    ro, rd = ds.camera_rays(cpu.data, cam, cpu.dataset.height, cpu.dataset.width)
+    out, secs, redo = {}, {}, {}
+    for name, t in (("cuda", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        out[name] = t.render_image(ro, rd)
+        secs[name], redo[name] = time.perf_counter() - t0, list(t.last_redo)
+    (ca, da, oa), (cb, db, ob) = out["cuda"], out["cpu"]
+    err = image_errors(ca, da, cb, db)
+    oct_err = float(np.abs(oa - ob).max())
+    log(f"[eval_parity] camera {cam}, {ro.shape[0]} rays: errors {err}, "
+        f"first_oct_dis {oct_err:.3e} (tolerances {EVAL_TOL}); chunks rendered "
+        f"again cuda {redo['cuda']} cpu {redo['cpu']}; seconds cuda "
+        f"{secs['cuda']:.2f} cpu {secs['cpu']:.2f}")
+    if redo["cuda"] != redo["cpu"]:
+        raise AssertionError("card and CPU rendered different chunks again")
+    if not (eval_agrees(err, exact=False) and oct_err <= EVAL_TOL["oct_atol"]):
+        raise AssertionError("card and CPU images disagree beyond the stated tolerances")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,build,kernels,slice,parity")
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    full = set(phases) == {"device", "build", "kernels", "slice", "parity"}
+    full = set(phases) == set(PHASES)
+    walls = {}
 
-    dev_info = phase_device()           # raises without CUDA, before any result
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = round(time.perf_counter() - t0, 2)
+        log(f"[time] phase {name}: {walls[name]} s")
+        return out
+
+    dev_info = timed("device", phase_device)   # raises without CUDA, before any result
     if "build" in phases:
-        phase_build()
-    rows = phase_kernels() if "kernels" in phases else []
+        timed("build", phase_build)
+    rows = timed("kernels", phase_kernels) if "kernels" in phases else []
     launches = {}
     with tempfile.TemporaryDirectory(prefix="f2smoke_") as tmp:
         if "slice" in phases:
-            launches, tr = phase_slice(tmp)
+            launches, tr, (cap1, cap2) = timed("slice", phase_slice, tmp)
+            if rows:
+                timed("kernels_at_slice_caps", kernels_at_slice_caps, rows, cap1, cap2)
             if "profile" in phases:
-                phase_profile(tr)
+                timed("profile", phase_profile, tr)
             if "parity" in phases:
-                phase_parity(tr)
+                timed("parity", phase_parity, tr)
+            del tr
+            torch.cuda.empty_cache()
+        if "runner" in phases:
+            runner = timed("runner", phase_runner, tmp)
+            if "eval_parity" in phases:
+                timed("eval_parity", phase_eval_parity, runner)
+    log(f"[time] phases (s): {walls}")
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(sorted(set(r) - set(keys)))}
+                                  for r in rows]}))
     print(f"card: {dev_info['smi']}")
     if not full:
         return 0

@@ -144,6 +144,45 @@ def sample_rays(data: dict, cam_pick: torch.Tensor, i: torch.Tensor,
     return rays_o, rays_d, bounds, gt, img_idx.to(torch.int32)
 
 
+def _pixel_grid(height: int, width: int, reso_level: int, device):
+    """Row/col pixel centres [h*w] of the full-image grid: the f32 values
+    of the JAX package's ``jnp.linspace(0, H-1, h) + 0.5``. XLA compiles
+    that linspace to ``k * (stop * (1/(num-1)))`` with the factor rounded
+    to f32 once (then ``stop`` itself last), which is not what a plain f32
+    ``k/(num-1)*stop`` gives; the rays must match bit for bit."""
+    def linspace(stop: float, num: int) -> np.ndarray:
+        if num == 1:
+            return np.zeros((1,), np.float32)
+        step = np.float32(stop) * (np.float32(1.0) / np.float32(num - 1))
+        out = np.arange(num - 1, dtype=np.float32) * step
+        return np.concatenate([out, np.array([stop], np.float32)])
+    h, w = height // reso_level, width // reso_level
+    i = linspace(height - 1.0, h) + np.float32(0.5)
+    j = linspace(width - 1.0, w) + np.float32(0.5)
+    ii, jj = np.meshgrid(i, j, indexing="ij")
+    return (torch.from_numpy(ii.reshape(-1)).to(device),
+            torch.from_numpy(jj.reshape(-1)).to(device))
+
+
+def camera_rays(data: dict, cam_idx: int, height: int, width: int,
+                reso_level: int = 1):
+    """Full-image ray grid of camera ``cam_idx`` (RaysOfCamera,
+    Dataset.cpp:177-196): (rays_o, rays_d) [h*w, 3] on the data's device."""
+    dev = data["poses"].device
+    ii, jj = _pixel_grid(height, width, reso_level, dev)
+    return camera.pixel_to_ray(data["poses"][cam_idx], data["intri"][cam_idx],
+                               data["dist"][cam_idx], ii, jj)
+
+
+def pose_rays(data: dict, pose, height: int, width: int, reso_level: int = 1):
+    """Rays from an arbitrary c2w pose [3, 4] with camera-0 intrinsics
+    (RaysFromPose, Dataset.cpp:198-218)."""
+    dev = data["poses"].device
+    ii, jj = _pixel_grid(height, width, reso_level, dev)
+    pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    return camera.pixel_to_ray(pose, data["intri"][0], data["dist"][0], ii, jj)
+
+
 def glob_images(data_path: str, factor: float) -> list[str]:
     """Image paths under images_{factor}/ (scripts/run.py:18-34 semantics)."""
     import glob
@@ -161,3 +200,16 @@ def glob_images(data_path: str, factor: float) -> list[str]:
         raise FileNotFoundError(f"No image found under {data_path}")
     image_list.sort()
     return image_list
+
+
+def make_image_list(data_path: str, factor: float) -> str | None:
+    """Create image_list.txt (scripts/run.py:18-34); returns None when the
+    dataset dir is read-only (loader then falls back to glob_images)."""
+    image_list = glob_images(data_path, factor)
+    out = os.path.join(data_path, "image_list.txt")
+    try:
+        with open(out, "w") as f:
+            f.write("\n".join(image_list) + "\n")
+    except OSError:
+        return None
+    return out

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops.gather import row_gather
 from .hash_encoding import N_CHANNELS, N_LEVELS, _random_primes, level_scales
 
 BLOCK_CELLS = 3
@@ -238,7 +239,7 @@ class _GatherCached(torch.autograd.Function):
                 cached_feat, src_idx):
         ctx.save_for_backward(prim, bias, pts, vol)
         ctx.meta = (log2_table_size, tuple(feat.shape))
-        return cached_feat.detach()[src_idx.long()]
+        return row_gather(cached_feat.detach(), src_idx)
 
     @staticmethod
     def backward(ctx, g):
@@ -253,7 +254,8 @@ def hash_block_gather_cached(feat_tables, prim_pool, bias_pool, points01,
                              src_idx):
     """Encode ``points01`` given that ``cached_feat[src_idx]`` already holds
     this exact encoding (the no-grad prefilter pass over the superset A
-    buffer). Forward: one row gather of the cache. Backward: the same
-    table-gradient scatter as ``hash_block_encode`` (K3)."""
+    buffer). Forward: one row gather of the cache (K4, ops/gather.py).
+    Backward: the same table-gradient scatter as ``hash_block_encode``
+    (K3)."""
     return _GatherCached.apply(feat_tables, prim_pool, bias_pool, points01,
                                vol_idx, log2_table_size, cached_feat, src_idx)

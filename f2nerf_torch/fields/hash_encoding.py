@@ -36,14 +36,17 @@ def _small_primes(limit: int) -> np.ndarray:
 def _random_primes(seeds: np.ndarray) -> np.ndarray:
     """Advance each seed to the next prime (vectorized; init only).
     Candidates are < 2^30, so trial division by primes <= 2^15 is exact.
-    Runs in chunks of 2048 seeds to bound the [seeds, primes] temporary."""
+    Runs in chunks of 2048 seeds to bound the [seeds, primes] temporary,
+    and tests only the candidates still composite."""
     primes = _small_primes(1 << 15)[1:]  # odd primes
     cand = (np.asarray(seeds, np.int64) | 1).copy()
     for lo in range(0, cand.shape[0], 2048):
         part = cand[lo:lo + 2048]
+        active = np.arange(part.shape[0])
         for _ in range(200):
-            composite = (part[:, None] % primes[None, :] == 0).any(axis=1)
-            if not composite.any():
+            composite = (part[active, None] % primes[None, :] == 0).any(axis=1)
+            active = active[composite]
+            if not active.size:
                 break
-            part[composite] += 2
+            part[active] += 2
     return cand

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by nvcc into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds),
+All ``csrc/*.cu`` files are compiled by nvcc (one process per source, in
+parallel) and linked into one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds),
 targeting Hopper (``sm_90a``), and loaded with ctypes. The library is
 built at first use into ``f2nerf_torch/_build/`` under a name keyed by a
 hash of the sources and flags, so an edited kernel is rebuilt and a
@@ -41,6 +42,7 @@ _SIGNATURES = {
                           _i, _i, _i, _vp],
     "f2_hash_block_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                           _i, _i, _i, _vp],
+    "f2_row_gather": [_vp, _vp, _i, _vp, _ll, _i, _vp],
 }
 
 
@@ -77,22 +79,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libf2kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise on the first failure; return their
+    stderr (ptxas's report) joined."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}"
+                               f"\n{out}\n{err}")
+    return "".join(err for _, err in outs)
+
+
 def build() -> Path:
-    """Compile the kernels if no current build exists; return the path."""
+    """Compile the kernels if no current build exists; return the path.
+    One nvcc per source, all started together, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+    ptxas = _run_all([[_nvcc(), *flags, "-c", "-o", str(o), str(src)]
+                      for src, o in zip(sources(), objs)])
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, so)
     _state.build_seconds = time.perf_counter() - t0
-    _state.ptxas_log = proc.stderr
+    _state.ptxas_log = ptxas
     return so
 
 

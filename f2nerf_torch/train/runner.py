@@ -1,0 +1,252 @@
+"""Experiment runner: mode dispatch, eval rendering, artifact output (port of
+``f2nerf_tpu/train/runner.py``; reference ExpRunner.{h,cpp}).
+
+  * execute() dispatches on mode in {train, test, render_path, render_all}
+    (ExpRunner.cpp:393-407);
+  * train(): the loop with report/vis/stats/save cadences, stats.npy MSE
+    history, train_info.txt wall time, final test_images()
+    (ExpRunner.cpp:65-186), one ``Trainer.train_one`` per iteration;
+  * test_images(): whole-image renders of the test split, uint8-quantized
+    PSNR and SSIM, color/depth/oct_depth PNGs, test_images/info.yaml and
+    info.json (ExpRunner.cpp:343-391);
+  * render_path(): novel_images/ renders along poses_render.npy
+    (ExpRunner.cpp:322-341);
+  * visualize_image(): 4-panel GT | pred | oct-depth | disparity PNGs
+    (ExpRunner.cpp:301-320).
+
+Not ported: the JAX package's ``F2_JAX_PROFILE`` trace window and the
+``reset`` flag (``Trainer.reset`` raises), ROADMAP.md queue 1. Every
+process writes the outputs, as in the JAX package; the port has one.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import threading
+import time
+
+import numpy as np
+import yaml
+
+from ..data import dataset as ds
+from ..utils import io
+from ..utils.metrics import make_lpips, psnr_float, rgb_ssim
+from .trainer import Trainer
+
+
+class Runner:
+    def __init__(self, cfg: dict):
+        self.cfg = cfg
+        self.base_exp_dir = cfg["base_exp_dir"]
+        data_path = cfg["dataset"]["data_path"]
+        os.makedirs(self.base_exp_dir, exist_ok=True)
+
+        t0 = time.time()
+        self.trainer = Trainer(cfg, self.base_exp_dir, data_path,
+                               device=cfg.get("device", "cuda"))
+        print(f"Trainer built in {time.time() - t0:.1f}s", flush=True)
+        io.export_pcd(os.path.join(self.base_exp_dir, "cam_pos.ply"),
+                      self.trainer.dataset.poses[:, :3, 3])
+        io.export_octree_obj(os.path.join(self.base_exp_dir, "octree.obj"),
+                             self.trainer.tree_host)
+
+        if cfg.get("is_continue"):
+            self.trainer.load_checkpoint()
+        if cfg.get("reset"):
+            self.trainer.reset()
+
+        t = cfg["train"]
+        self.end_iter = int(t["end_iter"])
+        self.report_freq = int(t["report_freq"])
+        self.vis_freq = int(t["vis_freq"])
+        self.stats_freq = int(t["stats_freq"])
+        self.save_freq = int(t["save_freq"])
+
+    # ------------------------------------------------------------------ modes
+
+    def execute(self):
+        mode = self.cfg["mode"]
+        if mode == "train":
+            self.train()
+        elif mode == "test":
+            self.test_images()
+        elif mode == "render_path":
+            self.render_path()
+        elif mode == "render_all":
+            self.render_all_images()
+        else:
+            raise ValueError(f"Unknown mode {mode!r}")
+
+    def train(self):
+        tr = self.trainer
+        t_start = time.time()
+        # Graceful preemption: SIGTERM/SIGINT finish the current iteration,
+        # save the exact state, then run the end-of-train flow (test render
+        # + train_info) instead of dying mid-step. The reference has no
+        # equivalent (ExpRunner.cpp:180-186 saves only at end_iter).
+        stop_sig = {"n": None}
+        prev_handlers = {}
+        # signal.signal raises off the main thread; skip the graceful-stop
+        # hook there (a worker-thread train() still trains, just without it)
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev_handlers[sig] = signal.signal(
+                    sig, lambda n, f: stop_sig.__setitem__("n", n))
+        try:
+            self._train_loop(tr, stop_sig, time.time())
+        finally:
+            # an exception mid-loop must not leave the swallow-and-flag
+            # handlers installed (later SIGINT/SIGTERM would be ignored)
+            for sig, h in prev_handlers.items():
+                signal.signal(sig, h)
+        if stop_sig["n"] is not None:
+            print(f"Graceful stop (signal {stop_sig['n']}) at iter "
+                  f"{tr.iter_step}; saving state.", flush=True)
+        # final state must always be on disk, whether or not end_iter lands
+        # on the save cadence
+        if stop_sig["n"] is not None or self.end_iter % self.save_freq != 0:
+            tr.save_checkpoint()
+        with open(os.path.join(self.base_exp_dir, "train_info.txt"), "w") as f:
+            f.write(f"{time.time() - t_start}\n")
+        print("Train done, test.", flush=True)
+        self.test_images()
+
+    def _train_loop(self, tr, stop_sig, t_report):
+        while tr.iter_step < self.end_iter and stop_sig["n"] is None:
+            m = tr.train_one()
+            step = tr.iter_step
+            if step % self.stats_freq == 0:
+                np.save(os.path.join(self.base_exp_dir, "stats.npy"),
+                        np.asarray(tr.mse_records, np.float32))
+            # checkpoint BEFORE the vis render: the vis is the riskiest call
+            # at a cadence step (fresh eval shapes, the biggest buffers)
+            if step % self.save_freq == 0:
+                tr.save_checkpoint()
+            if step % self.vis_freq == 0 and len(tr.dataset.test_set):
+                vis_idx = int(tr.dataset.test_set[
+                    (step // self.vis_freq) % len(tr.dataset.test_set)])
+                try:
+                    t_vis = time.time()
+                    self.visualize_image(vis_idx)
+                    print(f"[vis] image {vis_idx} rendered in "
+                          f"{time.time() - t_vis:.1f}s", flush=True)
+                except Exception as e:  # noqa: BLE001
+                    # a vis render must never kill a long training run (e.g.
+                    # an eval-capacity OOM at an unlucky tree state);
+                    # training state is untouched — log and continue
+                    print(f"[vis] render failed at iter {step}: {e!r} "
+                          "(training continues)", flush=True)
+            if m and step % self.report_freq == 0:
+                ips = self.report_freq / max(time.time() - t_report, 1e-6)
+                t_report = time.time()
+                trunc = (f" TravTrunc: {tr.trunc_ema:.2f}"
+                         if tr.trunc_ema > 0.005 else "")
+                trunc += (f" SampleSat: {tr.sat_ema:.2f}"
+                          if getattr(tr, "sat_ema", 0.0) > 0.005 else "")
+                trunc += (f" GradTrunc: {tr.b_trunc_ema:.2f}"
+                          if getattr(tr, "b_trunc_ema", 0.0) > 0.005 else "")
+                print(f"Iter: {step:>6d} PSNR: {tr.psnr_smooth:.2f} "
+                      f"NRays: {m['n_rays']:>5d} OctSamples: {tr.ema_oct:.1f} "
+                      f"Samples: {tr.ema_sampled:.1f} "
+                      f"MeaningfulSamples: {tr.ema_meaningful:.1f} "
+                      f"IPS: {ips:.2f}{trunc}", flush=True)
+
+    # ------------------------------------------------------------- rendering
+
+    def _render_camera(self, idx: int):
+        tr = self.trainer
+        ro, rd = ds.camera_rays(tr.data, idx, tr.dataset.height, tr.dataset.width)
+        return tr.render_image(ro, rd)
+
+    def _finalize_disp(self, colors, disp, oct_d, h, w):
+        disp = disp / max(float(disp.max()), 1e-9)
+        oct_d = float(oct_d.min()) / np.maximum(oct_d, 1e-9)
+        return (colors.reshape(h, w, 3), disp.reshape(h, w, 1),
+                oct_d.reshape(h, w, 1))
+
+    def visualize_image(self, idx: int):
+        tr = self.trainer
+        h, w = tr.dataset.height, tr.dataset.width
+        colors, disp, oct_d = self._render_camera(idx)
+        colors, disp, oct_d = self._finalize_disp(colors, disp, oct_d, h, w)
+        gt = tr.dataset.images[idx].astype(np.float32) / 255.0
+        panel = np.concatenate(
+            [gt, colors, np.repeat(oct_d, 3, -1), np.repeat(disp, 3, -1)], axis=1)
+        io.write_image(os.path.join(self.base_exp_dir, "images",
+                                    f"{tr.iter_step}_{idx}.png"), panel)
+
+    def test_images(self):
+        tr = self.trainer
+        h, w = tr.dataset.height, tr.dataset.width
+        out_dir = os.path.join(self.base_exp_dir, "test_images")
+        os.makedirs(out_dir, exist_ok=True)
+        lpips_fn = make_lpips()   # None without the lpips package
+        info = {}
+        full = {"psnr": {}, "ssim": {}, "lpips": {}}
+        psnrs, ssims, lpipss = [], [], []
+        for idx in map(int, tr.dataset.test_set):
+            t_img = time.time()
+            colors, disp, oct_d = self._render_camera(idx)
+            colors, disp, oct_d = self._finalize_disp(colors, disp, oct_d, h, w)
+            # quantize before PSNR (ExpRunner.cpp:349-369)
+            pred = np.round(np.clip(colors, 0, 1) * 255.0) / 255.0
+            gt = tr.dataset.images[idx].astype(np.float32) / 255.0
+            psnr = psnr_float(gt, pred)
+            ssim = rgb_ssim(gt, pred)
+            info[str(idx)] = float(psnr)
+            full["psnr"][str(idx)] = float(psnr)
+            full["ssim"][str(idx)] = float(ssim)
+            psnrs.append(psnr)
+            ssims.append(ssim)
+            if lpips_fn is not None:
+                lp = lpips_fn((gt * 255).astype(np.float32),
+                              (pred * 255).astype(np.float32))
+                full["lpips"][str(idx)] = lp
+                lpipss.append(lp)
+            print(f"{idx}: psnr {psnr:.3f} ssim {ssim:.4f} "
+                  f"({time.time() - t_img:.1f}s)", flush=True)
+            step = tr.iter_step
+            io.write_image(os.path.join(out_dir, f"color_{step}_{idx:03d}.png"), pred)
+            io.write_image(os.path.join(out_dir, f"depth_{step}_{idx:03d}.png"),
+                           np.repeat(disp, 3, -1))
+            io.write_image(os.path.join(out_dir, f"oct_depth_{step}_{idx:03d}.png"),
+                           np.repeat(oct_d, 3, -1))
+        info["mean_psnr"] = float(np.mean(psnrs)) if psnrs else 0.0
+        full["psnr"]["mean"] = info["mean_psnr"]
+        full["ssim"]["mean"] = float(np.mean(ssims)) if ssims else 0.0
+        full["lpips"]["mean"] = float(np.mean(lpipss)) if lpipss else None
+        print(f"Mean psnr: {info['mean_psnr']} "
+              f"mean ssim: {full['ssim']['mean']:.4f}", flush=True)
+        with open(os.path.join(out_dir, "info.yaml"), "w") as f:
+            yaml.safe_dump(info, f)
+        with open(os.path.join(out_dir, "info.json"), "w") as f:
+            json.dump(full, f, indent=2)
+        return info
+
+    def render_path(self, reso_level: int = 1):
+        tr = self.trainer
+        poses = tr.dataset.render_poses
+        if poses is None:
+            raise FileNotFoundError("poses_render.npy not found in dataset")
+        # optional frame cap (override: +render_path_frames=N)
+        n_cap = int(self.cfg.get("render_path_frames") or 0)
+        if n_cap > 0:
+            poses = poses[:n_cap]
+        h = tr.dataset.height // reso_level
+        w = tr.dataset.width // reso_level
+        for i in range(poses.shape[0]):
+            ro, rd = ds.pose_rays(tr.data, poses[i], tr.dataset.height,
+                                  tr.dataset.width, reso_level)
+            colors, disp, oct_d = tr.render_image(ro, rd)
+            colors, disp, oct_d = self._finalize_disp(colors, disp, oct_d, h, w)
+            panel = np.concatenate(
+                [colors, np.repeat(oct_d, 3, -1), np.repeat(disp, 3, -1)], axis=1)
+            io.write_image(os.path.join(self.base_exp_dir, "novel_images",
+                                        f"{tr.iter_step}_{i:03d}.png"), panel)
+            print(i, flush=True)
+
+    def render_all_images(self):
+        for idx in range(self.trainer.dataset.n_images):
+            self.visualize_image(idx)

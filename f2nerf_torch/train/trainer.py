@@ -357,6 +357,32 @@ def make_core(cfg: dict, statics: RenderStatics, height: int, width: int):
     return core
 
 
+def make_render_fn(statics: RenderStatics):
+    """No-grad chunk renderer for eval/vis (RenderWholeImage,
+    ExpRunner.cpp:257-293): image index 0 for every ray, gradient-scaling
+    progress 1. Returns fn(params, consts, tree, rays_o, rays_d, fineness)
+    -> (colors, disparity, first_oct_dis, trunc), where ``trunc`` is the
+    truncation indicator: flat-buffer overflow plus the rays that hit the
+    dense per-ray cap (their tail samples were dropped), so the caller can
+    render a truncated chunk again at a higher capacity."""
+    check_supported(statics)
+
+    def fn(params, consts, tree, rays_o, rays_d, fineness):
+        dev = rays_o.device
+        with torch.no_grad():
+            result, _ = render(params, consts, tree, rays_o, rays_d,
+                               torch.zeros((rays_o.shape[0],), dtype=torch.int32,
+                                           device=dev),
+                               None, fineness,
+                               torch.ones((), dtype=torch.float32, device=dev),
+                               statics)
+        trunc = result["stats"]["overflow_a"] + result["stats"]["n_saturated"]
+        return (result["colors"], result["disparity"], result["first_oct_dis"],
+                trunc)
+
+    return fn
+
+
 class Trainer:
     """Host-side training orchestration (ExpRunner::Train) on one device.
 
@@ -540,6 +566,98 @@ class Trainer:
                 f"octree maintenance is due at iteration {self.iter_step} "
                 "(milestone subdivision / compaction, native/) and is not "
                 "ported yet: ROADMAP.md queue 1, 'octree maintenance'")
+
+    def reset(self):
+        """The config's ``reset`` flag (re-initialise field and shader
+        params, Hash3DAnchored.cpp:152-155) is not ported."""
+        raise NotImplementedError("Trainer.reset (the `reset` flag) is not "
+                                  "ported yet: ROADMAP.md queue 1, "
+                                  "'off-main-path variants'")
+
+    # -------------------------------------------------------------- rendering
+
+    def _eval_fn_for(self, chunk: int, max_s: int, cap1: int | None = None):
+        """Eval renderer. With cap1 = chunk * max_s capacities are exact
+        (flat-buffer overflow impossible); a leaner cap1 is allowed because
+        the returned truncation indicator triggers an exact re-render.
+        Single-pass: with no backward there is nothing to save by
+        prefiltering."""
+        cap1 = cap1 or chunk * max_s
+        key = (chunk, max_s, cap1, self.hit_cap)
+        if not hasattr(self, "_eval_fns"):
+            self._eval_fns = {}
+        if key not in self._eval_fns:
+            st = render_statics(self.cfg, chunk, self.dataset.near, train=False,
+                                max_s=max_s, cap1=cap1, cap2=cap1,
+                                max_hits=self.hit_cap)
+            st = st._replace(single_pass=True)
+            self._eval_fns[key] = make_render_fn(st)
+        return self._eval_fns[key]
+
+    def render_image(self, rays_o, rays_d, chunk: int | None = None,
+                     max_s: int = 512, max_s_hi: int = 1024):
+        """Chunked no-grad whole-image render of rays [n, 3] (numpy or
+        tensors). Returns (colors, disparity, first_oct_disp) as numpy
+        [n, ...].
+
+        Two-tier: chunks render with a lean flat capacity sized off the
+        training sample EMA first; any chunk reporting truncation (flat
+        overflow or a ray at the dense cap) is rendered again with exact
+        capacities at ``max_s_hi``. The last chunk is padded with rays
+        (o = 0, d = 1), which count in its truncation indicator as in the
+        JAX package. All chunks are launched before their indicators are
+        read (one device-to-host copy). ``last_redo`` keeps the start rays
+        of the chunks rendered again. Chunk size: ``eval.chunk`` (4096)."""
+        if chunk is None:
+            chunk = int(self.cfg.get("eval", {}).get("chunk", 4096))
+        dev = self.device
+        rays_o, rays_d = (torch.as_tensor(np.array(r, np.float32)) if
+                          isinstance(r, np.ndarray) else r.to(torch.float32)
+                          for r in (rays_o, rays_d))
+        rays_o, rays_d = rays_o.to(dev), rays_d.to(dev)
+        cap_fast = cap_bucket(min(max(2.0 * self.ema_sampled, 64.0) * chunk,
+                                  chunk * max_s))
+        fast = self._eval_fn_for(chunk, max_s, cap_fast)
+        n = rays_o.shape[0]
+        fineness = torch.tensor(
+            schedules.ray_march_fineness(self.iter_step, self.cfg["train"]),
+            dtype=torch.float32, device=dev)
+        colors = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        disp = torch.zeros((n,), dtype=torch.float32, device=dev)
+        oct_d = torch.ones((n,), dtype=torch.float32, device=dev)
+
+        def launch(fn, lo, span):
+            hi = min(lo + chunk, n)
+            ro = torch.zeros((chunk, 3), dtype=torch.float32, device=dev)
+            rd = torch.ones((chunk, 3), dtype=torch.float32, device=dev)
+            ro[: hi - lo] = rays_o[lo:hi]
+            rd[: hi - lo] = rays_d[lo:hi]
+            with torch.profiler.record_function(span):
+                return lo, hi, fn(self.params, self.consts, self.tree, ro, rd,
+                                  fineness)
+
+        def store(lo, hi, c, d, f):
+            colors[lo:hi] = c[: hi - lo]
+            disp[lo:hi] = d[: hi - lo]
+            oct_d[lo:hi] = f[: hi - lo]
+
+        pending = [launch(fast, lo, "eval.chunk") for lo in range(0, n, chunk)]
+        trunc = torch.stack([out[3] for _, _, out in pending]).cpu().tolist() \
+            if pending else []
+        redo = []
+        for (lo, hi, (c, d, f, _)), ov in zip(pending, trunc):
+            if max_s < max_s_hi and ov > 0:
+                redo.append(lo)
+                continue
+            store(lo, hi, c, d, f)
+        del pending
+        if redo:
+            slow = self._eval_fn_for(chunk, max_s_hi)
+            for lo in redo:
+                lo, hi, (c, d, f, _) = launch(slow, lo, "eval.chunk_exact")
+                store(lo, hi, c, d, f)
+        self.last_redo = redo
+        return colors.cpu().numpy(), disp.cpu().numpy(), oct_d.cpu().numpy()
 
     # ------------------------------------------------------------- checkpoints
 
