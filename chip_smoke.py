@@ -6,15 +6,21 @@
 Phases:
   1. device  — refuse to run without CUDA; print the card and its power limit.
   2. build   — compile the hand-written kernels from f2nerf_torch/csrc/.
-  3. kernels — each kernel against its plain PyTorch version on the card at
-               the slice's shapes: max error against the stated tolerance and
-               the median time of both (CUDA events). K4 also at
-               micro_gather's shape; its slice shape (cap1, cap2) is taken
-               after the slice.
+  3. kernels — each kernel against its plain PyTorch version on the card:
+               max error against the stated tolerance, the median time of
+               both (CUDA events), the bound (bytes over 3.35 TB/s) and the
+               library call where one computes the same function
+               (torch._fused_adam_ for K1, in turns; index_select for K4).
+               K2/K3 at a uniform shape (n 393,216, a random volume per
+               sample), K4 at micro_gather's shape; after the slice, each
+               again at the slice's own inputs (kernels_at_slice_inputs:
+               K2 on A at cap1 and K3 on B at cap2 plus the edge samples,
+               captured from one more step, with that step's gradient).
   4. slice   — the ball scene, confs/wanjinyou.yaml at full width with
                +train.fused_adam=true, 20 Trainer.train_one steps on the card;
                losses finite, grads finite, params moved, every kernel
-               launched by the main path (launch counters reset just before).
+               launched by the main path (launch counters reset just before),
+               the table-gradient scatter K3 exactly once a step.
   5. parity  — one step from one saved state with one set of draws on the
                card (kernels) and on the CPU (plain versions), compared.
   6. runner  — the port's CLI (f2nerf_torch.run.main) at full width on the
@@ -61,14 +67,26 @@ TOL_ENCODE = 1e-6
 TOL_SCATTER_REL = 1e-5
 RUNNER_ITERS = 40      # the runner phase's mode=train iterations
 PHASES = ("device", "build", "kernels", "slice", "parity", "runner", "eval_parity")
+# a kernel's bound: the bytes it must move (each input read once, each
+# output written once) over the H100 SXM's 3.35 TB/s HBM3; none of these
+# kernels is near its operations bound
+HBM_BYTES_PER_S = 3.35e12
+NO_LIBRARY = "none: no single PyTorch call computes the hashed trilinear " \
+             "encode or its scatter"
 
 
 def log(*a):
     print(*a, flush=True)
 
 
+def bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def cuda_time(fn, reps: int = 10) -> float:
-    """Median milliseconds of fn() over reps, CUDA events, after a warm-up."""
+    """Median milliseconds of fn() over reps, CUDA events, after a warm-up.
+    L2 is warm: each launch finds what the one before it left there, as
+    the step's caller finds the inputs it has just written."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -80,6 +98,28 @@ def cuda_time(fn, reps: int = 10) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def cuda_time_turns(fns: dict, rounds: int = 3) -> dict:
+    """Median ms of each function, timed in turns (a, b, b, a, a, b, ...)
+    so that the card's state drifts alike for all of them."""
+    times = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            times[k].append(cuda_time(fns[k]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def touched_rows(prim, bias, pts, vol, l2t: int) -> int:
+    """Distinct (level, row) pairs these samples touch: K2 must read that
+    many 512-B rows of the table, and K3 adds into that many."""
+    from f2nerf_torch.fields import hash_block as hb
+    from f2nerf_torch.fields.hash_encoding import level_scales
+    nb, sc, vol = hb.n_blocks(l2t), level_scales(), vol.long()
+    keys = [l * nb + hb._locate(pts, prim[l, vol], bias[l, vol], float(sc[l]), nb)[0]
+            for l in range(len(sc))]
+    return int(torch.unique(torch.cat(keys)).numel())
 
 
 def wrappers():
@@ -99,11 +139,15 @@ def read_counts() -> dict:
     return {w.__name__: w.launches for w in wrappers()}
 
 
-def check_counts(where: str, counts: dict, need: dict) -> None:
+def check_counts(where: str, counts: dict, need: dict, exact: dict = None) -> None:
     for k, lo in need.items():
         if counts[k] < lo:
             raise AssertionError(f"{k} launched {counts[k]} times in {where}, "
                                  f"expected >= {lo}")
+    for k, want in (exact or {}).items():
+        if counts[k] != want:
+            raise AssertionError(f"{k} launched {counts[k]} times in {where}, "
+                                 f"expected exactly {want}")
 
 
 def gather_check(table, idx, label: str) -> dict:
@@ -121,13 +165,19 @@ def gather_check(table, idx, label: str) -> dict:
     plain_ms = cuda_time(lambda: ga.row_gather_plain(table, idx))
     n, w = idx.shape[0], table.shape[1]
     gbytes = (2 * n * w * 4 + n * idx.element_size()) / 1e9
+    # the bound reads each distinct row once
+    bound = bound_ms(n * w * 4 + torch.unique(idx).numel() * w * 4
+                     + n * idx.element_size())
     log(f"[kernels] K4 row_gather {label}: table {tuple(table.shape)} f32, n={n} "
         f"{str(idx.dtype)[6:]}: max_abs_err {err:.3e} (bit for bit: {same}); "
         f"kernel {ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s), "
-        f"plain {plain_ms:.4f} ms ({gbytes / plain_ms * 1e3:.1f} GB/s)")
+        f"index_select {plain_ms:.4f} ms ({gbytes / plain_ms * 1e3:.1f} GB/s); "
+        f"bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it)")
     if not same:
         raise AssertionError(f"row_gather disagrees with index_select ({label})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # the plain version is the library call index_select
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+                bound_ms=bound)
 
 
 # ------------------------------------------------------------------ phases
@@ -173,6 +223,73 @@ def _adam_case(dev, gen):
     return out
 
 
+def encode_case(args: tuple, label: str) -> dict:
+    """K2 against its plain version on one input (feat, prim, bias, pts,
+    vol, log2_table_size): the largest difference (0 when bit for bit),
+    the median time of both, and the bound: points and volumes read, the
+    touched rows read once, the encodings written."""
+    from f2nerf_torch.fields import hash_block as hb
+    _, prim, bias, pts, vol, l2t = args
+    out_k, out_p = hb.hash_block_fwd(*args), hb.hash_block_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    same = torch.equal(out_k, out_p)
+    del out_k, out_p
+    ms = cuda_time(lambda: hb.hash_block_fwd(*args))
+    plain_ms = cuda_time(lambda: hb.hash_block_fwd_plain(*args))
+    n, rows = pts.shape[0], touched_rows(prim, bias, pts, vol, l2t)
+    bound = bound_ms(n * (12 + 4) + rows * 512 + n * 128)
+    log(f"[kernels] K2 hash_block_fwd {label}: n={n}, {rows} rows touched: "
+        f"max_abs_err {err:.3e} (tol {TOL_ENCODE:g}; bit for bit: {same}); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({100 * bound / ms:.1f}% of it)")
+    if not (np.isfinite(err) and err <= TOL_ENCODE):
+        raise AssertionError(f"hash_block_fwd disagrees with its plain version "
+                             f"({label}): {err}")
+    return dict(max_abs_err=err, bit_for_bit=same, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, n=n, rows=rows)
+
+
+def scatter_case(calls: list, label: str) -> dict:
+    """K3 as the step calls it: each call's (g, prim, bias, pts, vol,
+    log2_table_size, table_shape) scattered, the gradients summed, against
+    the plain version; the error is held relative to the largest gradient
+    entry (atomics sum in no fixed order). The bound: g, points and
+    volumes read, and each call's output, the dense [16, nb, 128]
+    gradient, written once (K3 zero-fills it and adds into the touched
+    rows)."""
+    from f2nerf_torch.fields import hash_block as hb
+
+    def run(fn):
+        d = None
+        for a in calls:
+            x = fn(*a)
+            d = x if d is None else d + x
+        return d
+
+    d_k, d_p = run(hb.hash_block_bwd), run(hb.hash_block_bwd_plain)
+    torch.cuda.synchronize()
+    err = (d_k - d_p).abs().max().item()
+    scale = d_p.abs().max().item()
+    del d_k, d_p
+    ms = cuda_time(lambda: run(hb.hash_block_bwd))
+    plain_ms = cuda_time(lambda: run(hb.hash_block_bwd_plain))
+    _, prim, bias, _, _, l2t, shape = calls[0]
+    pts = torch.cat([p for a in calls for p in hb._segments(a[3])])
+    vol = torch.cat([v for a in calls for v in hb._segments(a[4])])
+    n, rows = pts.shape[0], touched_rows(prim, bias, pts, vol, l2t)
+    bound = bound_ms(n * (128 + 12 + 4) + len(calls) * 4 * int(np.prod(shape)))
+    log(f"[kernels] K3 hash_block_bwd {label}: n={n} in {len(calls)} call(s), "
+        f"{rows} rows touched: max_abs_err {err:.3e} (tol {TOL_SCATTER_REL:g} x "
+        f"max|grad| {scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it)")
+    if not (np.isfinite(err) and err <= TOL_SCATTER_REL * scale):
+        raise AssertionError(f"hash_block_bwd disagrees with its plain version "
+                             f"({label}): {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, n=n,
+                rows=rows)
+
+
 def phase_kernels() -> list[dict]:
     from f2nerf_torch.fields import hash_block as hb
     from f2nerf_torch.fields.hash_encoding import _random_primes
@@ -184,7 +301,8 @@ def phase_kernels() -> list[dict]:
     rows = []
 
     # ---- K1 fused Adam over every leaf
-    scal = torch.tensor([1e-2, 1.0 / (1 - 0.9 ** 3), 1.0 / (1 - 0.99 ** 3)],
+    t_step = 3
+    scal = torch.tensor([1e-2, 1.0 / (1 - 0.9 ** t_step), 1.0 / (1 - 0.99 ** t_step)],
                         dtype=torch.float32, device=dev)
     yes = torch.ones((), dtype=torch.bool, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
@@ -200,22 +318,53 @@ def phase_kernels() -> list[dict]:
         if not all(torch.equal(c[k], leaf[k]) for k in "pmv"):
             raise AssertionError("fused_adam wrote on a skipped (non-finite) step")
     torch.cuda.synchronize()
-    pool = {k: v.clone() for k, v in _adam_case(dev, gen)[0].items() if k != "wd"}
-    ms = cuda_time(lambda: fa.fused_adam(pool["p"], pool["m"], pool["v"], pool["g"],
-                                         scal, yes, wd=0.0, **ADAM_KW))
+    # torch._fused_adam_ (the op behind torch.optim.Adam(fused=True)) is the
+    # yardstick: the same update, with the bias corrections rounded elsewhere
+    # (sqrt(v)/sqrt(1-b2^t) against sqrt(v*c2)); the port never calls it
+    pool = {k: v for k, v in _adam_case(dev, gen)[0].items() if k != "wd"}
+    lib_in = {k: v.clone() for k, v in pool.items()}
+    step = torch.full((), float(t_step), dtype=torch.float32, device=dev)
+    lr_t, found_inf = scal[0].clone(), (~yes).to(torch.float32)
+
+    def library():
+        torch._fused_adam_([lib_in["p"]], [lib_in["g"]], [lib_in["m"]], [lib_in["v"]],
+                           [], [step], lr=lr_t, beta1=ADAM_KW["b1"], beta2=ADAM_KW["b2"],
+                           weight_decay=0.0, eps=ADAM_KW["eps"], amsgrad=False,
+                           maximize=False, grad_scale=None, found_inf=found_inf)
+
+    ref = {k: v.clone() for k, v in pool.items()}
+    library()
+    fa.adam_leaf_plain(ref["p"], ref["m"], ref["v"], ref["g"], scal, yes, wd=0.0, **ADAM_KW)
+    lib_err = max((lib_in[k] - ref[k]).abs().max().item() for k in "pmv")
+    del ref
+    t = cuda_time_turns({
+        "kernel": lambda: fa.fused_adam(pool["p"], pool["m"], pool["v"], pool["g"],
+                                        scal, yes, wd=0.0, **ADAM_KW),
+        "library": library})
     plain_ms = cuda_time(lambda: fa.adam_leaf_plain(pool["p"], pool["m"], pool["v"],
                                                     pool["g"], scal, yes, wd=0.0, **ADAM_KW))
+    bound1 = bound_ms(7 * 4 * pool["p"].numel())
     log(f"[kernels] K1 fused_adam: max_abs_err {err:.3e} (tol {TOL_ADAM:g}); "
-        f"pool [16,16384,128]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(memory bound: 0.94 GB -> 0.28 ms at 3.35 TB/s)")
+        f"pool [16,16384,128], in turns: kernel {t['kernel']:.4f} ms, "
+        f"torch._fused_adam_ {t['library']:.4f} ms (max_abs_err against the plain "
+        f"version {lib_err:.3e}), plain {plain_ms:.4f} ms; bound {bound1:.4f} ms "
+        f"(reads p, m, v, g, writes p, m, v: 28 B an element; "
+        f"{100 * bound1 / t['kernel']:.1f}% of it)")
     if not err <= TOL_ADAM:
         raise AssertionError(f"fused_adam disagrees with its plain version: {err}")
+    if not lib_err <= TOL_ADAM:
+        raise AssertionError(f"torch._fused_adam_ disagrees with the plain Adam: {lib_err}")
     rows.append(dict(name="fused_adam", route="cuda",
                      source="f2nerf_torch/csrc/fused_adam.cu",
                      replaces="f2nerf_tpu/ops/fused_adam.py:71",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=err, ms=t["kernel"], plain_ms=plain_ms,
+                     bound_ms=bound1, bound_by="bytes", library_ms=t["library"],
+                     library="torch._fused_adam_", library_max_abs_err=lib_err))
 
-    # ---- K2 / K3 at the slice's cap1: 393,216 samples, 431 volumes, 2^19
+    # ---- K2 / K3 at chip_smoke's uniform shape: the slice's cap1 of 393,216
+    # samples, uniform points, a uniformly random volume of 431 per sample
+    # (the worst case for row locality); the slice's own inputs follow the
+    # slice (kernels_at_slice_inputs)
     n, nv, l2t = 393216, 431, 19
     nb = hb.n_blocks(l2t)
     feat = torch.randn((16, nb, 128), generator=gen, device=dev)
@@ -226,38 +375,21 @@ def phase_kernels() -> list[dict]:
     pts = torch.rand((n, 3), generator=gen, device=dev)
     vol = torch.randint(0, nv, (n,), generator=gen, device=dev).to(torch.int32)
     g = torch.randn((n, 32), generator=gen, device=dev)
-
-    out_k = hb.hash_block_fwd(feat, prim, bias, pts, vol, l2t)
-    out_p = hb.hash_block_fwd_plain(feat, prim, bias, pts, vol, l2t)
-    err2 = (out_k - out_p).abs().max().item()
-    ms2 = cuda_time(lambda: hb.hash_block_fwd(feat, prim, bias, pts, vol, l2t))
-    plain2 = cuda_time(lambda: hb.hash_block_fwd_plain(feat, prim, bias, pts, vol, l2t))
-    log(f"[kernels] K2 hash_block_fwd n={n}: max_abs_err {err2:.3e} (tol {TOL_ENCODE:g}); "
-        f"kernel {ms2:.4f} ms, plain {plain2:.4f} ms")
-    if not (np.isfinite(err2) and err2 <= TOL_ENCODE):
-        raise AssertionError(f"hash_block_fwd disagrees with its plain version: {err2}")
+    r2 = encode_case((feat, prim, bias, pts, vol, l2t), "uniform")
     rows.append(dict(name="hash_block_fwd", route="cuda",
                      source="f2nerf_torch/csrc/hash_block.cu",
                      replaces="f2nerf_tpu/fields/hash_block.py:153",
-                     max_abs_err=err2, ms=ms2, plain_ms=plain2))
-
-    shape = tuple(feat.shape)
-    d_k = hb.hash_block_bwd(g, prim, bias, pts, vol, l2t, shape)
-    d_p = hb.hash_block_bwd_plain(g, prim, bias, pts, vol, l2t, shape)
-    err3 = (d_k - d_p).abs().max().item()
-    scale3 = d_p.abs().max().item()
-    ms3 = cuda_time(lambda: hb.hash_block_bwd(g, prim, bias, pts, vol, l2t, shape))
-    plain3 = cuda_time(lambda: hb.hash_block_bwd_plain(g, prim, bias, pts, vol, l2t, shape))
-    log(f"[kernels] K3 hash_block_bwd n={n}: max_abs_err {err3:.3e} "
-        f"(tol {TOL_SCATTER_REL:g} x max|grad| {scale3:.3e}); "
-        f"kernel {ms3:.4f} ms, plain {plain3:.4f} ms")
-    if not (np.isfinite(err3) and err3 <= TOL_SCATTER_REL * scale3):
-        raise AssertionError(f"hash_block_bwd disagrees with its plain version: {err3}")
+                     bound_by="bytes", library_ms=None, library=NO_LIBRARY,
+                     **{f"uniform_{k}": v for k, v in r2.items()},
+                     **{k: r2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
+    r3 = scatter_case([(g, prim, bias, pts, vol, l2t, tuple(feat.shape))], "uniform")
     rows.append(dict(name="hash_block_bwd", route="cuda",
                      source="f2nerf_torch/csrc/hash_block.cu",
                      replaces="f2nerf_tpu/fields/hash_block.py:191",
-                     max_abs_err=err3, ms=ms3, plain_ms=plain3))
-    del feat, g, d_k, d_p, out_k, out_p
+                     bound_by="bytes", library_ms=None, library=NO_LIBRARY,
+                     **{f"uniform_{k}": v for k, v in r3.items()},
+                     **{k: r3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
+    del feat, g
 
     # ---- K4 at micro_gather's registered shape (:164): t 2^14, W 128, n 2^20;
     # the slice's cached-B shape follows the slice (its cap1/cap2)
@@ -267,24 +399,69 @@ def phase_kernels() -> list[dict]:
     r4 = gather_check(table, idx, "micro_gather shape")
     rows.append(dict(name="row_gather", route="cuda",
                      source="f2nerf_torch/csrc/row_gather.cu",
-                     replaces="benchmarks/micro_gather.py:102", **r4))
+                     replaces="benchmarks/micro_gather.py:102", bound_by="bytes",
+                     library="torch.index_select",
+                     **{f"micro_gather_{k}": v for k, v in r4.items()}, **r4))
     return rows
 
 
-def kernels_at_slice_caps(rows: list[dict], cap1: int, cap2: int) -> None:
-    """K4 at the slice's cached-B shape: a [cap1, 32] cache of A's encodings,
-    cap2 increasing indices into it (the keep-set compaction keeps order).
-    Its numbers go into K4's row of the kernels JSON line."""
+def capture_step_inputs(tr) -> dict:
+    """One more slice step with K2's and K3's wrappers spied on: the
+    arguments of every call, in order. The real wrappers run as always."""
+    from f2nerf_torch.fields import hash_block as hb
+    calls = {"hash_block_fwd": [], "hash_block_bwd": []}
+    real = {name: getattr(hb, name) for name in calls}
+
+    def spy(name):
+        def fn(*args):
+            calls[name].append(args)
+            return real[name](*args)
+        fn.launches = 0     # the real wrapper counts on the module's name
+        return fn
+
+    try:
+        for name in calls:
+            setattr(hb, name, spy(name))
+        tr.train_one()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(hb, name, fn)
+    return calls
+
+
+def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
+                            launches: dict) -> None:
+    """The kernels at the slice's own inputs, which become the ``ms``,
+    ``plain_ms`` and ``bound_ms`` of their rows (the earlier shapes keep
+    theirs under ``uniform_``/``micro_gather_``):
+      K2: A's points and volumes at cap1 (the prefilter's encode) from one
+          more step of the slice's Trainer;
+      K3: that step's table-gradient scatter: B at cap2 plus the edge
+          samples, with the step's own gradient;
+      K4: a [cap1, 32] cache of A's encodings, cap2 increasing indices
+          into it (the keep-set compaction keeps order)."""
     dev = torch.device("cuda")
+    calls = capture_step_inputs(tr)
+    fwd = max(calls["hash_block_fwd"], key=lambda a: a[3].shape[0])
+    r2 = encode_case(fwd, f"slice A at cap1 {fwd[3].shape[0]}")
+    r3 = scatter_case(calls["hash_block_bwd"], f"slice B at cap2 {cap2} + edges")
+    del calls, fwd
+
     gen = torch.Generator(device=dev).manual_seed(4)
     cache = torch.randn((cap1, 32), generator=gen, device=dev)
     idx = torch.randperm(cap1, generator=gen, device=dev)[:cap2].sort().values
     r4 = gather_check(cache, idx, f"slice cached-B shape (cap1 {cap1}, cap2 {cap2})")
+    at_slice = {"hash_block_fwd": r2, "hash_block_bwd": r3, "row_gather": r4}
     for r in rows:
-        if r["name"] == "row_gather":
-            r["max_abs_err"] = max(r["max_abs_err"], r4["max_abs_err"])
-            r["micro_gather_ms"], r["micro_gather_plain_ms"] = r["ms"], r["plain_ms"]
-            r["ms"], r["plain_ms"] = r4["ms"], r4["plain_ms"]
+        new = at_slice.get(r["name"])
+        if new is not None:
+            r.update({k: new[k] for k in ("ms", "plain_ms", "bound_ms")},
+                     max_abs_err=max(r["max_abs_err"], new["max_abs_err"]),
+                     **{f"slice_{k}": v for k, v in new.items()})
+            if "library_ms" in new:
+                r["library_ms"] = new["library_ms"]
+        r["launches_per_step"] = launches.get(r["name"], 0) / N_STEPS
 
 
 def _compose():
@@ -342,9 +519,11 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
         f"max |param change| {moved:.3e}; launches {launches}")
     if not moved > 0:
         raise AssertionError("params did not move")
+    # one table-gradient scatter a step: the grad pass's B and edge samples
+    # share one K3 launch
     check_counts("the slice", launches, {
         "fused_adam": N_STEPS * n_leaves, "hash_block_fwd": N_STEPS,
-        "hash_block_bwd": N_STEPS, "row_gather": N_STEPS})
+        "row_gather": N_STEPS}, exact={"hash_block_bwd": N_STEPS})
     return launches, tr, (m["cap1"], m["cap2"])
 
 
@@ -469,7 +648,7 @@ def phase_runner(tmp: str):
         n_leaves = len(list(named_leaves(tr.params)))
         check_counts("mode=train", train_counts, {
             "fused_adam": RUNNER_ITERS * n_leaves, "hash_block_fwd": RUNNER_ITERS,
-            "hash_block_bwd": RUNNER_ITERS, "row_gather": RUNNER_ITERS})
+            "row_gather": RUNNER_ITERS}, exact={"hash_block_bwd": RUNNER_ITERS})
         exp, test_set = runner.base_exp_dir, [int(i) for i in tr.dataset.test_set]
         del runner, tr
         torch.cuda.empty_cache()
@@ -598,7 +777,8 @@ def main(argv=None) -> int:
         if "slice" in phases:
             launches, tr, (cap1, cap2) = timed("slice", phase_slice, tmp)
             if rows:
-                timed("kernels_at_slice_caps", kernels_at_slice_caps, rows, cap1, cap2)
+                timed("kernels_at_slice_inputs", kernels_at_slice_inputs, rows, tr,
+                      cap1, cap2, launches)
             if "profile" in phases:
                 timed("profile", phase_profile, tr)
             if "parity" in phases:
@@ -613,7 +793,7 @@ def main(argv=None) -> int:
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(sorted(set(r) - set(keys)))}
                                   for r in rows]}))
     print(f"card: {dev_info['smi']}")

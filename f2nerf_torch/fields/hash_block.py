@@ -15,6 +15,11 @@ max(0, 1 - |lane - (c + a)|) as the JAX lane weights compute them.
 
 The plain version runs for CPU tensors only; CUDA tensors launch the
 kernels in csrc/hash_block.cu or raise.
+
+The training step's grad pass has two table-gradient sources, B's cached
+encodings and the edge samples' encode; ``hash_block_grad_pass`` makes
+them one autograd node whose backward is one K3 launch over both, into one
+zero-filled gradient.
 """
 
 from __future__ import annotations
@@ -120,12 +125,18 @@ def hash_block_fwd_plain(feat, prim, bias, pts, vol, log2_table_size: int):
     return torch.stack(out, dim=-1)
 
 
+def _segments(x) -> list:
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
 def hash_block_bwd_plain(g, prim, bias, pts, vol, log2_table_size: int,
                          table_shape):
-    """Plain PyTorch version of K3: table gradient [N_LEVELS, nb, 128]."""
+    """Plain PyTorch version of K3: table gradient [N_LEVELS, nb, 128].
+    ``g``, ``pts``, ``vol`` may be sequences of segments, as for K3."""
+    g, pts = torch.cat(_segments(g)), torch.cat(_segments(pts))
+    vol = torch.cat(_segments(vol)).long()
     nb = n_blocks(log2_table_size)
     scales = level_scales()
-    vol = vol.long()
     d = torch.zeros(int(np.prod(table_shape)), dtype=torch.float32,
                     device=g.device)
     for l in range(N_LEVELS):
@@ -163,9 +174,14 @@ def hash_block_fwd(feat, prim, bias, pts, vol, log2_table_size: int):
         raise ValueError(f"hash_block_fwd: table shape {tuple(feat.shape)}")
     pts, vol = pts.contiguous(), vol.contiguous()
     _check_inputs("hash_block_fwd", feat, prim, bias, pts, vol)
+    if feat.data_ptr() % 16:
+        raise ValueError("hash_block_fwd: the table must be 16-byte aligned "
+                         "(the kernel loads corner pairs as float4)")
     n = pts.shape[0]
     out = torch.empty((n, N_LEVELS * N_CHANNELS), dtype=torch.float32,
                       device=pts.device)
+    if n == 0:
+        return out
     code = kernels.library().f2_hash_block_fwd(
         feat.data_ptr(), prim.data_ptr(), bias.data_ptr(),
         _scales(str(pts.device)).data_ptr(), pts.data_ptr(), vol.data_ptr(),
@@ -180,25 +196,41 @@ hash_block_fwd.launches = 0
 
 def hash_block_bwd(g, prim, bias, pts, vol, log2_table_size: int, table_shape):
     """K3 table-gradient scatter: [N_LEVELS, nb, 128] f32 (atomics on the
-    card, so the summation order is not fixed)."""
-    if pts.device.type == "cpu":
-        return hash_block_bwd_plain(g, prim, bias, pts, vol, log2_table_size,
+    card, so the summation order is not fixed). ``g`` [n, 32], ``pts``
+    [n, 3] and ``vol`` [n] are one tensor each, or sequences of one or two
+    segments (the grad pass's B and edge samples) scattered by one launch
+    into one gradient."""
+    gs, ps, vs = _segments(g), _segments(pts), _segments(vol)
+    if ps[0].device.type == "cpu":
+        return hash_block_bwd_plain(gs, prim, bias, ps, vs, log2_table_size,
                                     table_shape)
-    if pts.device.type != "cuda":
-        raise ValueError(f"hash_block_bwd: unsupported device {pts.device}")
+    if ps[0].device.type != "cuda":
+        raise ValueError(f"hash_block_bwd: unsupported device {ps[0].device}")
+    if not 1 <= len(gs) == len(ps) == len(vs) <= 2:
+        raise ValueError(f"hash_block_bwd: one or two segments of g, pts, vol; "
+                         f"got {len(gs)}, {len(ps)}, {len(vs)}")
     nb = n_blocks(log2_table_size)
     if tuple(table_shape) != (N_LEVELS, nb, LANES):
         raise ValueError(f"hash_block_bwd: table shape {tuple(table_shape)}")
-    g, pts, vol = g.contiguous(), pts.contiguous(), vol.contiguous()
-    if tuple(g.shape) != (pts.shape[0], N_LEVELS * N_CHANNELS):
-        raise ValueError(f"hash_block_bwd: grad shape {tuple(g.shape)}")
-    _check_inputs("hash_block_bwd", g, prim, bias, pts, vol)
-    d = torch.zeros(tuple(table_shape), dtype=torch.float32, device=pts.device)
+    segs = []
+    for gk, pk, vk in zip(gs, ps, vs):
+        gk, pk, vk = gk.contiguous(), pk.contiguous(), vk.contiguous()
+        if tuple(gk.shape) != (pk.shape[0], N_LEVELS * N_CHANNELS):
+            raise ValueError(f"hash_block_bwd: grad shape {tuple(gk.shape)}")
+        _check_inputs("hash_block_bwd", gk, prim, bias, pk, vk)
+        if gk.data_ptr() % 8:          # read as float2: a row view may be off
+            gk = gk.clone()
+        segs.append((gk, pk, vk))      # held until the launch is queued
+    ptrs = [(gk.data_ptr(), pk.data_ptr(), vk.data_ptr(), vk.shape[0])
+            for gk, pk, vk in segs] + [(None, None, None, 0)]
+    dev = ps[0].device
+    d = torch.zeros(tuple(table_shape), dtype=torch.float32, device=dev)
+    if sum(p[3] for p in ptrs) == 0:
+        return d
     code = kernels.library().f2_hash_block_bwd(
-        g.data_ptr(), prim.data_ptr(), bias.data_ptr(),
-        _scales(str(pts.device)).data_ptr(), pts.data_ptr(), vol.data_ptr(),
-        d.data_ptr(), pts.shape[0], prim.shape[1], nb,
-        kernels.stream_ptr(pts.device))
+        *ptrs[0], *ptrs[1], prim.data_ptr(), bias.data_ptr(),
+        _scales(str(dev)).data_ptr(), d.data_ptr(), prim.shape[1], nb,
+        kernels.stream_ptr(dev))
     kernels.check(code, "hash_block_bwd")
     hash_block_bwd.launches += 1
     return d
@@ -233,20 +265,37 @@ def hash_block_encode(feat_tables, prim_pool, bias_pool, points01, vol_idx,
                                   points01, vol_idx, log2_table_size)
 
 
-class _GatherCached(torch.autograd.Function):
+class _GradPass(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feat, prim, bias, pts, vol, log2_table_size,
-                cached_feat, src_idx):
-        ctx.save_for_backward(prim, bias, pts, vol)
+    def forward(ctx, feat, prim, bias, pts, vol, log2_table_size, cached_feat,
+                src_idx, edge_pts, edge_vol):
+        ctx.save_for_backward(prim, bias, pts, vol, edge_pts, edge_vol)
         ctx.meta = (log2_table_size, tuple(feat.shape))
-        return row_gather(cached_feat.detach(), src_idx)
+        return (row_gather(cached_feat.detach(), src_idx),
+                hash_block_fwd(feat.detach(), prim, bias, edge_pts.detach(),
+                               edge_vol, log2_table_size))
 
     @staticmethod
-    def backward(ctx, g):
-        prim, bias, pts, vol = ctx.saved_tensors
+    def backward(ctx, g, g_edge):
+        prim, bias, pts, vol, edge_pts, edge_vol = ctx.saved_tensors
         log2t, shape = ctx.meta
-        d = hash_block_bwd(g, prim, bias, pts, vol, log2t, shape)
-        return d, None, None, None, None, None, None, None
+        d = hash_block_bwd((g, g_edge), prim, bias, (pts, edge_pts),
+                           (vol, edge_vol), log2t, shape)
+        return (d,) + (None,) * 9
+
+
+def hash_block_grad_pass(feat_tables, prim_pool, bias_pool, points01, vol_idx,
+                         log2_table_size: int, cached_feat, src_idx,
+                         edge_points01, edge_vol_idx):
+    """The training grad pass's two encodings as one autograd node:
+    ``(cached_feat[src_idx], hash_block_encode(edge_points01, ...))``, where
+    the cache already holds the encodings of ``points01`` (K4 and K2
+    forwards). Its backward scatters both table gradients with one K3
+    launch into one gradient, where two autograd nodes would take two
+    launches, two zero-filled tables and autograd's add of them."""
+    return _GradPass.apply(feat_tables, prim_pool, bias_pool, points01,
+                           vol_idx, log2_table_size, cached_feat, src_idx,
+                           edge_points01, edge_vol_idx)
 
 
 def hash_block_gather_cached(feat_tables, prim_pool, bias_pool, points01,
@@ -256,6 +305,7 @@ def hash_block_gather_cached(feat_tables, prim_pool, bias_pool, points01,
     this exact encoding (the no-grad prefilter pass over the superset A
     buffer). Forward: one row gather of the cache (K4, ops/gather.py).
     Backward: the same table-gradient scatter as ``hash_block_encode``
-    (K3)."""
-    return _GatherCached.apply(feat_tables, prim_pool, bias_pool, points01,
-                               vol_idx, log2_table_size, cached_feat, src_idx)
+    (K3). It is ``hash_block_grad_pass`` with no edge samples."""
+    return hash_block_grad_pass(feat_tables, prim_pool, bias_pool, points01,
+                                vol_idx, log2_table_size, cached_feat, src_idx,
+                                points01[:0], vol_idx[:0])[0]

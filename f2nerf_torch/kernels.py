@@ -40,8 +40,8 @@ _SIGNATURES = {
                       _f, _f, _f, _f, _f, _f, _vp],
     "f2_hash_block_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                           _i, _i, _i, _vp],
-    "f2_hash_block_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                          _i, _i, _i, _vp],
+    "f2_hash_block_bwd": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _i,
+                          _vp, _vp, _vp, _vp, _i, _i, _vp],
     "f2_row_gather": [_vp, _vp, _i, _vp, _ll, _i, _vp],
 }
 

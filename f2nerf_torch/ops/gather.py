@@ -3,8 +3,9 @@ plain version.
 
 K4 (csrc/row_gather.cu) is the port of the Pallas kernel
 ``benchmarks/micro_gather.py::pallas_gather_case``. On the main path it is
-the forward of ``hash_block_gather_cached`` (fields/hash_block.py), which
-gathers the grad pass's encodings from the prefilter's cache.
+the forward of ``hash_block_grad_pass`` (and of ``hash_block_gather_cached``,
+fields/hash_block.py), which gathers the grad pass's encodings from the
+prefilter's cache.
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..fields.hash_block import hash_block_encode, hash_block_gather_cached
+from ..fields.hash_block import hash_block_encode, hash_block_grad_pass
 from ..fields.mlp import mlp_apply
 from ..fields.sh import sh_encode
 from ..ops.activations import density_activation, gradient_scaling
@@ -249,15 +249,16 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
     # --- grad-enabled field query (+ edge samples for the TV loss)
     spans("render.field_shader")
     if st.train:
-        enc_b = hash_block_gather_cached(feat_pool, prim, bias, b["pts01"],
-                                         vol_b, l2t, enc_a, idx_b)
-        enc_b = torch.where(ok_b[:, None], enc_b, torch.zeros_like(enc_b))
         edge_pts, edge_anchor = dv.sample_edges(tree, draws["edge_idx"],
                                                 draws["edge_coord"])
         edge_pts01 = (edge_pts.reshape(-1, 3) + 1.0) * 0.5
         edge_vol = edge_anchor.reshape(-1)
-        enc_edge = hash_block_encode(feat_pool, prim, bias, edge_pts01,
-                                     edge_vol, l2t)
+        # B's cached encodings and the edge samples' encode: one autograd
+        # node, whose backward is one table-gradient scatter over both
+        enc_b, enc_edge = hash_block_grad_pass(feat_pool, prim, bias, b["pts01"],
+                                               vol_b, l2t, enc_a, idx_b,
+                                               edge_pts01, edge_vol)
+        enc_b = torch.where(ok_b[:, None], enc_b, torch.zeros_like(enc_b))
         all_feat = mlp_apply(params["field_mlp"],
                              torch.cat([enc_b, enc_edge], dim=0))
         scene_feat = all_feat[: st.cap2]

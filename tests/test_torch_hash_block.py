@@ -159,6 +159,58 @@ def test_gather_cached_matches_jax(state):
     np.testing.assert_allclose(tf.grad.numpy(), np.asarray(gj), rtol=1e-5, atol=1e-6)
 
 
+def test_grad_pass_matches_jax(state):
+    """The grad pass as one autograd node (B's cached encodings plus the
+    edge samples' encode, one table-gradient scatter): the same encodings
+    and the same table gradient as the JAX package's
+    hash_block_gather_cached + hash_block_encode."""
+    feat, prim, bias = state
+    pts_a, vol_a, _ = inputs(8, 64)
+    idx = np.random.RandomState(9).choice(64, 24, replace=False).astype(np.int32)
+    pts_b, vol_b = pts_a[idx], vol_a[idx]
+    pts_e, vol_e, _ = inputs(10, 16)
+    rng = np.random.RandomState(11)
+    w_b = rng.randn(24, N_LEVELS * N_CHANNELS).astype(np.float32)
+    w_e = rng.randn(16, N_LEVELS * N_CHANNELS).astype(np.float32)
+    with jax.disable_jit():
+        enc_a = jhb.hash_block_encode(feat, prim, bias, jnp.asarray(pts_a),
+                                      jnp.asarray(vol_a), L2T)
+
+        def jloss(f):
+            eb = jhb.hash_block_gather_cached(f, prim, bias, jnp.asarray(pts_b),
+                                              jnp.asarray(vol_b), L2T, enc_a,
+                                              jnp.asarray(idx))
+            ee = jhb.hash_block_encode(f, prim, bias, jnp.asarray(pts_e),
+                                       jnp.asarray(vol_e), L2T)
+            return jnp.sum(eb * w_b) + jnp.sum(ee * w_e), (eb, ee)
+        gj, (eb_j, ee_j) = jax.grad(jloss, has_aux=True)(feat)
+    tf, tp, tb = port(feat, prim, bias)
+    enc_t = thb.hash_block_encode(tf, tp, tb, torch.from_numpy(pts_a),
+                                  torch.from_numpy(vol_a), L2T).detach()
+    tf.requires_grad_(True)
+    eb, ee = thb.hash_block_grad_pass(tf, tp, tb, torch.from_numpy(pts_b),
+                                      torch.from_numpy(vol_b), L2T, enc_t,
+                                      torch.from_numpy(idx), torch.from_numpy(pts_e),
+                                      torch.from_numpy(vol_e))
+    np.testing.assert_allclose(eb.detach().numpy(), np.asarray(eb_j), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ee.detach().numpy(), np.asarray(ee_j), rtol=1e-6, atol=1e-6)
+    ((eb * torch.from_numpy(w_b)).sum() + (ee * torch.from_numpy(w_e)).sum()).backward()
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(gj), rtol=1e-5, atol=1e-6)
+
+
+def test_scatter_segments_sum_like_one_input(state):
+    """K3's plain version over two segments is the scatter of their
+    concatenation (the kernel takes the grad pass's B and edge samples as
+    two segments of one launch)."""
+    tf, tp, tb = port(*state)
+    pts, vol, g = (torch.from_numpy(x) for x in inputs(12, 80))
+    shape = tuple(tf.shape)
+    whole = thb.hash_block_bwd(g, tp, tb, pts, vol, L2T, shape)
+    split = thb.hash_block_bwd((g[:50], g[50:]), tp, tb, (pts[:50], pts[50:]),
+                               (vol[:50], vol[50:]), L2T, shape)
+    assert torch.equal(whole, split)
+
+
 def test_init_block_state_shapes_and_ranges():
     g = torch.Generator().manual_seed(0)
     feat, prim, bias = thb.init_block_state(g, L2T, 5)
@@ -202,3 +254,109 @@ def test_kernels_match_plain_on_card(cuda, state):
     d_p = thb.hash_block_bwd_plain(g, prim, bias, pts, vol, L2T, shape)
     assert float((d_k - d_p).abs().max()) <= 1e-5 * float(d_p.abs().max())
     assert (thb.hash_block_fwd.launches, thb.hash_block_bwd.launches) == (n0 + 1, n1 + 1)
+
+
+CARD_CASES = ["ray_ordered", "one_cell", "cz_even", "cz_odd", "n0", "n1", "n33",
+              "n1000", "boundary"]
+
+
+def card_inputs(case: str):
+    """(pts [n, 3] f32, vol [n] int32, g [n, 32] f32, zero_bias) for the
+    card tests of K2/K3, from a seed:
+      ray_ordered: 16 rays x 300 samples stepping 1e-3 along each ray, one
+        volume a ray (neighbours share cells at the coarse levels);
+      one_cell: 4,096 samples within 1e-7 of one point, one volume (every
+        lane of every warp merges, at every level);
+      cz_even / cz_odd: zero bias, level 0's z cell c in {0, 2} / {1} for
+        every sample (the float4 / float2 atomics);
+      n0, n1, n33, n1000: sizes that are not a multiple of the 32-sample
+        tile, down to 0 and 1;
+      boundary: boundary_points() (lattice planes and block boundaries)."""
+    rng = np.random.RandomState(CARD_CASES.index(case))
+    zero_bias = case in ("cz_even", "cz_odd", "boundary")
+    if case == "ray_ordered":
+        o = rng.rand(16, 1, 3) * 0.5 + 0.2
+        d = rng.randn(16, 1, 3)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        pts = np.clip(o + d * (np.arange(300)[None, :, None] * 1e-3), 0, 1).reshape(-1, 3)
+        vol = np.repeat(rng.randint(0, NV, 16), 300)
+    elif case == "one_cell":
+        pts = np.float32([0.31, 0.62, 0.27]) + rng.rand(4096, 3) * 1e-7
+        vol = np.full(4096, 1)
+    elif case in ("cz_even", "cz_odd"):
+        pts = rng.rand(2048, 3)
+        k = rng.randint(0, 2, 2048)             # block 0 or 1 along z
+        c = 1 if case == "cz_odd" else 2 * rng.randint(0, 2, 2048)
+        pts[:, 2] = (3 * k + c + 0.25 + 0.5 * rng.rand(2048)) / 8.0
+        vol = rng.randint(0, NV, 2048)
+    elif case == "boundary":
+        pts = boundary_points()
+        vol = np.arange(len(pts)) % NV
+    else:
+        n = int(case[1:])
+        pts, vol = rng.rand(n, 3), rng.randint(0, NV, n)
+    g = rng.randn(len(pts), N_LEVELS * N_CHANNELS)
+    return (pts.astype(np.float32), vol.astype(np.int32), g.astype(np.float32),
+            zero_bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_kernels_match_plain_on_card_cases(cuda, state, case):
+    """K2 bit for bit and K3 within 1e-5 of the largest entry against the
+    plain versions, on inputs that stress the tiles, the same-cell merge
+    and both atomic widths; K3 also over two segments in one launch."""
+    pts_np, vol_np, g_np, zero_bias = card_inputs(case)
+    feat, prim, bias = port(*state)
+    if zero_bias:
+        bias = torch.zeros_like(bias)
+    feat, prim, bias = feat.to(cuda), prim.to(cuda), bias.to(cuda)
+    pts, vol, g = (torch.from_numpy(x).to(cuda) for x in (pts_np, vol_np, g_np))
+    if case.startswith("cz_"):
+        _, axes = thb._locate(pts, prim[0, vol.long()], bias[0, vol.long()],
+                              float(level_scales()[0]), thb.n_blocks(L2T))
+        assert bool(((axes[2][0] % 2 == 1) == (case == "cz_odd")).all())
+    shape = tuple(feat.shape)
+    n0, n1 = thb.hash_block_fwd.launches, thb.hash_block_bwd.launches
+    assert torch.equal(thb.hash_block_fwd(feat, prim, bias, pts, vol, L2T),
+                       thb.hash_block_fwd_plain(feat, prim, bias, pts, vol, L2T))
+    d_p = thb.hash_block_bwd_plain(g, prim, bias, pts, vol, L2T, shape)
+    tol = 1e-5 * float(d_p.abs().max()) if len(pts) else 0.0
+    d_k = thb.hash_block_bwd(g, prim, bias, pts, vol, L2T, shape)
+    assert float((d_k - d_p).abs().max()) <= tol
+    h = len(pts) // 3
+    d_2 = thb.hash_block_bwd((g[:h], g[h:]), prim, bias, (pts[:h], pts[h:]),
+                             (vol[:h], vol[h:]), L2T, shape)
+    assert float((d_2 - d_p).abs().max()) <= tol
+    launched = int(len(pts) > 0)        # no samples: nothing is launched
+    assert (thb.hash_block_fwd.launches,
+            thb.hash_block_bwd.launches) == (n0 + launched, n1 + 2 * launched)
+
+
+@pytest.mark.cuda
+def test_grad_pass_one_scatter_on_card(cuda, state):
+    """On the card the grad pass's backward is one K3 launch, and its table
+    gradient is the CPU's within 1e-5 of the largest entry."""
+    pts_a, vol_a, _ = inputs(13, 2048)
+    idx = np.sort(np.random.RandomState(14).choice(2048, 700, replace=False))
+    pts_e, vol_e, _ = inputs(15, 512)
+    rng = np.random.RandomState(16)
+    w_b = torch.from_numpy(rng.randn(700, 32).astype(np.float32))
+    w_e = torch.from_numpy(rng.randn(512, 32).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        f, p, b = (t.to(dev) for t in port(*state))
+        args = [torch.from_numpy(x).to(dev) for x in (pts_a, vol_a)]
+        enc_a = thb.hash_block_encode(f, p, b, *args, L2T)
+        f.requires_grad_(True)
+        before = thb.hash_block_bwd.launches
+        eb, ee = thb.hash_block_grad_pass(
+            f, p, b, args[0][idx], args[1][idx], L2T, enc_a,
+            torch.from_numpy(idx).to(dev), torch.from_numpy(pts_e).to(dev),
+            torch.from_numpy(vol_e).to(dev))
+        ((eb * w_b.to(dev)).sum() + (ee * w_e.to(dev)).sum()).backward()
+        if dev != "cpu":
+            assert thb.hash_block_bwd.launches == before + 1
+        grads[str(dev)] = f.grad.cpu()
+    want = grads["cpu"]
+    assert float((grads["cuda"] - want).abs().max()) <= 1e-5 * float(want.abs().max())
