@@ -14,8 +14,10 @@ Phases:
                K2/K3 at a uniform shape (n 393,216, a random volume per
                sample), K4 at micro_gather's shape; after the slice, each
                again at the slice's own inputs (kernels_at_slice_inputs:
-               K2 on A at cap1 and K3 on B at cap2 plus the edge samples,
-               captured from one more step, with that step's gradient).
+               K2 on A at cap1, K3 on B at cap2 plus the edge samples with
+               that step's gradient, K4 on the step's cached encodings and
+               grad-pass indices, all captured from one more step; K4 also
+               at an earlier stand-in for them).
   4. slice   — the ball scene, confs/wanjinyou.yaml at full width with
                +train.fused_adam=true, 20 Trainer.train_one steps on the card;
                losses finite, grads finite, params moved, every kernel
@@ -23,12 +25,19 @@ Phases:
                the table-gradient scatter K3 exactly once a step.
   5. parity  — one step from one saved state with one set of draws on the
                card (kernels) and on the CPU (plain versions), compared.
-  6. runner  — the port's CLI (f2nerf_torch.run.main) at full width on the
+  6. maintain — octree maintenance on the card: (a) the slice's config with
+               compact_freq 10 and milestones [20, 40] for 50 steps (five
+               maintenance events, each printed with its host seconds);
+               (b) one step card vs CPU on the subdivided tree, as parity;
+               (c) milestones [0, 0, 0]: three brute-force subdivisions
+               after the first step (~224k nodes), then 5 timed steps.
+               K3 held to one launch a step throughout.
+  7. runner  — the port's CLI (f2nerf_torch.run.main) at full width on the
                ball scene: mode=train for 40 iterations (report, stats, save,
                vis cadences, then the test render), then mode=render_path
                from the checkpoint; the artifact set, launch counts of both
                runs, and Trainer.render_image timed over all 24 cameras.
-  7. eval_parity — one test camera rendered from the saved checkpoint on the
+  8. eval_parity — one test camera rendered from the saved checkpoint on the
                card (kernels) and on the CPU (plain versions), compared.
   profile    — not run by default: torch.profiler over 3 more slice steps,
                per-span host/device time and the top kernels
@@ -66,11 +75,20 @@ TOL_ADAM = 1e-6
 TOL_ENCODE = 1e-6
 TOL_SCATTER_REL = 1e-5
 RUNNER_ITERS = 40      # the runner phase's mode=train iterations
-PHASES = ("device", "build", "kernels", "slice", "parity", "runner", "eval_parity")
+PHASES = ("device", "build", "kernels", "slice", "parity", "maintain", "runner",
+          "eval_parity")
+# the maintain phase: (a) a compressed maintenance schedule, (c) real scale
+MAINT_STEPS = 50
+MAINT_OVERRIDES = ["pts_sampler.compact_freq=10", "pts_sampler.sub_div_milestones=[20,40]"]
+MAINT_EVENTS = [10, 20, 30, 40, 50]
+MAINT_MILESTONES = (20, 40)
+REAL_SCALE_STEPS = 5
+REAL_SCALE_MIN_NODES = 150_000
 # a kernel's bound: the bytes it must move (each input read once, each
 # output written once) over the H100 SXM's 3.35 TB/s HBM3; none of these
 # kernels is near its operations bound
 HBM_BYTES_PER_S = 3.35e12
+PREFILL_CYCLES = 2_000_000     # ~1 ms of the SM clock (cuda_time)
 NO_LIBRARY = "none: no single PyTorch call computes the hashed trilinear " \
              "encode or its scatter"
 
@@ -83,8 +101,14 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def cuda_time(fn, reps: int = 10) -> float:
+def cuda_time(fn, reps: int = 10, prefill: bool = True) -> float:
     """Median milliseconds of fn() over reps, CUDA events, after a warm-up.
+    With ``prefill`` the stream is first held busy for ~1 ms
+    (torch.cuda._sleep), so the host has enqueued fn before the device
+    reaches the start event and the time is the device's alone; without
+    it, the wrapper's host time (checks, allocation, the launch call)
+    counts wherever it exceeds the device's work (PERF.md's earlier
+    kernel times were taken so).
     L2 is warm: each launch finds what the one before it left there, as
     the step's caller finds the inputs it has just written."""
     fn()
@@ -92,6 +116,8 @@ def cuda_time(fn, reps: int = 10) -> float:
     times = []
     for _ in range(reps):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if prefill:
+            torch.cuda._sleep(PREFILL_CYCLES)
         s.record()
         fn()
         e.record()
@@ -162,22 +188,31 @@ def gather_check(table, idx, label: str) -> dict:
     err = (got - want).abs().max().item()
     del got, want
     ms = cuda_time(lambda: ga.row_gather(table, idx))
+    # the same launches with the host's enqueue time counted (the earlier
+    # timing): at tens of microseconds a kernel is shorter than its wrapper
+    enqueued_ms = cuda_time(lambda: ga.row_gather(table, idx), prefill=False)
     plain_ms = cuda_time(lambda: ga.row_gather_plain(table, idx))
     n, w = idx.shape[0], table.shape[1]
+    # yardstick: a contiguous device-to-device copy of the output's bytes
+    src, dst = torch.empty((n, w), device=table.device), torch.empty((n, w), device=table.device)
+    copy_ms = cuda_time(lambda: dst.copy_(src))
+    del src, dst
     gbytes = (2 * n * w * 4 + n * idx.element_size()) / 1e9
     # the bound reads each distinct row once
-    bound = bound_ms(n * w * 4 + torch.unique(idx).numel() * w * 4
-                     + n * idx.element_size())
+    rows = torch.unique(idx).numel()
+    bound = bound_ms(n * w * 4 + rows * w * 4 + n * idx.element_size())
     log(f"[kernels] K4 row_gather {label}: table {tuple(table.shape)} f32, n={n} "
-        f"{str(idx.dtype)[6:]}: max_abs_err {err:.3e} (bit for bit: {same}); "
-        f"kernel {ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s), "
+        f"{str(idx.dtype)[6:]}, {rows} distinct rows: max_abs_err {err:.3e} "
+        f"(bit for bit: {same}); kernel {ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s), "
         f"index_select {plain_ms:.4f} ms ({gbytes / plain_ms * 1e3:.1f} GB/s); "
-        f"bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it)")
+        f"bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it); with the host's "
+        f"enqueue counted {enqueued_ms:.4f} ms; a contiguous copy "
+        f"of the output's {n * w * 4 / 1e6:.1f} MB {copy_ms:.4f} ms")
     if not same:
         raise AssertionError(f"row_gather disagrees with index_select ({label})")
     # the plain version is the library call index_select
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
-                bound_ms=bound)
+                bound_ms=bound, copy_ms=copy_ms, enqueued_ms=enqueued_ms, rows=rows, n=n)
 
 
 # ------------------------------------------------------------------ phases
@@ -406,10 +441,11 @@ def phase_kernels() -> list[dict]:
 
 
 def capture_step_inputs(tr) -> dict:
-    """One more slice step with K2's and K3's wrappers spied on: the
-    arguments of every call, in order. The real wrappers run as always."""
+    """One more slice step with K2's, K3's and K4's wrappers spied on (as
+    fields/hash_block.py calls them): the arguments of every call, in
+    order. The real wrappers run as always."""
     from f2nerf_torch.fields import hash_block as hb
-    calls = {"hash_block_fwd": [], "hash_block_bwd": []}
+    calls = {"hash_block_fwd": [], "hash_block_bwd": [], "row_gather": []}
     real = {name: getattr(hb, name) for name in calls}
 
     def spy(name):
@@ -439,19 +475,25 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
           more step of the slice's Trainer;
       K3: that step's table-gradient scatter: B at cap2 plus the edge
           samples, with the step's own gradient;
-      K4: a [cap1, 32] cache of A's encodings, cap2 increasing indices
-          into it (the keep-set compaction keeps order)."""
+      K4: that step's [cap1, 32] cache of A's encodings and its cap2 int64
+          indices (increasing; the padding rows all at cap1 - 1). Also at
+          the earlier stand-in for them (``standin_`` keys): a random
+          [cap1, 32] cache and cap2 distinct increasing indices."""
     dev = torch.device("cuda")
     calls = capture_step_inputs(tr)
     fwd = max(calls["hash_block_fwd"], key=lambda a: a[3].shape[0])
     r2 = encode_case(fwd, f"slice A at cap1 {fwd[3].shape[0]}")
     r3 = scatter_case(calls["hash_block_bwd"], f"slice B at cap2 {cap2} + edges")
-    del calls, fwd
+    (cache, idx), = calls["row_gather"]
+    r4 = gather_check(cache, idx, f"slice's own inputs (cap1 {cache.shape[0]}, "
+                                  f"cap2 {idx.shape[0]})")
+    del calls, fwd, cache, idx
 
     gen = torch.Generator(device=dev).manual_seed(4)
     cache = torch.randn((cap1, 32), generator=gen, device=dev)
     idx = torch.randperm(cap1, generator=gen, device=dev)[:cap2].sort().values
-    r4 = gather_check(cache, idx, f"slice cached-B shape (cap1 {cap1}, cap2 {cap2})")
+    r4.update({f"standin_{k}": v for k, v in gather_check(
+        cache, idx, f"stand-in slice shape (cap1 {cap1}, cap2 {cap2})").items()})
     at_slice = {"hash_block_fwd": r2, "hash_block_bwd": r3, "row_gather": r4}
     for r in rows:
         new = at_slice.get(r["name"])
@@ -464,10 +506,10 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
         r["launches_per_step"] = launches.get(r["name"], 0) / N_STEPS
 
 
-def _compose():
+def _compose(extra=()):
     from f2nerf_torch.utils.config import compose
     return compose(os.path.join(REPO, "confs"), "wanjinyou",
-                   ["+train.fused_adam=true"])
+                   ["+train.fused_adam=true", *extra])
 
 
 def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
@@ -565,9 +607,10 @@ def phase_profile(tr, n_steps: int = 3) -> None:
             f"  launches {e.count // n_steps}")
 
 
-def phase_parity(tr) -> None:
-    """One step from one saved state and one set of draws, card vs CPU,
-    held to the tolerances of f2nerf_torch/utils/parity.py."""
+def step_parity(tr, max_hits: int, where: str) -> None:
+    """One step from the trainer's saved state and one set of draws, card
+    vs CPU, at the first controller bucket's shapes and ``max_hits``, held
+    to the tolerances of f2nerf_torch/utils/parity.py."""
     from f2nerf_torch.train.trainer import (Trainer, draw_step, flat_caps,
                                             make_core, max_s_for, render_statics)
     from f2nerf_torch.utils.parity import STEP_TOL, step_agrees, step_errors
@@ -580,7 +623,7 @@ def phase_parity(tr) -> None:
     cap1, cap2 = flat_caps(n_rays, max_s, tr.pts_batch, 512.0, 512.0, None,
                            max(16384, 2048))
     st = render_statics(cfg, n_rays, tr.dataset.near, train=True, max_s=max_s,
-                        cap1=cap1, cap2=cap2, max_hits=64)
+                        cap1=cap1, cap2=cap2, max_hits=max_hits)
     gen = torch.Generator(device="cpu").manual_seed(7)
     draws_cpu = draw_step(gen, tr.dataset.device_arrays("cpu"), st, n_rays,
                           tr.dataset.height, tr.dataset.width, tr.tree)
@@ -606,12 +649,169 @@ def phase_parity(tr) -> None:
     err = step_errors(a["loss"], b["loss"], a["grads"], b["grads"], a["params"],
                       b["params"], a["occ"], b["occ"], b["lr"])
     p_abs = max((a["params"][k] - b["params"][k]).abs().max().item() for k in b["params"])
-    log(f"[parity] loss cuda {a['loss']:.7f} cpu {b['loss']:.7f}; meaningful samples "
+    log(f"[{where}] iteration {tr.iter_step}, {tr.tree_host.n_nodes} nodes, hit cap "
+        f"{max_hits}: loss cuda {a['loss']:.7f} cpu {b['loss']:.7f}; meaningful samples "
         f"cuda {a['n']:.0f} cpu {b['n']:.0f}; errors {err} (tolerances {STEP_TOL}); "
         f"max |param diff| {p_abs:.3e} at lr {b['lr']:.3e}; "
         f"step seconds cuda {a['secs']:.2f} cpu {b['secs']:.2f}")
     if not step_agrees(err):
         raise AssertionError("card and CPU steps disagree beyond the stated tolerances")
+
+
+def tree_counts(t) -> dict:
+    return dict(nodes=int(t.n_nodes), leaves=int(t.is_leaf.sum()),
+                valid=int((t.trans_idx >= 0).sum()))
+
+
+class MaintenanceSpy:
+    """Records each octree maintenance the Trainer runs while active: the
+    iteration, the tree's nodes, leaves and valid leaves before and after,
+    and the host seconds of ``maintain`` and of the ``to_device_tree`` that
+    follows it (synchronised). It wraps the module functions the Trainer
+    calls; the real ones run as always."""
+
+    def __init__(self):
+        from f2nerf_torch.sampler import device as dv
+        from f2nerf_torch.sampler import octree as oc
+        self.mods = (oc, dv)
+        self.real = (oc.maintain, dv.to_device_tree)
+        self.events = []
+
+    def __enter__(self):
+        oc, dv = self.mods
+        real_maintain, real_upload = self.real
+
+        def maintain(tree, iter_step, *a):
+            before = tree_counts(tree)
+            t0 = time.perf_counter()
+            out, changed = real_maintain(tree, iter_step, *a)
+            self.events.append(dict(iter=iter_step, before=before, after=tree_counts(out),
+                                    changed=changed, maintain_s=time.perf_counter() - t0,
+                                    upload_s=None))
+            return out, changed
+
+        def upload(*a, **kw):
+            t0 = time.perf_counter()
+            out = real_upload(*a, **kw)
+            torch.cuda.synchronize()
+            if self.events and self.events[-1]["upload_s"] is None:
+                self.events[-1]["upload_s"] = time.perf_counter() - t0
+            return out
+
+        oc.maintain, dv.to_device_tree = maintain, upload
+        return self
+
+    def __exit__(self, *exc):
+        oc, dv = self.mods
+        oc.maintain, dv.to_device_tree = self.real
+
+
+def _train_checked(tr, n: int, where: str, spy=None) -> list[dict]:
+    """n train_one steps, each printed; losses and gradients finite. A
+    maintenance event the spy recorded in a step gets the trainer's
+    max_nodes and hit cap after it."""
+    out = []
+    for _ in range(n):
+        m = tr.train_one()
+        if spy is not None and spy.events and "max_nodes" not in spy.events[-1]:
+            spy.events[-1].update(max_nodes=tr.max_nodes, hit_cap=tr.hit_cap)
+        log(f"[{where}] iteration {tr.iter_step}: n_rays {m['n_rays']} hit_cap "
+            f"{m['hit_cap']} loss {m['loss']:.6f} traverse_iters {m['trav_iters']} "
+            f"oct_hits/ray {m['n_oct_hits'] / m['n_rays']:.1f} max {m['max_oct_hits']:.0f} "
+            f"truncated {m['n_trav_truncated']:.0f} meaningful {m['n_meaningful']:.0f} "
+            f"nodes {tr.tree_host.n_nodes}")
+        if not np.isfinite(m["loss"]) or m["grads_finite"] != 1.0:
+            raise AssertionError(f"{where}: non-finite loss or gradients at "
+                                 f"iteration {tr.iter_step}: {m}")
+        out.append(m)
+    return out
+
+
+def phase_maintain(tmp: str) -> dict:
+    """Octree maintenance on the card, in three parts:
+      (a) the slice's config with compact_freq 10 and milestones [20, 40],
+          50 steps: maintenance at 10, 20, 30, 40, 50, each printed (counts
+          before and after, max_nodes, hit cap, host seconds of maintain and
+          of the device-tree upload); the node count rises at each milestone,
+          no milestone is left, K3 launches once a step;
+      (b) one step card vs CPU on the subdivided tree (step_parity);
+      (c) milestones [0, 0, 0]: the first maintenance (after step 1) runs
+          three brute-force subdivisions (>= 150,000 nodes), then 5 steps
+          timed: steps/s, rays/s, traversal iterations, hit cap, peak memory.
+    Returns the launches of (a)."""
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    from f2nerf_torch.utils.tree import named_leaves
+
+    data_dir = write_ball_dataset(os.path.join(tmp, "ball_maintain"))
+    tr = Trainer(_compose(MAINT_OVERRIDES), os.path.join(tmp, "exp_maintain"),
+                 data_dir, seed=2022, device="cuda")
+    n_leaves = len(list(named_leaves(tr.params)))
+    log(f"[maintain] (a) {MAINT_OVERRIDES}: start {tree_counts(tr.tree_host)}, "
+        f"max_nodes {tr.max_nodes}, hit_cap {tr.hit_cap}")
+    reset_counts()
+    with MaintenanceSpy() as spy:
+        ms = _train_checked(tr, MAINT_STEPS, "maintain", spy)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for e in spy.events:
+        log(f"[maintain] event at iteration {e['iter']}: before {e['before']}, after "
+            f"{e['after']}; max_nodes {e['max_nodes']}, hit_cap {e['hit_cap']}; "
+            f"maintain {e['maintain_s']:.4f} s host, to_device_tree {e['upload_s']:.4f} s")
+    log(f"[maintain] (a) end: max_nodes {tr.max_nodes}, hit_cap {tr.hit_cap}, "
+        f"milestones {tr.tree_host.milestones}; launches {launches}")
+    for m in MAINT_MILESTONES:
+        before = [x["trav_iters"] for x in ms[m - 5:m]]
+        after = [x["trav_iters"] for x in ms[m:m + 5]]
+        log(f"[maintain] traversal iterations, 5 steps before / after the milestone "
+            f"at {m}: {before} / {after}")
+    if [e["iter"] for e in spy.events] != MAINT_EVENTS:
+        raise AssertionError(f"maintenance ran at {[e['iter'] for e in spy.events]}, "
+                             f"expected {MAINT_EVENTS}")
+    for e in spy.events:
+        if e["iter"] in MAINT_MILESTONES and not e["after"]["nodes"] > e["before"]["nodes"]:
+            raise AssertionError(f"the milestone at {e['iter']} did not subdivide: {e}")
+    if tr.tree_host.milestones:
+        raise AssertionError(f"milestones left: {tr.tree_host.milestones}")
+    check_counts("the maintain phase (a)", launches, {
+        "fused_adam": MAINT_STEPS * n_leaves, "hash_block_fwd": MAINT_STEPS,
+        "row_gather": MAINT_STEPS}, exact={"hash_block_bwd": MAINT_STEPS})
+
+    step_parity(tr, max_hits=tr.hit_cap, where="maintain (b)")
+    del tr
+    torch.cuda.empty_cache()
+
+    over = ["pts_sampler.sub_div_milestones=[0,0,0]"]
+    tr = Trainer(_compose(over), os.path.join(tmp, "exp_maintain_real"), data_dir,
+                 seed=2022, device="cuda")
+    start = tree_counts(tr.tree_host)
+    reset_counts()
+    with MaintenanceSpy() as spy:
+        _train_checked(tr, 1, "maintain (c)", spy)
+    e, = spy.events
+    log(f"[maintain] (c) {over}: maintenance after iteration 1: {start} -> {e['after']}; "
+        f"maintain {e['maintain_s']:.4f} s host, to_device_tree {e['upload_s']:.4f} s; "
+        f"max_nodes {tr.max_nodes}, hit_cap {tr.hit_cap}")
+    if e["after"]["nodes"] < REAL_SCALE_MIN_NODES:
+        raise AssertionError(f"real scale reached {e['after']['nodes']} nodes, "
+                             f"expected >= {REAL_SCALE_MIN_NODES}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ms = _train_checked(tr, REAL_SCALE_STEPS, "maintain (c)")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    real = read_counts()
+    log(f"[maintain] (c) {REAL_SCALE_STEPS} steps on {tr.tree_host.n_nodes} nodes: "
+        f"{REAL_SCALE_STEPS / dt:.3f} steps/s, {sum(m['n_rays'] for m in ms) / dt:.1f} "
+        f"rays/s; traverse_iters {[m['trav_iters'] for m in ms]}; hit_cap "
+        f"{[m['hit_cap'] for m in ms]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {real}")
+    n = 1 + REAL_SCALE_STEPS
+    check_counts("the maintain phase (c)", real, {
+        "fused_adam": n * n_leaves, "hash_block_fwd": n, "row_gather": n},
+        exact={"hash_block_bwd": n})
+    return launches
 
 
 def phase_runner(tmp: str):
@@ -782,8 +982,13 @@ def main(argv=None) -> int:
             if "profile" in phases:
                 timed("profile", phase_profile, tr)
             if "parity" in phases:
-                timed("parity", phase_parity, tr)
+                timed("parity", step_parity, tr, 64, "parity")
             del tr
+            torch.cuda.empty_cache()
+        if "maintain" in phases:
+            maint_launches = timed("maintain", phase_maintain, tmp)
+            for r in rows:
+                r["maintain_launches"] = maint_launches.get(r["name"], 0)
             torch.cuda.empty_cache()
         if "runner" in phases:
             runner = timed("runner", phase_runner, tmp)

@@ -22,8 +22,9 @@ def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` [n] (int32 or int64) of the f32 ``table`` [t, W]:
-    [n, W] f32. CPU tensors take the plain version; CUDA tensors launch K4,
-    which trusts the indices to be in range."""
+    [n, W] f32. CPU tensors take the plain version; CUDA tensors launch K4
+    (no launch for an empty result), which trusts the indices to be in
+    range."""
     if table.device.type == "cpu":
         return row_gather_plain(table, idx)
     if table.device.type != "cuda":
@@ -38,6 +39,8 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     kernels.require_cuda("row_gather", table, idx)
     n, w = idx.shape[0], table.shape[1]
     out = torch.empty((n, w), dtype=torch.float32, device=table.device)
+    if n == 0 or w == 0:
+        return out
     code = kernels.library().f2_row_gather(
         table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
         out.data_ptr(), n, w, kernels.stream_ptr(table.device))

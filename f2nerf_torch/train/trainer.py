@@ -387,8 +387,10 @@ class Trainer:
     """Host-side training orchestration (ExpRunner::Train) on one device.
 
     ``tree_host`` skips the octree build (e.g. when a checkpoint will be
-    loaded right after). Data parallelism, the host data loader, step
-    chunking and octree maintenance are not ported yet (ROADMAP.md)."""
+    loaded right after). Octree maintenance runs after each step that
+    reaches a milestone or a multiple of ``compact_freq``
+    (``maybe_maintain_tree``). Data parallelism, the host data loader and
+    step chunking are not ported yet (ROADMAP.md)."""
 
     def __init__(self, cfg: dict, base_exp_dir: str, data_path: str,
                  seed: int = 2022, device="cuda",
@@ -419,14 +421,13 @@ class Trainer:
                                         cfg["pts_sampler"], seed=seed,
                                         device=self.device)
         self.tree_host = tree_host
+        self.train_cams = (intri, w2c, bounds)
         self.n_volumes = self.tree_host.n_trans
         caps_cfg = cfg.get("capacity", {})
-        self.max_nodes = max(int(caps_cfg.get("max_nodes", 393216)),
-                             pow2ceil(self.tree_host.n_nodes))
-        self.max_trans = max(int(caps_cfg.get("max_trans", 32768)),
-                             pow2ceil(self.tree_host.n_trans))
-        self.max_edges = max(int(caps_cfg.get("max_edges", 262144)),
-                             pow2ceil(self.tree_host.edge_t.shape[0]))
+        self.max_nodes = int(caps_cfg.get("max_nodes", 393216))
+        self.max_trans = int(caps_cfg.get("max_trans", 32768))
+        self.max_edges = int(caps_cfg.get("max_edges", 262144))
+        self._grow_capacities()
         self.tree = dv.to_device_tree(self.tree_host, self.max_nodes,
                                       self.max_trans, self.max_edges,
                                       device=self.device)
@@ -555,17 +556,41 @@ class Trainer:
         return out
 
     def maybe_maintain_tree(self):
-        """Octree maintenance is due at the next milestone and every
-        compact_freq iterations; it is not ported yet, and skipping it would
-        silently train on a stale tree, so this raises."""
+        """Octree maintenance (UpdateOctNodes tail, PersSampler.cu:616-631),
+        as the JAX package's Trainer does it: at a milestone, subdivide the
+        visited leaves, cull the leaves no camera sees and compact; every
+        ``compact_freq`` iterations, compact. The host tree is synced from
+        the device first. At a milestone the hit buffer is pre-sized from
+        the observed maximum (an 8-way split about doubles the worst-case
+        hits a ray) and that maximum halved; when the tree changed, the
+        capacities grow to fit it and the device tree (ropes included) is
+        rebuilt."""
         t = self.tree_host
         need_milestone = bool(t.milestones) and t.milestones[-1] <= self.iter_step
         need_compact = self.iter_step % self.compact_freq == 0
-        if need_milestone or need_compact:
-            raise NotImplementedError(
-                f"octree maintenance is due at iteration {self.iter_step} "
-                "(milestone subdivision / compaction, native/) and is not "
-                "ported yet: ROADMAP.md queue 1, 'octree maintenance'")
+        if not (need_milestone or need_compact):
+            return
+        intri, w2c, bounds = self.train_cams
+        self.tree_host = dv.sync_host_tree(self.tree_host, self.tree)
+        self.tree_host, changed = oc.maintain(
+            self.tree_host, self.iter_step, self.compact_freq, intri, w2c, bounds)
+        if need_milestone:
+            want = pow2ceil(2.0 * max(self.oct_max, 1.0))
+            self.hit_cap = min(max(self.hit_cap, want), self.hit_cap_limit)
+            self.oct_max = self.oct_max * 0.5
+        if changed:
+            self._grow_capacities()
+            self.tree = dv.to_device_tree(self.tree_host, self.max_nodes,
+                                          self.max_trans, self.max_edges,
+                                          device=self.device)
+
+    def _grow_capacities(self):
+        """Device tree capacities: at least the host tree's counts, rounded
+        up to a power of two (never shrunk)."""
+        self.max_nodes = max(self.max_nodes, pow2ceil(self.tree_host.n_nodes))
+        self.max_trans = max(self.max_trans, pow2ceil(self.tree_host.n_trans))
+        self.max_edges = max(self.max_edges,
+                             pow2ceil(self.tree_host.edge_t.shape[0]))
 
     def reset(self):
         """The config's ``reset`` flag (re-initialise field and shader
@@ -692,10 +717,7 @@ class Trainer:
             self.params, self.opt_state, self.consts = convert.state_from_named(
                 z, self.device)
             self.tree_host = convert.octree_from_named(z)
-        self.max_nodes = max(self.max_nodes, pow2ceil(self.tree_host.n_nodes))
-        self.max_trans = max(self.max_trans, pow2ceil(self.tree_host.n_trans))
-        self.max_edges = max(self.max_edges,
-                             pow2ceil(self.tree_host.edge_t.shape[0]))
+        self._grow_capacities()
         self.tree = dv.to_device_tree(self.tree_host, self.max_nodes,
                                       self.max_trans, self.max_edges,
                                       device=self.device)

@@ -132,3 +132,73 @@ def test_kernel_matches_plain_on_card(cuda, w, misalign, dtype):
     assert torch.equal(got, tg.row_gather_plain(table, idx))
     with pytest.raises(ValueError):
         tg.row_gather(table.double(), idx)
+
+
+def _check_on_card(table, idx):
+    n0 = tg.row_gather.launches
+    got = tg.row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert tg.row_gather.launches == n0 + (1 if idx.numel() and table.shape[1] else 0)
+    assert got.shape == (idx.shape[0], table.shape[1])
+    assert torch.equal(got, tg.row_gather_plain(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 33, 1023, 4099])
+@pytest.mark.parametrize("w", [32, 128])
+def test_kernel_row_counts_off_the_group_size(cuda, n, w):
+    """n = 0, 1 and counts that are not a multiple of the 4 rows a lane
+    group takes at once."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    table = torch.randn((777, w), generator=g, device=cuda)
+    _check_on_card(table, torch.randint(0, 777, (n,), generator=g, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_kernel_all_indices_equal(cuda, dtype):
+    """Every row the same index, as the grad pass's padding rows are."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    table = torch.randn((5000, 32), generator=g, device=cuda)
+    _check_on_card(table, torch.full((70001,), 4999, dtype=dtype, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_kernel_misaligned_indices(cuda, dtype):
+    """An index view 4 or 8 bytes off a 16-byte boundary: one load per
+    index instead of the vector load."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    table = torch.randn((300, 32), generator=g, device=cuda)
+    idx = torch.randint(0, 300, (10001,), generator=g, device=cuda).to(dtype)[1:]
+    assert idx.data_ptr() % 16 != 0
+    _check_on_card(table, idx)
+
+
+@pytest.mark.cuda
+def test_kernel_at_captured_slice_inputs(cuda, tmp_path):
+    """The inputs one full-width wanjinyou training step gives K4 (the
+    prefilter's [cap1, 32] encodings and the grad pass's int64 indices,
+    padding rows at index cap1 - 1), captured by spying on the step."""
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.config import compose
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    cfg = compose(os.path.join(REPO, "confs"), "wanjinyou", ["+train.fused_adam=true"])
+    tr = Trainer(cfg, str(tmp_path / "exp"), write_ball_dataset(str(tmp_path / "ball")),
+                 seed=2022, device="cuda")
+    calls, real = [], thb.row_gather
+
+    def spy(table, idx):
+        calls.append((table, idx))
+        return real(table, idx)
+
+    thb.row_gather = spy
+    try:
+        tr.train_one()
+    finally:
+        thb.row_gather = real
+    assert len(calls) == 1
+    table, idx = calls[0]
+    assert table.shape[1] == N_LEVELS * N_CHANNELS and idx.dtype == torch.int64
+    assert int((idx == table.shape[0] - 1).sum()) > 1
+    _check_on_card(table, idx)

@@ -292,7 +292,8 @@ def test_package_imports_no_jax():
     import subprocess
     import sys
     code = ("import sys, f2nerf_torch, f2nerf_torch.train.trainer, "
-            "f2nerf_torch.utils.convert; "
+            "f2nerf_torch.utils.convert, f2nerf_torch.native, "
+            "f2nerf_torch.sampler.octree, f2nerf_torch.run; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'f2nerf_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -67,13 +67,11 @@ def test_build_octree_structure_matches_jax(trees):
               "t_center", "t_dis", "weight_stats", "alpha_stats"):
         np.testing.assert_array_equal(getattr(thost, f), getattr(jhost, f), err_msg=f)
     assert thost.milestones == jhost.milestones and thost.side_len == jhost.side_len
-    # the JAX build takes the native C++ edge pool; the port the numpy one
-    def edges(t):
-        return sorted(zip(map(tuple, t.edge_t.tolist()),
-                          map(tuple, np.round(t.edge_center, 5).tolist()),
-                          map(tuple, np.round(t.edge_dir0, 5).tolist()),
-                          map(tuple, np.round(t.edge_dir1, 5).tolist())))
-    assert len(thost.edge_t) > 0 and edges(thost) == edges(jhost)
+    # both builds take the native C++ edge pool: the same edges in the
+    # same order (the TV loss picks edges by index)
+    assert len(thost.edge_t) > 0
+    for f in ("edge_t", "edge_center", "edge_dir0", "edge_dir1"):
+        np.testing.assert_array_equal(getattr(thost, f), getattr(jhost, f), err_msg=f)
     np.testing.assert_array_equal(toc.build_ropes(thost), joc.build_ropes(jhost))
 
 

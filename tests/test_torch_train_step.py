@@ -57,11 +57,19 @@ def jax_draws(key, n_rays, st, n_train, height, width, n_edges):
 
 @pytest.fixture(scope="module")
 def steps(tmp_path_factory):
+    return one_step_both(tmp_path_factory, OVERRIDES, n_steps=2)
+
+
+def one_step_both(tmp_path_factory, overrides, n_steps):
+    """A tiny JAX Trainer takes ``n_steps`` steps and saves; then one more
+    step of the JAX package and one of the port from that state, with the
+    same draws and static shapes. The port's state after its step is
+    saved too (``port_ckpt``)."""
     data_dir = write_ball_dataset(str(tmp_path_factory.mktemp("ball")))
-    cfg = compose(os.path.join(REPO, "confs"), "wanjinyou", OVERRIDES)
+    cfg = compose(os.path.join(REPO, "confs"), "wanjinyou", overrides)
     jt = jtr.Trainer(cfg, str(tmp_path_factory.mktemp("jax_exp")), data_dir, seed=2022)
-    jt.train_one()
-    jt.train_one()
+    for _ in range(n_steps):
+        jt.train_one()
     jt.save_checkpoint()
     ckpt = os.path.join(jt.base_exp_dir, "checkpoints", "latest")
 
@@ -127,6 +135,7 @@ def steps(tmp_path_factory):
     pt.save_checkpoint()
     return dict(jax=jax_side, port=port_side, lr=runtime["lr"], cfg=cfg,
                 data_dir=data_dir, grad_loss=float(aux_g["loss"]), jax_trainer=jt,
+                port_trainer=pt,
                 port_ckpt=os.path.join(pt.base_exp_dir, "checkpoints", "latest"))
 
 
