@@ -39,9 +39,24 @@ Phases:
                runs, and Trainer.render_image timed over all 24 cameras.
   8. eval_parity — one test camera rendered from the saved checkpoint on the
                card (kernels) and on the CPU (plain versions), compared.
+  9. variants — the configurations beside the default slice
+               (phase_variants): (a) the reference-semantics config
+               (field.type=Hash3DAnchored +pts_sampler.march_mode=lockstep)
+               at full width, 20 steps timed as the slice is, K5 twice and
+               K6/K7 once a step (K2/K3/K4 never); K5/K6/K7 at that
+               step's own inputs (spied) and K7 at a uniform shape
+               against their plain versions; one step card vs CPU;
+               render_image over the 24 cameras and one image card vs
+               CPU; (b) HashBlock +train.single_pass=true, 10 single-pass
+               steps (K3 once a step, K4 never), one step card vs CPU;
+               (c) data_at_gpu=false and ray_sample_mode=single_image, 3
+               steps each, then Trainer.reset and a step; (d) one
+               two-pass eval render card vs CPU for each field.
+               K5/K6 are also timed at the kernels phase's uniform shape.
   profile    — not run by default: torch.profiler over 3 more slice steps,
                per-span host/device time and the top kernels
-               (--phases device,build,kernels,slice,profile).
+               (--phases device,build,kernels,slice,profile); with the
+               variants phase, also over 3 more steps of its config (a).
 
 The last lines are the kernels JSON, the card line, and the result JSON.
 Any failed phase raises, and the script exits non-zero without a result.
@@ -50,6 +65,7 @@ Any failed phase raises, and the script exits non-zero without a result.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import statistics
@@ -62,6 +78,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+DEV = "cuda"           # the card; the variants phase reads it
 N_STEPS = 20
 TIME_FROM = 4          # steps 4..20 are timed (the first ones warm up)
 
@@ -74,9 +91,26 @@ TIME_FROM = 4          # steps 4..20 are timed (the first ones warm up)
 TOL_ADAM = 1e-6
 TOL_ENCODE = 1e-6
 TOL_SCATTER_REL = 1e-5
+# K7 rounds every operation as its plain version does (no FMA): sample
+# counts and nodes must be equal; positions and steps are held to 1e-6
+# relative
+TOL_MARCH_REL = 1e-6
 RUNNER_ITERS = 40      # the runner phase's mode=train iterations
 PHASES = ("device", "build", "kernels", "slice", "parity", "maintain", "runner",
-          "eval_parity")
+          "eval_parity", "variants")
+# the variants phase: the reference-semantics config (a), single-pass
+# training (b), the host loader / single-image sampling / reset (c)
+REF_OVERRIDES = ["field.type=Hash3DAnchored", "+pts_sampler.march_mode=lockstep"]
+VAR_STEPS = 20
+SINGLE_PASS_STEPS = 10
+HOST_STEPS = 3
+# K7's operations bound: f32 operations of one EMIT evaluation (the warp
+# Jacobian: 12 projections x 33, the step and the sample ~20), over the
+# H100 SXM's 67 TFLOP/s f32 peak outside the tensor cores
+MARCH_FLOPS_PER_EMIT = 416
+F32_FLOPS = 67e12
+KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
+                "hash_encode_fwd", "hash_encode_bwd", "ray_march")
 # the maintain phase: (a) a compressed maintenance schedule, (c) real scale
 MAINT_STEPS = 50
 MAINT_OVERRIDES = ["pts_sampler.compact_freq=10", "pts_sampler.sub_div_milestones=[20,40]"]
@@ -91,6 +125,7 @@ HBM_BYTES_PER_S = 3.35e12
 PREFILL_CYCLES = 2_000_000     # ~1 ms of the SM clock (cuda_time)
 NO_LIBRARY = "none: no single PyTorch call computes the hashed trilinear " \
              "encode or its scatter"
+NO_LIBRARY_MARCH = "none: no PyTorch call marches rays through their hit lists"
 
 
 def log(*a):
@@ -151,9 +186,12 @@ def touched_rows(prim, bias, pts, vol, l2t: int) -> int:
 def wrappers():
     """Every kernel wrapper, each with its ``launches`` count."""
     from f2nerf_torch.fields import hash_block as hb
+    from f2nerf_torch.fields import hash_encoding as he
     from f2nerf_torch.ops import fused_adam as fa
     from f2nerf_torch.ops import gather as ga
-    return (fa.fused_adam, hb.hash_block_fwd, hb.hash_block_bwd, ga.row_gather)
+    from f2nerf_torch.sampler import device as dv
+    return (fa.fused_adam, hb.hash_block_fwd, hb.hash_block_bwd, ga.row_gather,
+            he.hash_encode_fwd, he.hash_encode_bwd, dv.ray_march)
 
 
 def reset_counts() -> None:
@@ -325,6 +363,110 @@ def scatter_case(calls: list, label: str) -> dict:
                 rows=rows)
 
 
+def hash3d_entries(prim, bias, pts, vol, l2t: int) -> int:
+    """Distinct pool entries (8 B each) these samples' corners touch: K5
+    must read that many."""
+    from f2nerf_torch.fields import hash_encoding as he
+    idx = [i for _, i, _ in he._corner_indices_weights(prim, bias, pts, vol, l2t)]
+    return int(torch.unique(torch.cat(idx)).numel())
+
+
+def hash3d_encode_case(args: tuple, label: str) -> dict:
+    """K5 against its plain version on one input (pool, prim, bias, pts,
+    vol, log2_table_size), held bit for bit; the median time of both and
+    the bound: points and volumes read, the touched pool entries read
+    once, the encodings written."""
+    from f2nerf_torch.fields import hash_encoding as he
+    _, prim, bias, pts, vol, l2t = args
+    out_k, out_p = he.hash_encode_fwd(*args), he.hash_encode_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    same = torch.equal(out_k, out_p)
+    del out_k, out_p
+    ms = cuda_time(lambda: he.hash_encode_fwd(*args))
+    plain_ms = cuda_time(lambda: he.hash_encode_fwd_plain(*args), reps=3)
+    n, entries = pts.shape[0], hash3d_entries(prim, bias, pts, vol, l2t)
+    bound = bound_ms(n * (12 + 4) + entries * 8 + n * 128)
+    log(f"[kernels] K5 hash_encode_fwd {label}: n={n}, {entries} pool entries "
+        f"touched: max_abs_err {err:.3e} (bit for bit: {same}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it); "
+        f"library call: none")
+    if not same:
+        raise AssertionError(f"hash_encode_fwd is not bit for bit its plain "
+                             f"version ({label}): {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, n=n,
+                entries=entries)
+
+
+def hash3d_scatter_case(args: tuple, label: str) -> dict:
+    """K6 against its plain version on one input (g, prim, bias, pts, vol,
+    log2_table_size, pool_size), held to 1e-5 of the largest entry. The
+    bound: g, points and volumes read, the dense [pool, 2] gradient
+    written once."""
+    from f2nerf_torch.fields import hash_encoding as he
+    g, _, _, pts, _, _, pool = args
+    d_k, d_p = he.hash_encode_bwd(*args), he.hash_encode_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err = (d_k - d_p).abs().max().item()
+    scale = d_p.abs().max().item()
+    del d_k, d_p
+    ms = cuda_time(lambda: he.hash_encode_bwd(*args))
+    plain_ms = cuda_time(lambda: he.hash_encode_bwd_plain(*args), reps=3)
+    n = pts.shape[0]
+    zero = int((g.abs().amax(dim=1) == 0).sum())
+    bound = bound_ms(n * (128 + 12 + 4) + pool * 8)
+    log(f"[kernels] K6 hash_encode_bwd {label}: n={n} ({zero} zero-gradient rows), "
+        f"pool {pool}: max_abs_err {err:.3e} (tol {TOL_SCATTER_REL:g} x max|grad| "
+        f"{scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({100 * bound / ms:.1f}% of it); library call: none")
+    if not (np.isfinite(err) and err <= TOL_SCATTER_REL * scale):
+        raise AssertionError(f"hash_encode_bwd disagrees with its plain version "
+                             f"({label}): {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, n=n)
+
+
+def march_case(args: tuple, label: str) -> dict:
+    """K7 against its plain version on one input (tree, rays_o, rays_d,
+    hit_idx, hit_near, hit_far, n_hits, noise, sample_l, scale_by_dis,
+    max_s): n_s and out_node equal, out_t/out_dt to TOL_MARCH_REL
+    relative. The bound is the larger of: the bytes (hit lists, rays,
+    noise, the touched nodes' trans_idx and the touched leaves' warp rows
+    read once, the dense outputs written once) over 3.35 TB/s, and the
+    operations of this run's EMIT evaluations (one per sample, plus one
+    per hit entered) at MARCH_FLOPS_PER_EMIT f32 operations each over the
+    card's 67 TFLOP/s f32 peak."""
+    from f2nerf_torch.sampler import device as dv
+    tree, _, _, hit_idx, _, _, n_hits, noise, _, _, max_s = args
+    got, want = dv.ray_march(*args), dv.ray_march_plain(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(got[3], want[3]) and torch.equal(got[2], want[2])
+    rel = max(((got[k] - want[k]).abs() / want[k].abs().clamp(min=1e-30)).max().item()
+              for k in (0, 1))
+    err = max((got[k] - want[k]).abs().max().item() for k in (0, 1))
+    n_s = int(want[3].sum())
+    del got, want
+    ms = cuda_time(lambda: dv.ray_march(*args))
+    plain_ms = cuda_time(lambda: dv.ray_march_plain(*args), reps=3)
+    R, H = hit_idx.shape
+    nodes = torch.unique(hit_idx[hit_idx >= 0].long())
+    leaves = torch.unique(tree.trans_idx[nodes].clamp(min=0)).numel()
+    emits = n_s + int(n_hits.sum())
+    nbytes = (R * H * 12 + R * 28 + noise.numel() * 4 + nodes.numel() * 4
+              + leaves * (96 + 36 + 3 + 1) * 4 + R * max_s * 12 + R * 4)
+    by_bytes, by_ops = bound_ms(nbytes), emits * MARCH_FLOPS_PER_EMIT / F32_FLOPS * 1e3
+    bound, bound_by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    log(f"[kernels] K7 ray_march {label}: R={R}, H={H}, max_s={max_s}, {n_s} samples, "
+        f"{emits} EMIT evaluations, {leaves} leaves: n_s and out_node equal: {same}; "
+        f"t/dt max rel err {rel:.3e} (tol {TOL_MARCH_REL:g}), max abs {err:.3e}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
+        f"{bound_by} (bytes {by_bytes:.4f}, operations {by_ops:.4f}; "
+        f"{100 * bound / ms:.1f}% of it); library call: none")
+    if not (same and rel <= TOL_MARCH_REL):
+        raise AssertionError(f"ray_march disagrees with its plain version ({label})")
+    return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, samples=n_s, R=R, H=H)
+
+
 def phase_kernels() -> list[dict]:
     from f2nerf_torch.fields import hash_block as hb
     from f2nerf_torch.fields.hash_encoding import _random_primes
@@ -424,7 +566,22 @@ def phase_kernels() -> list[dict]:
                      bound_by="bytes", library_ms=None, library=NO_LIBRARY,
                      **{f"uniform_{k}": v for k, v in r3.items()},
                      **{k: r3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
-    del feat, g
+    del feat
+
+    # ---- K5 / K6 at the same uniform shape, the Hash3DAnchored pool at
+    # full width ([2^19 * 16, 2]); the slice's own inputs follow the
+    # variants phase
+    pool = torch.randn(((1 << l2t) * 16, 2), generator=gen, device=dev)
+    r5 = hash3d_encode_case((pool, prim, bias, pts, vol, l2t), "uniform")
+    r6 = hash3d_scatter_case((g, prim, bias, pts, vol, l2t, pool.shape[0]), "uniform")
+    for name, src, r in (("hash_encode_fwd", "f2nerf_tpu/fields/hash_encoding.py:135", r5),
+                         ("hash_encode_bwd", "f2nerf_tpu/fields/hash_encoding.py:161", r6)):
+        rows.append(dict(name=name, route="cuda", source="f2nerf_torch/csrc/hash3d.cu",
+                         replaces=src, bound_by="bytes", library_ms=None,
+                         library=NO_LIBRARY, path="variants (a)",
+                         **{f"uniform_{k}": v for k, v in r.items()},
+                         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
+    del pool, g
 
     # ---- K4 at micro_gather's registered shape (:164): t 2^14, W 128, n 2^20;
     # the slice's cached-B shape follows the slice (its cap1/cap2)
@@ -443,27 +600,10 @@ def phase_kernels() -> list[dict]:
 def capture_step_inputs(tr) -> dict:
     """One more slice step with K2's, K3's and K4's wrappers spied on (as
     fields/hash_block.py calls them): the arguments of every call, in
-    order. The real wrappers run as always."""
+    order (``capture_calls``)."""
     from f2nerf_torch.fields import hash_block as hb
-    calls = {"hash_block_fwd": [], "hash_block_bwd": [], "row_gather": []}
-    real = {name: getattr(hb, name) for name in calls}
-
-    def spy(name):
-        def fn(*args):
-            calls[name].append(args)
-            return real[name](*args)
-        fn.launches = 0     # the real wrapper counts on the module's name
-        return fn
-
-    try:
-        for name in calls:
-            setattr(hb, name, spy(name))
-        tr.train_one()
-        torch.cuda.synchronize()
-    finally:
-        for name, fn in real.items():
-            setattr(hb, name, fn)
-    return calls
+    return capture_calls(tr, {name: hb for name in
+                              ("hash_block_fwd", "hash_block_bwd", "row_gather")})
 
 
 def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
@@ -564,12 +704,13 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
     # one table-gradient scatter a step: the grad pass's B and edge samples
     # share one K3 launch
     check_counts("the slice", launches, {
-        "fused_adam": N_STEPS * n_leaves, "hash_block_fwd": N_STEPS,
-        "row_gather": N_STEPS}, exact={"hash_block_bwd": N_STEPS})
+        "fused_adam": N_STEPS * n_leaves, "hash_block_fwd": N_STEPS},
+        exact={"hash_block_bwd": N_STEPS, "row_gather": N_STEPS, "hash_encode_fwd": 0,
+               "hash_encode_bwd": 0, "ray_march": 0})
     return launches, tr, (m["cap1"], m["cap2"])
 
 
-def phase_profile(tr, n_steps: int = 3) -> None:
+def phase_profile(tr, n_steps: int = 3, where: str = "profile") -> None:
     """torch.profiler over n_steps more steps: host and device time of each
     step span (f2nerf_torch/utils/spans.py), the device busy share, and the
     kernels that take the most device time."""
@@ -594,23 +735,25 @@ def phase_profile(tr, n_steps: int = 3) -> None:
     # device busy = kernel time only (a span's device-side range is a
     # range, not work)
     busy_ms = sum(dev(e, True) for e in avgs if not is_span(e)) / 1e3
-    log(f"[profile] {n_steps} steps: wall {wall_ms / n_steps:.2f} ms/step, device busy "
+    log(f"[{where}] {n_steps} steps: wall {wall_ms / n_steps:.2f} ms/step, device busy "
         f"{busy_ms / n_steps:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}% of wall)")
     for e in sorted((e for e in avgs if is_span(e) and e.cpu_time_total > 0),
                     key=lambda e: -e.cpu_time_total):
-        log(f"[profile] span {e.key:24s} host {e.cpu_time_total / 1e3 / n_steps:8.2f} ms/step"
+        log(f"[{where}] span {e.key:24s} host {e.cpu_time_total / 1e3 / n_steps:8.2f} ms/step"
             f"  device {dev(e) / 1e3 / n_steps:8.3f} ms/step  calls {e.count // n_steps}")
     kernels = sorted((e for e in avgs if dev(e, True) > 0 and not is_span(e)),
                      key=lambda e: -dev(e, True))
     for e in kernels[:12]:
-        log(f"[profile] kernel {e.key[:70]:70s} {dev(e, True) / 1e3 / n_steps:8.3f} ms/step"
+        log(f"[{where}] kernel {e.key[:70]:70s} {dev(e, True) / 1e3 / n_steps:8.3f} ms/step"
             f"  launches {e.count // n_steps}")
 
 
-def step_parity(tr, max_hits: int, where: str) -> None:
+def step_parity(tr, max_hits: int, where: str, single_pass: bool = False) -> None:
     """One step from the trainer's saved state and one set of draws, card
     vs CPU, at the first controller bucket's shapes and ``max_hits``, held
-    to the tolerances of f2nerf_torch/utils/parity.py."""
+    to the tolerances of f2nerf_torch/utils/parity.py. The trainer's
+    config picks the field and the marcher; ``single_pass`` the statics'
+    single pass (B = A, cap2 = cap1)."""
     from f2nerf_torch.train.trainer import (Trainer, draw_step, flat_caps,
                                             make_core, max_s_for, render_statics)
     from f2nerf_torch.utils.parity import STEP_TOL, step_agrees, step_errors
@@ -623,13 +766,14 @@ def step_parity(tr, max_hits: int, where: str) -> None:
     cap1, cap2 = flat_caps(n_rays, max_s, tr.pts_batch, 512.0, 512.0, None,
                            max(16384, 2048))
     st = render_statics(cfg, n_rays, tr.dataset.near, train=True, max_s=max_s,
-                        cap1=cap1, cap2=cap2, max_hits=max_hits)
+                        cap1=cap1, cap2=cap1 if single_pass else cap2,
+                        max_hits=max_hits)._replace(single_pass=single_pass)
     gen = torch.Generator(device="cpu").manual_seed(7)
     draws_cpu = draw_step(gen, tr.dataset.device_arrays("cpu"), st, n_rays,
                           tr.dataset.height, tr.dataset.width, tr.tree)
     res = {}
-    for dev in ("cuda", "cpu"):
-        t = tr if dev == "cuda" else Trainer(
+    for name, dev in (("cuda", DEV), ("cpu", "cpu")):
+        t = tr if name == "cuda" else Trainer(
             cfg, tr.base_exp_dir, tr.dataset.data_path, device="cpu",
             tree_host=tr.tree_host)
         t.load_checkpoint()
@@ -638,7 +782,7 @@ def step_parity(tr, max_hits: int, where: str) -> None:
         t0 = time.perf_counter()
         tree, aux, grads = core(t.params, t.opt_state, t.tree, t.consts, t.data,
                                 t.runtime(), draws, n_rays)
-        res[dev] = dict(
+        res[name] = dict(
             loss=float(aux["loss"]), secs=time.perf_counter() - t0,
             n=float(aux["stats"]["n_meaningful"]), lr=float(t.runtime()["lr"]),
             params={k: v.detach().cpu() for k, v in named_leaves(t.params)},
@@ -650,7 +794,8 @@ def step_parity(tr, max_hits: int, where: str) -> None:
                       b["params"], a["occ"], b["occ"], b["lr"])
     p_abs = max((a["params"][k] - b["params"][k]).abs().max().item() for k in b["params"])
     log(f"[{where}] iteration {tr.iter_step}, {tr.tree_host.n_nodes} nodes, hit cap "
-        f"{max_hits}: loss cuda {a['loss']:.7f} cpu {b['loss']:.7f}; meaningful samples "
+        f"{max_hits}, {st.field_type}/{st.march_mode}/single_pass={st.single_pass}: "
+        f"loss cuda {a['loss']:.7f} cpu {b['loss']:.7f}; meaningful samples "
         f"cuda {a['n']:.0f} cpu {b['n']:.0f}; errors {err} (tolerances {STEP_TOL}); "
         f"max |param diff| {p_abs:.3e} at lr {b['lr']:.3e}; "
         f"step seconds cuda {a['secs']:.2f} cpu {b['secs']:.2f}")
@@ -919,20 +1064,33 @@ def phase_runner(tmp: str):
 
 
 def phase_eval_parity(runner) -> None:
-    """One test camera from the saved checkpoint: render_image on the card
-    (kernels) and on the CPU (plain versions), held to EVAL_TOL
-    (f2nerf_torch/utils/parity.py), the same chunks rendered again."""
-    from f2nerf_torch.data import dataset as ds
-    from f2nerf_torch.train.trainer import Trainer
-    from f2nerf_torch.utils.parity import EVAL_TOL, eval_agrees, image_errors
+    eval_image_parity(runner.trainer, "eval_parity", saved=True)
 
-    card = runner.trainer
+
+def cpu_copy(card, save: bool = True):
+    """A CPU Trainer at the card trainer's state (its checkpoint, its tree
+    and hit cap)."""
+    from f2nerf_torch.train.trainer import Trainer
+    if save:
+        card.save_checkpoint()
     cpu = Trainer(card.cfg, card.base_exp_dir, card.dataset.data_path,
                   device="cpu", tree_host=card.tree_host)
     cpu.load_checkpoint()
-    if (cpu.iter_step, cpu.hit_cap, cpu.ema_sampled) != \
-            (card.iter_step, card.hit_cap, card.ema_sampled):
+    cpu.hit_cap = card.hit_cap
+    if (cpu.iter_step, cpu.ema_sampled) != (card.iter_step, card.ema_sampled):
         raise AssertionError("the CPU trainer did not load the card's state")
+    return cpu
+
+
+def eval_image_parity(card, where: str, saved: bool = False) -> None:
+    """One test camera from the trainer's checkpoint (written first unless
+    ``saved``): render_image on the card (kernels) and on the CPU (plain
+    versions), held to EVAL_TOL (f2nerf_torch/utils/parity.py), the same
+    chunks rendered again."""
+    from f2nerf_torch.data import dataset as ds
+    from f2nerf_torch.utils.parity import EVAL_TOL, eval_agrees, image_errors
+
+    cpu = cpu_copy(card, save=not saved)
     cam = int(cpu.dataset.test_set[0])
     ro, rd = ds.camera_rays(cpu.data, cam, cpu.dataset.height, cpu.dataset.width)
     out, secs, redo = {}, {}, {}
@@ -943,7 +1101,7 @@ def phase_eval_parity(runner) -> None:
     (ca, da, oa), (cb, db, ob) = out["cuda"], out["cpu"]
     err = image_errors(ca, da, cb, db)
     oct_err = float(np.abs(oa - ob).max())
-    log(f"[eval_parity] camera {cam}, {ro.shape[0]} rays: errors {err}, "
+    log(f"[{where}] camera {cam}, {ro.shape[0]} rays: errors {err}, "
         f"first_oct_dis {oct_err:.3e} (tolerances {EVAL_TOL}); chunks rendered "
         f"again cuda {redo['cuda']} cpu {redo['cpu']}; seconds cuda "
         f"{secs['cuda']:.2f} cpu {secs['cpu']:.2f}")
@@ -951,6 +1109,251 @@ def phase_eval_parity(runner) -> None:
         raise AssertionError("card and CPU rendered different chunks again")
     if not (eval_agrees(err, exact=False) and oct_err <= EVAL_TOL["oct_atol"]):
         raise AssertionError("card and CPU images disagree beyond the stated tolerances")
+
+
+def two_pass_eval_parity(card, where: str, want: dict) -> None:
+    """One two-pass eval ``render`` (prefilter, A -> B, the field on B:
+    HashBlock by the cached gather, Hash3DAnchored by a full query) of a
+    test camera's rays, card vs CPU from one checkpoint, held to EVAL_TOL;
+    the card's launches must include ``want`` (at least)."""
+    from f2nerf_torch.data import dataset as ds
+    from f2nerf_torch.render.renderer import render
+    from f2nerf_torch.train import schedules
+    from f2nerf_torch.train.trainer import render_statics
+    from f2nerf_torch.utils.parity import EVAL_TOL, eval_agrees, image_errors
+
+    cpu = cpu_copy(card)
+    fineness = schedules.ray_march_fineness(card.iter_step, card.cfg["train"])
+    cam = int(cpu.dataset.test_set[0])
+    n, max_s = 1024, 256
+    st = render_statics(card.cfg, n, card.dataset.near, train=False, max_s=max_s,
+                        cap1=n * max_s, cap2=n * 64, max_hits=card.hit_cap)
+    out = {}
+    for name, t in (("cuda", card), ("cpu", cpu)):
+        ro, rd = (x[:n] for x in ds.camera_rays(t.data, cam, t.dataset.height,
+                                                 t.dataset.width))
+        dev = ro.device
+        reset_counts()
+        with torch.no_grad():
+            res, occ = render(t.params, t.consts, t.tree, ro, rd,
+                              torch.zeros((n,), dtype=torch.int32, device=dev), None,
+                              torch.full((), fineness, device=dev),
+                              torch.ones((), device=dev), st)
+        if name == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        out[name] = dict(stats={k: float(v) for k, v in res["stats"].items()},
+                         colors=res["colors"].cpu(), disp=res["disparity"].cpu())
+    a, b = out["cuda"], out["cpu"]
+    err = image_errors(a["colors"], a["disp"], b["colors"], b["disp"])
+    log(f"[{where}] two-pass eval render, {st.field_type}/{st.march_mode}, camera "
+        f"{cam}, {n} rays, fineness {fineness:g}, cap1 {st.cap1} cap2 {st.cap2}: sampled {a['stats']['n_sampled']:.0f} "
+        f"kept {a['stats']['n_meaningful']:.0f} (cpu {b['stats']['n_sampled']:.0f} / "
+        f"{b['stats']['n_meaningful']:.0f}); errors {err} (tolerances {EVAL_TOL}); "
+        f"card launches {counts}")
+    check_counts(where, counts, want)
+    if a["stats"]["n_sampled"] != b["stats"]["n_sampled"] or occ is not None:
+        raise AssertionError("card and CPU sampled differently (or eval voted)")
+    if not eval_agrees(err, exact=False):
+        raise AssertionError("card and CPU two-pass renders disagree beyond EVAL_TOL")
+
+
+def capture_calls(tr, names: dict) -> dict:
+    """One more training step with the given wrappers spied on ({name:
+    module}): the arguments of every call, in order. The real wrappers run
+    as always."""
+    calls = {name: [] for name in names}
+    real = {name: getattr(mod, name) for name, mod in names.items()}
+
+    def spy(name):
+        def fn(*args):
+            calls[name].append(args)
+            return real[name](*args)
+        fn.launches = 0
+        return fn
+
+    try:
+        for name, mod in names.items():
+            setattr(mod, name, spy(name))
+        tr.train_one()
+        torch.cuda.synchronize()
+    finally:
+        for name, mod in names.items():
+            setattr(mod, name, real[name])
+    return calls
+
+
+def march_uniform_args(tr, gen, R: int = 1536, max_s: int = 512, H: int = 64):
+    """K7's uniform case on the trainer's tree: R rays with origins
+    uniform in [-1, 1]^3 and uniform directions, their hits at hit cap H,
+    a training noise draw times the initial fineness 16."""
+    from f2nerf_torch.sampler import device as dv
+    dev = torch.device(DEV)
+    o = torch.rand((R, 3), generator=gen, device=dev) * 2.0 - 1.0
+    d = torch.randn((R, 3), generator=gen, device=dev)
+    d = d / dv.norm3(d)[:, None]
+    near = torch.full((R,), float(tr.cfg["pts_sampler"]["near"]), device=dev)
+    hits = dv.traverse(tr.tree, o, d, near, torch.full((R,), 1e8, device=dev), H)[:4]
+    noise = ((torch.rand((R + max_s + 16,), generator=gen, device=dev) - 0.5) + 1.0) * 16.0
+    return (tr.tree, o, d, *hits, noise, float(tr.cfg["pts_sampler"]["sample_l"]),
+            bool(tr.cfg["pts_sampler"]["scale_by_dis"]), max_s)
+
+
+def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
+    """The configurations beside the default slice, on the card:
+      (a) the reference-semantics config (REF_OVERRIDES: the Hash3DAnchored
+          field, the lockstep marcher) at full width: VAR_STEPS steps timed
+          over TIME_FROM..VAR_STEPS (steps/s, rays/s, peak memory); every
+          step launches K5 twice (A's prefilter, B + edges), K6 and K7
+          once, K2/K3/K4 never; K5/K6/K7 at one step's own inputs (spied)
+          and K7 at a uniform shape, each against its plain version; one
+          step card vs CPU; render_image over the 24 cameras (eval rays/s)
+          and one image card vs CPU;
+      (b) HashBlock with +train.single_pass=true: SINGLE_PASS_STEPS steps,
+          each single pass (B = A), K3 once a step, K4 never; one step card
+          vs CPU;
+      (c) data_at_gpu=false and ray_sample_mode=single_image: HOST_STEPS
+          steps each; then Trainer.reset and one step;
+      (d) one two-pass eval render card vs CPU for each field.
+    With ``profile``, phase_profile runs on (a)'s trainer after its timed
+    steps. Returns the launches of (a)."""
+    from f2nerf_torch.fields import hash_encoding as he
+    from f2nerf_torch.sampler import device as dv
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    from f2nerf_torch.utils.tree import named_leaves
+
+    data_dir = write_ball_dataset(os.path.join(tmp, "ball_variants"))
+    # ---- (a) the reference-semantics config
+    tr = Trainer(_compose(REF_OVERRIDES), os.path.join(tmp, "exp_ref"), data_dir,
+                 seed=2022, device=DEV)
+    # (b) and (c) start from the same octree (their configs build the same
+    # one), copied before (a)'s checkpoints sync occupancy into it
+    tree0 = copy.deepcopy(tr.tree_host)
+    n_leaves = len(list(named_leaves(tr.params)))
+    log(f"[variants] (a) {REF_OVERRIDES}: feat_pool {tuple(tr.params['feat_pool'].shape)}")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rays, t_start = 0, None
+    for step in range(1, VAR_STEPS + 1):
+        if step == TIME_FROM:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        m = tr.train_one()
+        if step >= TIME_FROM:
+            rays += m["n_rays"]
+        log(f"[variants] (a) step {step}: n_rays {m['n_rays']} cap1 {m['cap1']} cap2 "
+            f"{m['cap2']} hit_cap {m['hit_cap']} loss {m['loss']:.6f} traverse_iters "
+            f"{m['trav_iters']} sampled {m['n_sampled']:.0f} meaningful "
+            f"{m['n_meaningful']:.0f} saturated {m['n_saturated']:.0f}")
+        if not np.isfinite(m["loss"]) or m["grads_finite"] != 1.0:
+            raise AssertionError(f"(a): non-finite loss or gradients at step {step}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_start
+    launches = read_counts()
+    n_timed = VAR_STEPS - TIME_FROM + 1
+    log(f"[variants] (a) steps {TIME_FROM}-{VAR_STEPS}: {n_timed / dt:.3f} steps/s, "
+        f"{rays / dt:.1f} rays/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB; launches {launches}")
+    check_counts("variants (a)", launches, {"fused_adam": VAR_STEPS * n_leaves}, exact={
+        "hash_encode_fwd": 2 * VAR_STEPS, "hash_encode_bwd": VAR_STEPS,
+        "ray_march": VAR_STEPS, "hash_block_fwd": 0, "hash_block_bwd": 0,
+        "row_gather": 0})
+    if profile:
+        phase_profile(tr, where="profile (a)")
+
+    if rows:
+        calls = capture_calls(tr, {"hash_encode_fwd": he, "hash_encode_bwd": he,
+                                   "ray_march": dv})
+        fwd = max(calls["hash_encode_fwd"], key=lambda a: a[3].shape[0])
+        at = {"hash_encode_fwd": hash3d_encode_case(fwd, f"step's A at {fwd[3].shape[0]}"),
+              "hash_encode_bwd": hash3d_scatter_case(calls["hash_encode_bwd"][0],
+                                                     "step's B + edges")}
+        (march,) = calls["ray_march"]
+        at["ray_march"] = march_case(march, "step's own inputs")
+        del calls, fwd, march
+        r7 = march_case(march_uniform_args(tr, torch.Generator(device=DEV).manual_seed(5)),
+                        "uniform rays, hit cap 64")
+        rows.append(dict(name="ray_march", route="cuda", source="f2nerf_torch/csrc/ray_march.cu",
+                         replaces="f2nerf_tpu/sampler/device.py:436", library_ms=None,
+                         library=NO_LIBRARY_MARCH, path="variants (a)",
+                         bound_by=at["ray_march"]["bound_by"],
+                         **{f"uniform_{k}": v for k, v in r7.items()},
+                         max_abs_err=max(r7["max_abs_err"], at["ray_march"]["max_abs_err"])))
+        for r in rows:
+            new = at.get(r["name"])
+            if new is not None:
+                r.update({k: new[k] for k in ("ms", "plain_ms", "bound_ms")},
+                         max_abs_err=max(r["max_abs_err"], new["max_abs_err"]),
+                         **{f"slice_{k}": v for k, v in new.items()})
+                r["launches_per_step"] = launches[r["name"]] / VAR_STEPS
+
+    step_parity(tr, max_hits=64, where="variants (a) parity")
+    h, w = tr.dataset.height, tr.dataset.width
+    from f2nerf_torch.data import dataset as ds
+    cams = [ds.camera_rays(tr.data, i, h, w) for i in range(tr.dataset.n_images)]
+    ro, rd = torch.cat([c[0] for c in cams]), torch.cat([c[1] for c in cams])
+    tr.render_image(ro, rd)                                  # warm-up
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    colors, _, _ = tr.render_image(ro, rd)
+    secs = time.perf_counter() - t0
+    ev = read_counts()
+    log(f"[variants] (a) render_image over {tr.dataset.n_images} cameras: {ro.shape[0]} "
+        f"rays in {secs:.4f} s, {ro.shape[0] / secs:.1f} rays/s, {secs / tr.dataset.n_images:.4f} "
+        f"s per {h}x{w} image; chunks rendered again {len(tr.last_redo)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {ev}")
+    if not np.isfinite(colors).all():
+        raise AssertionError("(a): non-finite colours in render_image")
+    check_counts("variants (a) render_image", ev, {"hash_encode_fwd": 1, "ray_march": 1},
+                 exact={"hash_block_fwd": 0, "hash_encode_bwd": 0})
+    eval_image_parity(tr, "variants (a) eval parity")
+    two_pass_eval_parity(tr, "variants (d)", {"hash_encode_fwd": 2, "ray_march": 1})
+    del tr
+    torch.cuda.empty_cache()
+
+    # ---- (b) single-pass training, HashBlock
+    tr = Trainer(_compose(["+train.single_pass=true"]), os.path.join(tmp, "exp_single"),
+                 data_dir, seed=2022, device=DEV, tree_host=copy.deepcopy(tree0))
+    reset_counts()
+    ms = _train_checked(tr, SINGLE_PASS_STEPS, "variants (b)")
+    torch.cuda.synchronize()
+    sp = read_counts()
+    log(f"[variants] (b) +train.single_pass=true: single pass at every step "
+        f"{[m['single_pass'] for m in ms]}, cap1 = cap2 {[m['cap1'] == m['cap2'] for m in ms]}; "
+        f"launches {sp}")
+    if not all(m["single_pass"] and m["cap1"] == m["cap2"] for m in ms):
+        raise AssertionError("(b): a step ran two passes")
+    check_counts("variants (b)", sp, {}, exact={
+        "hash_block_fwd": SINGLE_PASS_STEPS, "hash_block_bwd": SINGLE_PASS_STEPS,
+        "row_gather": 0, "hash_encode_fwd": 0, "ray_march": 0})
+    step_parity(tr, max_hits=64, where="variants (b) parity", single_pass=True)
+    two_pass_eval_parity(tr, "variants (d)", {"hash_block_fwd": 1, "row_gather": 1})
+    del tr
+    torch.cuda.empty_cache()
+
+    # ---- (c) the host loader, single-image sampling, reset
+    for k, over in enumerate((["dataset.data_at_gpu=false"],
+                              ["dataset.ray_sample_mode=single_image"])):
+        tr = Trainer(_compose(over), os.path.join(tmp, f"exp_host{k}"), data_dir,
+                     seed=2022, device=DEV, tree_host=copy.deepcopy(tree0))
+        if over[0].startswith("dataset.data_at_gpu") and "train_images" in tr.data:
+            raise AssertionError("(c): the training images went to the card")
+        t0 = time.perf_counter()
+        _train_checked(tr, HOST_STEPS, f"variants (c) {over[0]}")
+        torch.cuda.synchronize()
+        log(f"[variants] (c) {over}: {HOST_STEPS} steps in {time.perf_counter() - t0:.3f} s")
+    before = tr.params["feat_pool"].detach().clone()
+    tr.reset()
+    pool = tr.params["feat_pool"].detach()
+    if torch.equal(pool, before) or float(pool.abs().max()) > 1e-2 \
+            or int(tr.opt_state["count"]) != 0:
+        raise AssertionError("(c): reset did not re-initialise the pool and Adam")
+    _train_checked(tr, 1, "variants (c) after reset")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -994,9 +1397,19 @@ def main(argv=None) -> int:
             runner = timed("runner", phase_runner, tmp)
             if "eval_parity" in phases:
                 timed("eval_parity", phase_eval_parity, runner)
+            del runner
+            torch.cuda.empty_cache()
+        var_launches = {}
+        if "variants" in phases:
+            var_launches = timed("variants", phase_variants, tmp, rows,
+                                 "profile" in phases)
     log(f"[time] phases (s): {walls}")
     for r in rows:
-        r["launches"] = launches.get(r["name"], 0)
+        # each kernel's launches on its own path: K5-K7 the reference-
+        # semantics run, the others the default slice
+        path = var_launches if r.get("path") == "variants (a)" else launches
+        r["launches"] = path.get(r["name"], 0)
+    rows.sort(key=lambda r: KERNEL_ORDER.index(r["name"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(sorted(set(r) - set(keys)))}

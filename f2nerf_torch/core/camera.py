@@ -10,6 +10,8 @@ Semantics match the reference:
     reference's iterative_camera_undistortion, Dataset.cu:31-69).
   * Scene normalization: camera centroid -> origin, max radius -> 1
     (Dataset.cpp:127-146), host numpy.
+  * Pose interpolation: quaternion slerp + translation lerp
+    (CameraUtils.cpp:11-41), host numpy.
 """
 
 from __future__ import annotations
@@ -97,3 +99,63 @@ def invert_pose(poses: np.ndarray) -> np.ndarray:
     full = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
     full[:, :3, :] = poses
     return np.linalg.inv(full)[:, :3, :].astype(np.float32)
+
+
+def _quat_from_mat(m: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> quaternion (w, x, y, z), host numpy."""
+    w = np.sqrt(max(0.0, 1.0 + m[0, 0] + m[1, 1] + m[2, 2])) / 2.0
+    if w < 1e-6:
+        # fall back to the largest diagonal element's branch
+        if m[0, 0] >= m[1, 1] and m[0, 0] >= m[2, 2]:
+            x = np.sqrt(max(0.0, 1.0 + m[0, 0] - m[1, 1] - m[2, 2])) / 2.0
+            y = (m[0, 1] + m[1, 0]) / (4.0 * x)
+            z = (m[0, 2] + m[2, 0]) / (4.0 * x)
+            w = (m[2, 1] - m[1, 2]) / (4.0 * x)
+        elif m[1, 1] >= m[2, 2]:
+            y = np.sqrt(max(0.0, 1.0 - m[0, 0] + m[1, 1] - m[2, 2])) / 2.0
+            x = (m[0, 1] + m[1, 0]) / (4.0 * y)
+            z = (m[1, 2] + m[2, 1]) / (4.0 * y)
+            w = (m[0, 2] - m[2, 0]) / (4.0 * y)
+        else:
+            z = np.sqrt(max(0.0, 1.0 - m[0, 0] - m[1, 1] + m[2, 2])) / 2.0
+            x = (m[0, 2] + m[2, 0]) / (4.0 * z)
+            y = (m[1, 2] + m[2, 1]) / (4.0 * z)
+            w = (m[1, 0] - m[0, 1]) / (4.0 * z)
+        return np.array([w, x, y, z])
+    x = (m[2, 1] - m[1, 2]) / (4.0 * w)
+    y = (m[0, 2] - m[2, 0]) / (4.0 * w)
+    z = (m[1, 0] - m[0, 1]) / (4.0 * w)
+    return np.array([w, x, y, z])
+
+
+def _mat_from_quat(q: np.ndarray) -> np.ndarray:
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def pose_interpolate(pose_0: np.ndarray, pose_1: np.ndarray, alpha: float) -> np.ndarray:
+    """Quaternion slerp between two [3,4] c2w poses + lerp of translation
+    (PoseInterpolate, CameraUtils.cpp:11-41). Host numpy."""
+    q0 = _quat_from_mat(pose_0[:3, :3])
+    q1 = _quat_from_mat(pose_1[:3, :3])
+    dot = float(np.dot(q0, q1))
+    if dot < 0.0:
+        q1, dot = -q1, -dot
+    if dot > 0.9995:
+        q = q0 + alpha * (q1 - q0)
+    else:
+        theta0 = np.arccos(np.clip(dot, -1.0, 1.0))
+        theta = theta0 * alpha
+        s0 = np.cos(theta) - dot * np.sin(theta) / np.sin(theta0)
+        s1 = np.sin(theta) / np.sin(theta0)
+        q = s0 * q0 + s1 * q1
+    rot = _mat_from_quat(q)
+    trans = (1.0 - alpha) * pose_0[:3, 3] + alpha * pose_1[:3, 3]
+    out = np.zeros((3, 4), dtype=np.float32)
+    out[:3, :3] = rot
+    out[:3, 3] = trans
+    return out

@@ -5,7 +5,10 @@ Loads the reference formats (Dataset.cpp:16-125): cams_meta.npy ([n, 27]
 f64 rows: 12 c2w pose + 9 intrinsics + 4 distortion + 2 bounds),
 image_list.txt, optional split.npy and poses_render.npy. The host side is a
 numpy copy of the JAX package's ``Dataset``; images stay uint8 on the
-device and are converted to [0, 1] floats at gather time.
+device and are converted to [0, 1] floats at gather time (or, with
+``data_at_gpu=false``, gathered on the host: ``host_batch_rays``).
+Train-ray draws: every ray its own camera (``draw_rays``) or one camera a
+batch (``draw_rays_single_image``, ray_sample_mode=single_image).
 """
 
 from __future__ import annotations
@@ -126,6 +129,31 @@ def draw_rays(data: dict, generator: torch.Generator, n_rays: int,
                 j=torch.randint(0, width, (n_rays,), **kw))
 
 
+def draw_rays_single_image(data: dict, generator: torch.Generator,
+                           n_rays: int, height: int, width: int) -> dict:
+    """ray_sample_mode=single_image (RandRaysDataOfCamera,
+    Dataset.cpp:251-267): one train-camera pick broadcast to every ray,
+    then the pixels; the same keys as ``draw_rays``."""
+    dev = generator.device
+    n_train = data["train_ids"].shape[0]
+    kw = dict(generator=generator, device=dev)
+    pick = torch.randint(0, n_train, (1,), **kw)
+    return dict(cam_pick=pick.expand(n_rays).contiguous(),
+                i=torch.randint(0, height, (n_rays,), **kw),
+                j=torch.randint(0, width, (n_rays,), **kw))
+
+
+def host_batch_rays(data: dict, batch: dict):
+    """Train rays for a host batch (data_at_gpu=false; JAX
+    trainer.py:336-344): img_idx [n] image ids, i, j [n] pixel row/col
+    (f32, integral), gt [n, 3]. Returns (rays_o, rays_d, gt, img_idx)."""
+    img_idx = batch["img_idx"].long()
+    rays_o, rays_d = camera.pixel_to_ray(
+        data["poses"][img_idx], data["intri"][img_idx], data["dist"][img_idx],
+        batch["i"] + 0.5, batch["j"] + 0.5)
+    return rays_o, rays_d, batch["gt"], batch["img_idx"]
+
+
 def sample_rays(data: dict, cam_pick: torch.Tensor, i: torch.Tensor,
                 j: torch.Tensor):
     """Train rays for explicit draws (RandRaysData, Dataset.cpp:275-298):
@@ -181,6 +209,45 @@ def pose_rays(data: dict, pose, height: int, width: int, reso_level: int = 1):
     ii, jj = _pixel_grid(height, width, reso_level, dev)
     pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
     return camera.pixel_to_ray(pose, data["intri"][0], data["dist"][0], ii, jj)
+
+
+def rays_interpolate(data: dict, idx_0: int, idx_1: int, alpha: float,
+                     height: int, width: int, reso_level: int = 1):
+    """Full-image rays from a pose slerped between two cameras
+    (RaysInterpolate, Dataset.cpp:237-243)."""
+    poses = data["poses"].cpu().numpy()
+    pose = camera.pose_interpolate(poses[idx_0], poses[idx_1], alpha)
+    return pose_rays(data, pose, height, width, reso_level)
+
+
+def whole_space_pose(poses: np.ndarray, rng: np.random.RandomState,
+                     window_size: int = 10) -> np.ndarray:
+    """A c2w pose blended between three nearby cameras (RandRaysWholeSpace,
+    Dataset.cpp:245-255): a base in [0, n - window), three cameras in its
+    window, slerped with random weights."""
+    n_images = poses.shape[0]
+    base = rng.randint(0, max(n_images - window_size, 1))
+    a, b, c = (base + rng.randint(0, window_size, 3)) % n_images
+    wa, wb, wc = rng.rand(3) + 1e-7
+    pose = camera.pose_interpolate(poses[a], poses[b], wb / (wb + wa))
+    return camera.pose_interpolate(pose, poses[c], wc / (wa + wb + wc))
+
+
+def rand_rays_whole_space(data: dict, generator: torch.Generator, n_rays: int,
+                          height: int, width: int, window_size: int = 10):
+    """Random rays from a pose blended between three nearby train cameras
+    (RandRaysWholeSpace, Dataset.cpp:245-255): the pose from a host
+    RandomState seeded by one draw of ``generator``, then random pixels
+    with camera-0 intrinsics. Returns (rays_o, rays_d) [n, 3]."""
+    dev = data["poses"].device
+    kw = dict(generator=generator, device=generator.device)
+    seed = int(torch.randint(0, 1 << 31, (1,), **kw))
+    pose = whole_space_pose(data["poses"].cpu().numpy(),
+                            np.random.RandomState(seed), window_size)
+    i = torch.randint(0, height, (n_rays,), **kw).to(dev, torch.float32) + 0.5
+    j = torch.randint(0, width, (n_rays,), **kw).to(dev, torch.float32) + 0.5
+    return camera.pixel_to_ray(torch.as_tensor(pose, device=dev),
+                               data["intri"][0], data["dist"][0], i, j)
 
 
 def glob_images(data_path: str, factor: float) -> list[str]:

@@ -24,14 +24,13 @@ zero-filled gradient.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from .. import kernels
 from ..ops.gather import row_gather
-from .hash_encoding import N_CHANNELS, N_LEVELS, _random_primes, level_scales
+from .hash_encoding import (N_CHANNELS, N_LEVELS, _check_inputs, _random_primes,
+                            _scales, level_scales)
 
 BLOCK_CELLS = 3
 BLOCK_LAT = 4
@@ -63,11 +62,6 @@ def init_block_state(generator: torch.Generator, log2_table_size: int,
         bias = torch.zeros((N_LEVELS, n_volumes, 3))
     return (feat.to(device), torch.from_numpy(prim.astype(np.int32)).to(device),
             bias.to(device=device, dtype=torch.float32))
-
-
-@functools.lru_cache(maxsize=None)
-def _scales(device: str) -> torch.Tensor:
-    return torch.from_numpy(level_scales()).to(device)
 
 
 # ----------------------------------------------------------- plain version
@@ -150,18 +144,6 @@ def hash_block_bwd_plain(g, prim, bias, pts, vol, log2_table_size: int,
 
 
 # ----------------------------------------------------------- kernel wrappers
-
-def _check_inputs(name, feat_or_g, prim, bias, pts, vol):
-    if prim.dtype != torch.int32 or vol.dtype != torch.int32:
-        raise ValueError(f"{name}: prim_pool and vol_idx must be int32")
-    for t in (feat_or_g, bias, pts):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32, got {t.dtype}")
-    if pts.dim() != 2 or pts.shape[1] != 3 or vol.shape != pts.shape[:1]:
-        raise ValueError(f"{name}: pts [n,3] / vol [n] mismatch "
-                         f"{tuple(pts.shape)} {tuple(vol.shape)}")
-    kernels.require_cuda(name, feat_or_g, prim, bias, pts, vol)
-
 
 def hash_block_fwd(feat, prim, bias, pts, vol, log2_table_size: int):
     """K2 encode: [n, 32] f32. CPU tensors take the plain version."""

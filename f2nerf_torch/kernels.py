@@ -29,8 +29,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# no --use_fast_math: K2/K3's index math must round exactly like the
-# plain version (see csrc/hash_block.cu)
+# no --use_fast_math: K2/K3's, K5/K6's and K7's arithmetic must round
+# exactly like the plain versions (see csrc/hash_block.cu, hash3d.cu,
+# ray_march.cu)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,6 +44,9 @@ _SIGNATURES = {
     "f2_hash_block_bwd": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _i,
                           _vp, _vp, _vp, _vp, _i, _i, _vp],
     "f2_row_gather": [_vp, _vp, _i, _vp, _ll, _i, _vp],
+    "f2_hash3d_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
+    "f2_hash3d_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
+    "f2_ray_march_lockstep": [_vp] * 16 + [_i, _i, _i, _i, _f, _i, _vp],
 }
 
 

@@ -11,6 +11,10 @@
     jittered-grid samples per hit. The JAX slot->hit indicator sum over
     [R, H, S] becomes ``searchsorted`` on the per-ray hit ends plus a
     gather (exactly the same values: one hit contributes to each slot).
+  * ``ray_march`` — the lockstep EMIT/ADVANCE marcher (RayMarchKernel,
+    PersSampler.cu:189-314): kernel K7 (csrc/ray_march.cu, one thread per
+    ray) on the card, ``ray_march_plain`` (a torch loop over the batch) on
+    the CPU.
   * occupancy votes (MarkVistNodeKernel, PersSampler.cu:475-534) as
     scatter-max / index_add, and their fold into the hysteresis counters.
 
@@ -27,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import kernels
 from .octree import OctreeHost, build_ropes
 from .warp import N_PROS
 
@@ -316,6 +321,12 @@ def traverse(tree: DeviceTree, rays_o: torch.Tensor, rays_d: torch.Tensor,
 
 # ------------------------------------------------------------------ marching
 
+def _first_oct(hit_near, n_hits):
+    """Distance to each ray's first hit (1e9 for a ray with none)."""
+    return torch.where(n_hits > 0, hit_near[:, 0],
+                       torch.full_like(hit_near[:, 0], 1e9))
+
+
 def ray_march_parallel(tree: DeviceTree, rays_o: torch.Tensor,
                        rays_d: torch.Tensor, hit_idx, hit_near, hit_far,
                        n_hits, jitter: torch.Tensor, fineness,
@@ -332,8 +343,7 @@ def ray_march_parallel(tree: DeviceTree, rays_o: torch.Tensor,
     """
     R, H = hit_idx.shape
     dev = rays_o.device
-    first_oct = torch.where(n_hits > 0, hit_near[:, 0],
-                            torch.full_like(hit_near[:, 0], 1e9))
+    first_oct = _first_oct(hit_near, n_hits)
 
     valid_hit = torch.arange(H, device=dev)[None, :] < n_hits[:, None]
     node_c = hit_idx.clamp(min=0).long()
@@ -392,6 +402,140 @@ def ray_march_parallel(tree: DeviceTree, rays_o: torch.Tensor,
     out_dt = torch.where(valid_s, dt_s, torch.zeros_like(dt_s))
     out_node = torch.where(valid_s, node_s, torch.full_like(node_s, -1))
     return out_t, out_dt, out_node, n_samples.to(torch.int32), first_oct
+
+
+def ray_march_plain(tree: DeviceTree, rays_o: torch.Tensor,
+                    rays_d: torch.Tensor, hit_idx, hit_near, hit_far, n_hits,
+                    noise: torch.Tensor, sample_l: float, scale_by_dis: bool,
+                    max_s: int, max_iters: int = 0):
+    """Plain PyTorch version of K7: the lockstep state machine over the
+    whole batch (JAX ``ray_march``, device.py:436-544), one iteration a
+    loop pass, at most ``max_iters`` (default max_s + H + 8) passes. It
+    stops early once every ray is done: a done row no longer changes."""
+    R, H = hit_idx.shape
+    dev = rays_o.device
+    if max_iters == 0:
+        max_iters = max_s + H + 8
+    rows = torch.arange(R, device=dev)
+    ptr = torch.zeros((R,), dtype=torch.int64, device=dev)
+    t = hit_near[:, 0].clone()
+    exp_step = torch.ones((R,), dtype=torch.float32, device=dev)
+    first = torch.ones((R,), dtype=torch.bool, device=dev)
+    n_out = torch.zeros((R,), dtype=torch.int64, device=dev)
+    adv = torch.zeros((R,), dtype=torch.bool, device=dev)
+    done = n_hits <= 0
+    out_t = torch.zeros((R, max_s), dtype=torch.float32, device=dev)
+    out_dt = torch.zeros((R, max_s), dtype=torch.float32, device=dev)
+    out_node = torch.full((R, max_s), -1, dtype=torch.int32, device=dev)
+    n_hits = n_hits.to(torch.int64)
+
+    for _ in range(max_iters):
+        if bool(done.all()):
+            break
+        # ---- EMIT: warp Jacobian at t in the current hit, maybe a sample
+        ptr_c = ptr.clamp(max=H - 1)
+        node = hit_idx[rows, ptr_c]
+        cur_far = hit_far[rows, ptr_c]
+        tr = tree.trans_idx[node.clamp(min=0).long()].clamp(min=0)
+        xyz = rays_o + rays_d * t[:, None]
+        m_rows, w_rows = _warp_rows(tree, tr)
+        pnorm = warp_jac_dir(m_rows, w_rows, xyz, rays_d) + 1e-6
+        e = sample_l * noise[rows + n_out] / pnorm
+        if scale_by_dis:
+            trl = tr.long()
+            radius = norm3(rays_o - tree.t_center[trl]) / tree.t_dis[trl]
+            e = e * torch.clamp(radius, min=1.0)
+        emit = (~done) & (~adv) & (~first) & (n_out < max_s)
+        slot = n_out.clamp(max=max_s - 1)[:, None]
+        for buf, val in ((out_t, t), (out_dt, e * pnorm), (out_node, node)):
+            buf.scatter_(1, slot, torch.where(emit, val, buf.gather(1, slot)[:, 0])[:, None])
+        n_out = n_out + emit.to(torch.int64)
+
+        # ---- ADVANCE: the next hit, the step re-phased onto its near
+        ptr_a = ptr + 1
+        ptr_ac = ptr_a.clamp(max=H - 1)
+        a_near = hit_near[rows, ptr_ac]
+        a_far = hit_far[rows, ptr_ac]
+        step = torch.where(adv, exp_step, e)
+        ex_steps = torch.ceil(torch.clamp((a_near - t) / step, min=1.0))
+        adv_step = step * ex_steps
+
+        in_emit = (~done) & (~adv)
+        in_adv = (~done) & adv
+        emit_fits = t + e <= cur_far
+        adv_exhausted = ptr_a >= n_hits
+        adv_fits = t + adv_step <= a_far
+
+        new_done = done | (in_adv & adv_exhausted) | (in_emit & (n_out >= max_s))
+        ptr = torch.where(in_adv, ptr_a, ptr)
+        t = torch.where(in_emit & emit_fits, t + e,
+                        torch.where(in_adv & (~adv_exhausted) & adv_fits,
+                                    t + adv_step, t))
+        adv = torch.where(in_emit, ~emit_fits,
+                          torch.where(in_adv, (~adv_exhausted) & (~adv_fits), adv))
+        exp_step = torch.where(in_emit, e, exp_step)
+        first = torch.where(in_emit, torch.zeros_like(first), first)
+        done = new_done
+    return (out_t, out_dt, out_node, n_out.to(torch.int32),
+            _first_oct(hit_near, n_hits))
+
+
+def ray_march(tree: DeviceTree, rays_o: torch.Tensor, rays_d: torch.Tensor,
+              hit_idx, hit_near, hit_far, n_hits, noise: torch.Tensor,
+              sample_l: float, scale_by_dis: bool, max_s: int,
+              max_iters: int = 0):
+    """March rays through their hit lists (RayMarchKernel,
+    PersSampler.cu:189-314) as an EMIT/ADVANCE state machine.
+
+    noise: [R + max_s + 16] per-step step-length multipliers (already times
+    the fineness; all ones in eval). Returns dense per-ray buffers out_t
+    [R, max_s], out_dt [R, max_s] (warp-space dt), out_node [R, max_s] i32,
+    n_samples [R] i32, first_oct_dis [R]. CPU tensors take the plain
+    version; CUDA tensors launch K7."""
+    if rays_o.device.type == "cpu":
+        return ray_march_plain(tree, rays_o, rays_d, hit_idx, hit_near,
+                               hit_far, n_hits, noise, sample_l, scale_by_dis,
+                               max_s, max_iters)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"ray_march: unsupported device {rays_o.device}")
+    R, H = hit_idx.shape
+    if max_iters == 0:
+        max_iters = max_s + H + 8
+    if hit_idx.dtype != torch.int32 or n_hits.dtype != torch.int32 \
+            or tree.trans_idx.dtype != torch.int32:
+        raise ValueError("ray_march: hit_idx, n_hits and trans_idx must be int32")
+    f32 = (hit_near, hit_far, rays_o, rays_d, noise, tree.w2xz, tree.weight,
+           tree.t_center, tree.t_dis)
+    if any(x.dtype != torch.float32 for x in f32):
+        raise ValueError("ray_march: hits, rays, noise and warp tables must "
+                         "be float32")
+    if noise.shape[0] < R + max_s + 1 or tuple(rays_o.shape) != (R, 3) \
+            or tuple(rays_d.shape) != (R, 3) or n_hits.shape != (R,):
+        raise ValueError(f"ray_march: shapes rays {tuple(rays_o.shape)}, "
+                         f"hits {tuple(hit_idx.shape)}, noise {tuple(noise.shape)}")
+    ins = [x.contiguous() for x in (hit_idx, hit_near, hit_far, n_hits,
+                                    rays_o, rays_d, noise)]
+    kernels.require_cuda("ray_march", *ins, tree.trans_idx, tree.w2xz,
+                         tree.weight, tree.t_center, tree.t_dis)
+    dev = rays_o.device
+    out_t = torch.zeros((R, max_s), dtype=torch.float32, device=dev)
+    out_dt = torch.zeros((R, max_s), dtype=torch.float32, device=dev)
+    out_node = torch.full((R, max_s), -1, dtype=torch.int32, device=dev)
+    n_out = torch.zeros((R,), dtype=torch.int32, device=dev)
+    if R > 0:
+        code = kernels.library().f2_ray_march_lockstep(
+            *(x.data_ptr() for x in ins), tree.trans_idx.data_ptr(),
+            tree.w2xz.data_ptr(), tree.weight.data_ptr(),
+            tree.t_center.data_ptr(), tree.t_dis.data_ptr(), out_t.data_ptr(),
+            out_dt.data_ptr(), out_node.data_ptr(), n_out.data_ptr(), R, H,
+            max_s, max_iters, float(sample_l), int(scale_by_dis),
+            kernels.stream_ptr(dev))
+        kernels.check(code, "ray_march")
+        ray_march.launches += 1
+    return out_t, out_dt, out_node, n_out, _first_oct(hit_near, n_hits)
+
+
+ray_march.launches = 0
 
 
 # --------------------------------------------------------------- edge samples

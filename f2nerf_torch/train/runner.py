@@ -14,9 +14,12 @@
   * visualize_image(): 4-panel GT | pred | oct-depth | disparity PNGs
     (ExpRunner.cpp:301-320).
 
-Not ported: the JAX package's ``F2_JAX_PROFILE`` trace window and the
-``reset`` flag (``Trainer.reset`` raises), ROADMAP.md queue 1. Every
-process writes the outputs, as in the JAX package; the port has one.
+The config's ``reset`` flag re-initialises the field and shader after an
+optional resume (``Trainer.reset``). ``F2_TORCH_PROFILE=<dir>`` traces
+iterations 30-50 of ``train()`` with ``torch.profiler`` (host and CUDA)
+and writes a chrome trace there: the counterpart of the JAX package's
+``F2_JAX_PROFILE`` window. Every process writes the outputs, as in the
+JAX package; the port has one.
 """
 
 from __future__ import annotations
@@ -34,6 +37,44 @@ from ..data import dataset as ds
 from ..utils import io
 from ..utils.metrics import make_lpips, psnr_float, rgb_ssim
 from .trainer import Trainer
+
+
+class ProfileWindow:
+    """A ``torch.profiler`` trace of training iterations [start, stop)
+    written as ``<out_dir>/trace_<first>_<last>.json`` (chrome trace).
+    Nothing happens without ``out_dir``. The trace also ends, and is
+    written, when training stops inside the window. CUDA activity is
+    traced where a card is present."""
+
+    def __init__(self, out_dir: str | None, start: int = 30, stop: int = 50):
+        self.out_dir, self.start, self.stop = out_dir, start, stop
+        self.prof = None
+        self.first = None
+
+    def at(self, it: int) -> None:
+        """Called before iteration ``it``."""
+        if not self.out_dir:
+            return
+        if self.prof is None and self.start <= it < self.stop:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+            self.prof = profile(activities=acts)
+            self.prof.start()
+            self.first = it
+        elif self.prof is not None and it >= self.stop:
+            self.close(it)
+
+    def close(self, it: int) -> None:
+        if self.prof is None:
+            return
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir, f"trace_{self.first}_{it}.json")
+        self.prof.export_chrome_trace(path)
+        print(f"[profile] iterations {self.first}-{it} traced to {path}", flush=True)
+        self.prof, self.out_dir = None, None
 
 
 class Runner:
@@ -94,9 +135,11 @@ class Runner:
             for sig in (signal.SIGTERM, signal.SIGINT):
                 prev_handlers[sig] = signal.signal(
                     sig, lambda n, f: stop_sig.__setitem__("n", n))
+        prof = ProfileWindow(os.environ.get("F2_TORCH_PROFILE"))
         try:
-            self._train_loop(tr, stop_sig, time.time())
+            self._train_loop(tr, stop_sig, time.time(), prof)
         finally:
+            prof.close(tr.iter_step)
             # an exception mid-loop must not leave the swallow-and-flag
             # handlers installed (later SIGINT/SIGTERM would be ignored)
             for sig, h in prev_handlers.items():
@@ -113,8 +156,9 @@ class Runner:
         print("Train done, test.", flush=True)
         self.test_images()
 
-    def _train_loop(self, tr, stop_sig, t_report):
+    def _train_loop(self, tr, stop_sig, t_report, prof):
         while tr.iter_step < self.end_iter and stop_sig["n"] is None:
+            prof.at(tr.iter_step)
             m = tr.train_one()
             step = tr.iter_step
             if step % self.stats_freq == 0:

@@ -13,8 +13,10 @@ Two entry points:
 
 The optax chain's state is (MaskedState(EmptyState), ScaleByAdamState);
 only the second element has leaves, hence the ``o:[1]`` prefix. The port
-keeps the uint32 primes as int32 bits (every prime is < 2^30) and writes
-them back as uint32.
+keeps the uint32 primes as int32 bits (every prime is < 2^31) and writes
+them back as uint32. The layout is the same for both fields: the feature
+pool is HashBlock's [16, n_blocks, 128] tables or Hash3DAnchored's
+[pool, 2] pool, carried by shape.
 """
 
 from __future__ import annotations

@@ -171,12 +171,21 @@ def test_render_image_matches_jax(pair, monkeypatch, max_s, want_redo):
 
 
 def test_check_supported_admits_eval_single_pass_only(pair):
+    """Every variant of the JAX renderer is admitted (train or eval,
+    single or two pass, both fields, both marchers); an unknown field type
+    or march mode raises."""
     st = ttr.render_statics(pair["cfg"], 64, 0.1, train=False)
-    check_supported(st._replace(single_pass=True))
-    with pytest.raises(NotImplementedError):
-        check_supported(st)
-    with pytest.raises(NotImplementedError):
-        check_supported(st._replace(train=True, single_pass=True))
+    for train in (False, True):
+        for single_pass in (False, True):
+            for field_type in ("HashBlock", "Hash3DAnchored"):
+                for march_mode in ("parallel", "lockstep"):
+                    check_supported(st._replace(train=train, single_pass=single_pass,
+                                                field_type=field_type,
+                                                march_mode=march_mode))
+    with pytest.raises(ValueError):
+        check_supported(st._replace(field_type="Hash4D"))
+    with pytest.raises(ValueError):
+        check_supported(st._replace(march_mode="sphere_trace"))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -37,18 +37,39 @@ OVERRIDES = list(TINY_OVERRIDES) + ["+train.fused_adam=true",
 OCC = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 
 
-def jax_draws(key, n_rays, st, n_train, height, width, n_edges):
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in parallel worker processes; torch's own intra-op
+    pool would oversubscribe the cores (the port's step is many small
+    ops that gain nothing from it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def jax_draws(key, n_rays, st, n_train, height, width, n_edges,
+              single_image=False):
     """The draws the JAX step makes from its key, in its split order
-    (trainer.py:332, dataset.py:160-165, renderer.py:191,203,352,
-    device.py:653-655)."""
+    (trainer.py:332, dataset.py:160-165 or, for ``single_image``,
+    dataset.py:179-185, renderer.py:191,203,212,352, device.py:653-655).
+    Both the parallel marcher's jitter and the lockstep marcher's noise
+    are drawn from the same key, as the JAX render does for its mode."""
     k_rays, k_render = jax.random.split(key)
-    k1, k2, k3 = jax.random.split(k_rays, 3)
+    if single_image:
+        k0, _, k2, k3 = jax.random.split(k_rays, 4)
+        pick = jax.random.randint(k0, (), 0, n_train)
+        cam_pick = jnp.full((n_rays,), pick)
+    else:
+        k1, k2, k3 = jax.random.split(k_rays, 3)
+        cam_pick = jax.random.randint(k1, (n_rays,), 0, n_train)
     kn, kb, ke = jax.random.split(k_render, 3)
     ke1, ke2 = jax.random.split(ke)
-    d = dict(cam_pick=jax.random.randint(k1, (n_rays,), 0, n_train),
+    d = dict(cam_pick=cam_pick,
              i=jax.random.randint(k2, (n_rays,), 0, height),
              j=jax.random.randint(k3, (n_rays,), 0, width),
              jitter=jax.random.uniform(kn, (n_rays, st.max_s), minval=1e-4, maxval=1.0),
+             noise=(jax.random.uniform(kn, (n_rays + st.max_s + 16,)) - 0.5) + 1.0,
              bg=jax.random.uniform(kb, (n_rays, 3)),
              edge_idx=jax.random.randint(ke1, (st.n_edge,), 0, max(n_edges, 1)),
              edge_coord=jax.random.uniform(ke2, (st.n_edge, 2)) * 2.0 - 1.0)
@@ -135,7 +156,7 @@ def one_step_both(tmp_path_factory, overrides, n_steps):
     pt.save_checkpoint()
     return dict(jax=jax_side, port=port_side, lr=runtime["lr"], cfg=cfg,
                 data_dir=data_dir, grad_loss=float(aux_g["loss"]), jax_trainer=jt,
-                port_trainer=pt,
+                port_trainer=pt, statics=st,
                 port_ckpt=os.path.join(pt.base_exp_dir, "checkpoints", "latest"))
 
 
