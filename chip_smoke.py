@@ -44,7 +44,8 @@ Phases:
                (field.type=Hash3DAnchored +pts_sampler.march_mode=lockstep)
                at full width, 20 steps timed as the slice is, K5 twice and
                K6/K7 once a step (K2/K3/K4 never); K5/K6/K7 at that
-               step's own inputs (spied) and K7 at a uniform shape
+               step's own inputs (spied; K5's two launches, A and B +
+               edges, each at its own) and K7 at a uniform shape
                against their plain versions; one step card vs CPU;
                render_image over the 24 cameras and one image card vs
                CPU; (b) HashBlock +train.single_pass=true, 10 single-pass
@@ -1205,8 +1206,9 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
           field, the lockstep marcher) at full width: VAR_STEPS steps timed
           over TIME_FROM..VAR_STEPS (steps/s, rays/s, peak memory); every
           step launches K5 twice (A's prefilter, B + edges), K6 and K7
-          once, K2/K3/K4 never; K5/K6/K7 at one step's own inputs (spied)
-          and K7 at a uniform shape, each against its plain version; one
+          once, K2/K3/K4 never; K5/K6/K7 at one step's own inputs (spied;
+          both K5 launches) and K7 at a uniform shape, each against its
+          plain version; one
           step card vs CPU; render_image over the 24 cameras (eval rays/s)
           and one image card vs CPU;
       (b) HashBlock with +train.single_pass=true: SINGLE_PASS_STEPS steps,
@@ -1265,13 +1267,23 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     if rows:
         calls = capture_calls(tr, {"hash_encode_fwd": he, "hash_encode_bwd": he,
                                    "ray_march": dv})
-        fwd = max(calls["hash_encode_fwd"], key=lambda a: a[3].shape[0])
-        at = {"hash_encode_fwd": hash3d_encode_case(fwd, f"step's A at {fwd[3].shape[0]}"),
+        # K5's two launches, each timed at its own inputs; the row keeps A's
+        a_fwd, b_fwd = calls["hash_encode_fwd"]
+        k5 = [hash3d_encode_case(a_fwd, f"step's A at {a_fwd[3].shape[0]}"),
+              hash3d_encode_case(b_fwd, f"step's B + edges at {b_fwd[3].shape[0]}")]
+        at = {"hash_encode_fwd": dict(k5[0], max_abs_err=max(r["max_abs_err"] for r in k5),
+                                      step_launches=[dict(launch=w, **r) for w, r in
+                                                     zip(("A", "B + edges"), k5)]),
               "hash_encode_bwd": hash3d_scatter_case(calls["hash_encode_bwd"][0],
                                                      "step's B + edges")}
+        log("[variants] (a) K5 a step: " + "; ".join(
+            f"{w} n={r['n']} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of it)"
+            for w, r in zip(("A", "B + edges"), k5)) +
+            f"; launches x (time - bound) {sum(r['ms'] - r['bound_ms'] for r in k5):.4f} ms")
         (march,) = calls["ray_march"]
         at["ray_march"] = march_case(march, "step's own inputs")
-        del calls, fwd, march
+        del calls, a_fwd, b_fwd, march
         r7 = march_case(march_uniform_args(tr, torch.Generator(device=DEV).manual_seed(5)),
                         "uniform rays, hit cap 64")
         rows.append(dict(name="ray_march", route="cuda", source="f2nerf_torch/csrc/ray_march.cu",

@@ -158,27 +158,65 @@ def cuda():
     return torch.device("cuda")
 
 
-CARD_CASES = ["n1", "n33", "n5000", "one_cell", "zero_rows"]
+CARD_CASES = ["n1", "n33", "n5000", "one_cell", "zero_rows", "ray_ordered",
+              "two_volumes", "tile_tail", "zero_tile", "many_blocks", "n0"]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", CARD_CASES)
-def test_kernels_match_plain_on_card(cuda, state, case):
+def ray_points(rng, n_rays, n_per_ray, step):
+    """[n_rays * n_per_ray, 3] samples along rays, a ray's consecutive and
+    `step` apart, inside [0, 1]^3: a tile's lanes share coarse cells."""
+    o = rng.uniform(0.3, 0.7, (n_rays, 1, 3))
+    d = rng.randn(n_rays, 1, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.arange(n_per_ray)[None, :, None] * step
+    return (o + d * t).reshape(-1, 3).astype(np.float32)
+
+
+def check_kernels(cuda, feat, prim, bias, pts, vol, g):
     """K5 bit for bit and K6 within 1e-5 of the largest entry against the
-    plain versions, one launch each."""
-    rng = np.random.RandomState(CARD_CASES.index(case))
-    n = {"n1": 1, "n33": 33, "n5000": 5000}.get(case, 2048)
-    pts, vol, g = inputs(20 + CARD_CASES.index(case), n)
-    if case == "one_cell":
-        pts = (np.float32([0.31, 0.62, 0.27]) + rng.rand(n, 3) * 1e-7).astype(np.float32)
-    if case == "zero_rows":
-        g[rng.rand(n) < 0.5] = 0.0
-    feat, prim, bias = (t.to(cuda) for t in port(*state))
+    plain versions, one launch each (none for n = 0)."""
     pts, vol, g = (torch.from_numpy(x).to(cuda) for x in (pts, vol, g))
     n0, n1 = the.hash_encode_fwd.launches, the.hash_encode_bwd.launches
     assert torch.equal(the.hash_encode_fwd(feat, prim, bias, pts, vol, L2T),
                        the.hash_encode_fwd_plain(feat, prim, bias, pts, vol, L2T))
     d_p = the.hash_encode_bwd_plain(g, prim, bias, pts, vol, L2T, feat.shape[0])
     d_k = the.hash_encode_bwd(g, prim, bias, pts, vol, L2T, feat.shape[0])
+    torch.cuda.synchronize()
     assert float((d_k - d_p).abs().max()) <= 1e-5 * float(d_p.abs().max())
-    assert (the.hash_encode_fwd.launches, the.hash_encode_bwd.launches) == (n0 + 1, n1 + 1)
+    one = int(pts.shape[0] > 0)
+    assert (the.hash_encode_fwd.launches, the.hash_encode_bwd.launches) == (n0 + one, n1 + one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_kernels_match_plain_on_card(cuda, state, case):
+    """K5 bit for bit and K6 within 1e-5 of the largest entry against the
+    plain versions. The cases reach the kernels' tiles (32 samples) and
+    level groups: samples along rays (lanes merge on a shared cell), two
+    volumes alternating at the same points and floors (no merge across
+    volumes), n = 32k +- 1, a whole tile of zero gradient, many tiles and
+    level groups in flight, n = 0."""
+    rng = np.random.RandomState(CARD_CASES.index(case))
+    n = {"n1": 1, "n33": 33, "n5000": 5000, "tile_tail": 32 * 47 + 1,
+         "many_blocks": 100_003, "n0": 0}.get(case, 2048)
+    pts, vol, g = inputs(20 + CARD_CASES.index(case), n)
+    feat, prim, bias = (t.to(cuda) for t in port(*state))
+    if case == "one_cell":
+        pts = (np.float32([0.31, 0.62, 0.27]) + rng.rand(n, 3) * 1e-7).astype(np.float32)
+    if case == "zero_rows":
+        g[rng.rand(n) < 0.5] = 0.0
+    if case in ("ray_ordered", "zero_tile", "tile_tail"):
+        pts = ray_points(rng, 4, n // 4 + 1, 2e-4)[:n]
+        vol = np.repeat(rng.randint(0, NV, 4), n // 4 + 1)[:n].astype(np.int32)
+    if case == "zero_tile":
+        g[32:64] = 0.0
+    if case == "two_volumes":
+        # volumes 0 and 1 share their bias, so a point's floors are equal in
+        # both, while their primes (so their corners) differ
+        bias = bias.clone()
+        bias[:, 1] = bias[:, 0]
+        pts = np.repeat(ray_points(rng, 2, 512, 2e-4), 2, axis=0)
+        vol = np.tile(np.int32([0, 1]), pts.shape[0] // 2)
+    if case == "tile_tail":            # n = 32k - 1 here, 32k + 1 below
+        check_kernels(cuda, feat, prim, bias, pts[:-2], vol[:-2], g[:-2])
+    check_kernels(cuda, feat, prim, bias, pts, vol, g[:pts.shape[0]])
