@@ -4,7 +4,8 @@
     python3 chip_smoke.py --phases build,kernels   # a subset (no final line)
 
 Phases:
-  1. device  — refuse to run without CUDA; print the card and its power limit.
+  1. device  — refuse to run without CUDA; print the card, its power limit
+               and its max SM clock (K7's chain bound reads it).
   2. build   — compile the hand-written kernels from f2nerf_torch/csrc/.
   3. kernels — each kernel against its plain PyTorch version on the card:
                max error against the stated tolerance, the median time of
@@ -17,7 +18,9 @@ Phases:
                K2 on A at cap1, K3 on B at cap2 plus the edge samples with
                that step's gradient, K4 on the step's cached encodings and
                grad-pass indices, all captured from one more step; K4 also
-               at an earlier stand-in for them).
+               at an earlier stand-in for them). K7's bound also has a
+               chain term (march_case): the longest ray's dependent
+               operations at the card's max SM clock.
   4. slice   — the ball scene, confs/wanjinyou.yaml at full width with
                +train.fused_adam=true, 20 Trainer.train_one steps on the card;
                losses finite, grads finite, params moved, every kernel
@@ -54,6 +57,9 @@ Phases:
                steps each, then Trainer.reset and a step; (d) one
                two-pass eval render card vs CPU for each field.
                K5/K6 are also timed at the kernels phase's uniform shape.
+  march      — not run by default: K7 alone at variants (a)'s step inputs
+               and uniform shape, for kernel sweeps (--phases
+               device,build,march).
   profile    — not run by default: torch.profiler over 3 more slice steps,
                per-span host/device time and the top kernels
                (--phases device,build,kernels,slice,profile); with the
@@ -110,6 +116,23 @@ HOST_STEPS = 3
 # H100 SXM's 67 TFLOP/s f32 peak outside the tensor cores
 MARCH_FLOPS_PER_EMIT = 416
 F32_FLOPS = 67e12
+# K7's chain bound: a ray's iterations depend on one another (t), so the
+# kernel takes at least the longest ray's chain of dependent operations,
+# each >= CYCLES_PER_OP cycles (an f32 add or multiply's latency) at the
+# card's max SM clock. Dependent f32 operations on one iteration's
+# critical path, every independent one taken as running in parallel and
+# each __fdiv_rn / __fsqrt_rn counted as one (so this stays a lower bound):
+#   EMIT: x = o + d t (mul, add: 2), a projection's a (3 adds after the
+#   parallel muls: 4), b * b (1), a / (b b) (1), dvd (mul by r1d, sub: 2),
+#   the product with w (1), the 12 ordered adds (12), s (mul, 2 adds: 3),
+#   the sqrt (1), + 1e-6 (1), e (the division: 1), the radius product (1),
+#   t + e (1), the test (1): 32;
+#   ADVANCE: near - t (1), / step (1), the clamp (1), ceil (1), * step
+#   (1), t + step (1), the test (1): 7.
+MARCH_CHAIN_EMIT = 32
+MARCH_CHAIN_ADVANCE = 7
+CYCLES_PER_OP = 4
+CARD = {}              # what phase_device reads of the card (max SM clock)
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
                 "hash_encode_fwd", "hash_encode_bwd", "ray_march")
 # the maintain phase: (a) a compressed maintenance schedule, (c) real scale
@@ -266,8 +289,12 @@ def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    CARD["max_sm_hz"] = float(clock) * 1e6
     log(f"[device] {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"nvidia-smi: {smi}")
+        f"nvidia-smi: {smi}; max SM clock {clock} MHz")
     return dict(name=name, smi=smi, count=torch.cuda.device_count())
 
 
@@ -430,17 +457,22 @@ def march_case(args: tuple, label: str) -> dict:
     """K7 against its plain version on one input (tree, rays_o, rays_d,
     hit_idx, hit_near, hit_far, n_hits, noise, sample_l, scale_by_dis,
     max_s): n_s and out_node equal, out_t/out_dt to TOL_MARCH_REL
-    relative. The bound is the larger of: the bytes (hit lists, rays,
+    relative. The bound is the largest of: the bytes (hit lists, rays,
     noise, the touched nodes' trans_idx and the touched leaves' warp rows
-    read once, the dense outputs written once) over 3.35 TB/s, and the
+    read once, the dense outputs written once) over 3.35 TB/s; the
     operations of this run's EMIT evaluations (one per sample, plus one
     per hit entered) at MARCH_FLOPS_PER_EMIT f32 operations each over the
-    card's 67 TFLOP/s f32 peak."""
+    card's 67 TFLOP/s f32 peak; and the chain, the longest ray's EMIT and
+    ADVANCE iterations (counted by the plain version) at
+    MARCH_CHAIN_EMIT / MARCH_CHAIN_ADVANCE dependent operations each,
+    CYCLES_PER_OP cycles an operation at the card's max SM clock."""
     from f2nerf_torch.sampler import device as dv
     tree, _, _, hit_idx, _, _, n_hits, noise, _, _, max_s = args
     got, want = dv.ray_march(*args), dv.ray_march_plain(*args)
+    iters = dv.ray_march_plain.last_iters.long().cpu()
     torch.cuda.synchronize()
     same = torch.equal(got[3], want[3]) and torch.equal(got[2], want[2])
+    exact = same and all(torch.equal(got[k], want[k]) for k in (0, 1))
     rel = max(((got[k] - want[k]).abs() / want[k].abs().clamp(min=1e-30)).max().item()
               for k in (0, 1))
     err = max((got[k] - want[k]).abs().max().item() for k in (0, 1))
@@ -454,18 +486,33 @@ def march_case(args: tuple, label: str) -> dict:
     emits = n_s + int(n_hits.sum())
     nbytes = (R * H * 12 + R * 28 + noise.numel() * 4 + nodes.numel() * 4
               + leaves * (96 + 36 + 3 + 1) * 4 + R * max_s * 12 + R * 4)
-    by_bytes, by_ops = bound_ms(nbytes), emits * MARCH_FLOPS_PER_EMIT / F32_FLOPS * 1e3
-    bound, bound_by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    chain = iters[:, 0] * MARCH_CHAIN_EMIT + iters[:, 1] * MARCH_CHAIN_ADVANCE
+    longest = int(chain.argmax())
+    e_max, a_max = (int(x) for x in iters[longest])
+    terms = {"bytes": bound_ms(nbytes),
+             "operations": emits * MARCH_FLOPS_PER_EMIT / F32_FLOPS * 1e3,
+             "chain": int(chain[longest]) * CYCLES_PER_OP / CARD["max_sm_hz"] * 1e3}
+    bound_by = max(terms, key=terms.get)
+    bound = terms[bound_by]
+    old_bound = max(terms["bytes"], terms["operations"])
+    ns_per_iter = ms * 1e6 / max(e_max + a_max, 1)
     log(f"[kernels] K7 ray_march {label}: R={R}, H={H}, max_s={max_s}, {n_s} samples, "
         f"{emits} EMIT evaluations, {leaves} leaves: n_s and out_node equal: {same}; "
-        f"t/dt max rel err {rel:.3e} (tol {TOL_MARCH_REL:g}), max abs {err:.3e}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
-        f"{bound_by} (bytes {by_bytes:.4f}, operations {by_ops:.4f}; "
-        f"{100 * bound / ms:.1f}% of it); library call: none")
+        f"t/dt max rel err {rel:.3e} (tol {TOL_MARCH_REL:g}), max abs {err:.3e} "
+        f"(bit for bit: {exact}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms by {bound_by} (bytes {terms['bytes']:.4f}, operations "
+        f"{terms['operations']:.4f}, chain {terms['chain']:.4f}; {100 * bound / ms:.1f}% "
+        f"of it, {100 * old_bound / ms:.1f}% of max(bytes, operations)); longest ray "
+        f"{longest}: {e_max} EMIT + {a_max} ADVANCE iterations, {ns_per_iter:.2f} ns "
+        f"an iteration; EMIT/ADVANCE over all rays {int(iters[:, 0].sum())}/"
+        f"{int(iters[:, 1].sum())}; library call: none")
     if not (same and rel <= TOL_MARCH_REL):
         raise AssertionError(f"ray_march disagrees with its plain version ({label})")
-    return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, samples=n_s, R=R, H=H)
+    return dict(max_abs_err=err, max_rel_err=rel, bit_for_bit=exact, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                bytes_ms=terms["bytes"], operations_ms=terms["operations"],
+                chain_ms=terms["chain"], longest_emit=e_max, longest_advance=a_max,
+                ns_per_iter=ns_per_iter, samples=n_s, R=R, H=H)
 
 
 def phase_kernels() -> list[dict]:
@@ -1200,6 +1247,32 @@ def march_uniform_args(tr, gen, R: int = 1536, max_s: int = 512, H: int = 64):
             bool(tr.cfg["pts_sampler"]["scale_by_dis"]), max_s)
 
 
+def march_cases(tr, step_args: tuple) -> tuple[dict, dict]:
+    """K7 at one step's own inputs and at the uniform shape."""
+    return (march_case(step_args, "step's own inputs"),
+            march_case(march_uniform_args(tr, torch.Generator(device=DEV).manual_seed(5)),
+                       "uniform rays, hit cap 64"))
+
+
+def phase_march(tmp: str) -> None:
+    """K7 alone, for kernel sweeps (not run by default: --phases
+    device,build,march): variants (a)'s trainer after VAR_STEPS steps,
+    then K7 at one more step's own inputs and at the uniform shape, as the
+    variants phase measures it, and at the uniform shape with an eval
+    chunk's 4,096 rays (more warps than an SM holds at once)."""
+    from f2nerf_torch.sampler import device as dv
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    tr = Trainer(_compose(REF_OVERRIDES), os.path.join(tmp, "exp_march"),
+                 write_ball_dataset(os.path.join(tmp, "ball_march")), seed=2022,
+                 device=DEV)
+    _train_checked(tr, VAR_STEPS, "march")
+    (step_args,) = capture_calls(tr, {"ray_march": dv})["ray_march"]
+    march_cases(tr, step_args)
+    march_case(march_uniform_args(tr, torch.Generator(device=DEV).manual_seed(5), R=4096),
+               "uniform rays, hit cap 64, 4,096 rays")
+
+
 def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     """The configurations beside the default slice, on the card:
       (a) the reference-semantics config (REF_OVERRIDES: the Hash3DAnchored
@@ -1282,10 +1355,9 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
             for w, r in zip(("A", "B + edges"), k5)) +
             f"; launches x (time - bound) {sum(r['ms'] - r['bound_ms'] for r in k5):.4f} ms")
         (march,) = calls["ray_march"]
-        at["ray_march"] = march_case(march, "step's own inputs")
-        del calls, a_fwd, b_fwd, march
-        r7 = march_case(march_uniform_args(tr, torch.Generator(device=DEV).manual_seed(5)),
-                        "uniform rays, hit cap 64")
+        del calls, a_fwd, b_fwd
+        at["ray_march"], r7 = march_cases(tr, march)
+        del march
         rows.append(dict(name="ray_march", route="cuda", source="f2nerf_torch/csrc/ray_march.cu",
                          replaces="f2nerf_tpu/sampler/device.py:436", library_ms=None,
                          library=NO_LIBRARY_MARCH, path="variants (a)",
@@ -1411,6 +1483,8 @@ def main(argv=None) -> int:
                 timed("eval_parity", phase_eval_parity, runner)
             del runner
             torch.cuda.empty_cache()
+        if "march" in phases:
+            timed("march", phase_march, tmp)
         var_launches = {}
         if "variants" in phases:
             var_launches = timed("variants", phase_variants, tmp, rows,

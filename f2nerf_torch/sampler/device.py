@@ -411,7 +411,9 @@ def ray_march_plain(tree: DeviceTree, rays_o: torch.Tensor,
     """Plain PyTorch version of K7: the lockstep state machine over the
     whole batch (JAX ``ray_march``, device.py:436-544), one iteration a
     loop pass, at most ``max_iters`` (default max_s + H + 8) passes. It
-    stops early once every ray is done: a done row no longer changes."""
+    stops early once every ray is done: a done row no longer changes.
+    ``ray_march_plain.last_iters`` keeps each ray's EMIT and ADVANCE
+    iterations of the last call, [R, 2] int32 (K7's chain bound)."""
     R, H = hit_idx.shape
     dev = rays_o.device
     if max_iters == 0:
@@ -428,6 +430,8 @@ def ray_march_plain(tree: DeviceTree, rays_o: torch.Tensor,
     out_dt = torch.zeros((R, max_s), dtype=torch.float32, device=dev)
     out_node = torch.full((R, max_s), -1, dtype=torch.int32, device=dev)
     n_hits = n_hits.to(torch.int64)
+    n_emit = torch.zeros((R,), dtype=torch.int32, device=dev)
+    n_adv = torch.zeros((R,), dtype=torch.int32, device=dev)
 
     for _ in range(max_iters):
         if bool(done.all()):
@@ -465,6 +469,8 @@ def ray_march_plain(tree: DeviceTree, rays_o: torch.Tensor,
         emit_fits = t + e <= cur_far
         adv_exhausted = ptr_a >= n_hits
         adv_fits = t + adv_step <= a_far
+        n_emit += in_emit.to(torch.int32)
+        n_adv += in_adv.to(torch.int32)
 
         new_done = done | (in_adv & adv_exhausted) | (in_emit & (n_out >= max_s))
         ptr = torch.where(in_adv, ptr_a, ptr)
@@ -476,8 +482,12 @@ def ray_march_plain(tree: DeviceTree, rays_o: torch.Tensor,
         exp_step = torch.where(in_emit, e, exp_step)
         first = torch.where(in_emit, torch.zeros_like(first), first)
         done = new_done
+    ray_march_plain.last_iters = torch.stack([n_emit, n_adv], dim=1)
     return (out_t, out_dt, out_node, n_out.to(torch.int32),
             _first_oct(hit_near, n_hits))
+
+
+ray_march_plain.last_iters = None
 
 
 def ray_march(tree: DeviceTree, rays_o: torch.Tensor, rays_d: torch.Tensor,

@@ -4,10 +4,17 @@ tests/test_torch_sampler.py, with the same hits and the same noise.
 
 Tolerances: against JAX run op by op (``jax.disable_jit``, the same
 per-operation rounding) the sample counts and nodes must be equal and the
-sample positions and warp-space steps agree to 1e-5. Kernel cases
-(``cuda`` marker, skipped without a card): K7 against the plain version,
-n_s and out_node equal, out_t/out_dt to 1e-6 relative.
+sample positions and warp-space steps agree to 1e-5. A batch marched at
+once and its rays marched one by one (the property K7's warp per ray
+rests on: no ray reads another's state) are held equal exactly, with the
+same per-ray iteration counts. Kernel cases (``cuda`` marker, skipped
+without a card): K7 against the plain version, n_s and out_node equal,
+out_t/out_dt to 1e-6 relative; and the warp-per-ray cases (ray counts,
+empty rays, hit chunks, sample chunks, a subdivided tree), all four
+outputs equal.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -41,11 +48,25 @@ def T(x):
     return torch.from_numpy(np.array(x, copy=True))
 
 
+SUB_CAPS = (16384, 512, 65536)
+
+
 @pytest.fixture(scope="module")
 def trees():
     c2w, w2c, intri, bounds = synthetic_rig()
     host = joc.build_octree(c2w, w2c, intri, bounds, CFG, seed=0)
     return host, jdv.to_device_tree(host, *CAPS), tdv.to_device_tree(octree_from_fields(host), *CAPS)
+
+
+@pytest.fixture(scope="module")
+def sub_host(trees):
+    """The rig's tree after two brute-force subdivisions (as
+    tests/test_torch_maintain.py builds one): 10,545 nodes, up to 45 hits
+    a ray, a new leaf at every hit."""
+    t = copy.deepcopy(trees[0])
+    for _ in range(2):
+        t = joc._proc_octree_np(t, True, True, True)
+    return octree_from_fields(t)
 
 
 def rays(seed, n, spread=2.0):
@@ -136,6 +157,51 @@ def test_ray_march_uniform_steps(trees):
             assert hn[r, j] - 1e-3 <= out_t[r, s] <= hf[r, j] + 1e-3
 
 
+@pytest.mark.parametrize("tree_kind,scale_by_dis,max_s,max_iters", [
+    ("rig", True, 64, 0), ("subdivided", False, 33, 0), ("subdivided", True, 96, 40)])
+def test_batch_equals_rays_marched_alone(trees, sub_host, monkeypatch, tree_kind,
+                                         scale_by_dis, max_s, max_iters):
+    """Marching a batch gives the four outputs of marching each ray alone
+    (its hit row, its noise from offset r) and concatenating; each ray's
+    EMIT/ADVANCE counts are its lone run's, and their sum is that run's
+    loop passes (one warp Jacobian a pass). This is what lets K7 run each
+    ray in a warp of its own."""
+    ttree = trees[2] if tree_kind == "rig" else tdv.to_device_tree(sub_host, *SUB_CAPS)
+    R = 12
+    o, d, near, far = rays(5, R)
+    hi, hn, hf, nh = hits_of(ttree, o, d, near, far, max_hits=64)
+    nh = nh.copy()
+    nh[7] = 0
+    noise = noise_of("random", R)[:R + max_s + 16]
+    whole = tdv.ray_march_plain(ttree, T(o), T(d), T(hi), T(hn), T(hf), T(nh), T(noise),
+                                SAMPLE_L, scale_by_dis, max_s, max_iters)
+    iters = tdv.ray_march_plain.last_iters
+    assert tuple(iters.shape) == (R, 2) and int(iters[7].sum()) == 0
+    passes = [0]
+    real_jac = tdv.warp_jac_dir
+
+    def counted_jac(*a):
+        passes[0] += 1
+        return real_jac(*a)
+
+    monkeypatch.setattr(tdv, "warp_jac_dir", counted_jac)
+    alone = []
+    for r in range(R):
+        passes[0] = 0
+        sl = slice(r, r + 1)
+        alone.append(tdv.ray_march_plain(
+            ttree, T(o[sl]), T(d[sl]), T(hi[sl]), T(hn[sl]), T(hf[sl]), T(nh[sl]),
+            T(noise[r:]), SAMPLE_L, scale_by_dis, max_s, max_iters))
+        one = tdv.ray_march_plain.last_iters
+        assert torch.equal(one[0], iters[r])
+        assert int(one.sum()) == passes[0]
+    for k in range(5):
+        assert torch.equal(whole[k], torch.cat([a[k] for a in alone])), k
+    assert int(whole[3].sum()) > 0 and int(iters[:, 1].sum()) > 0
+    if max_iters:
+        assert int(iters.sum(dim=1).max()) == max_iters     # the cut is reached
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -164,3 +230,50 @@ def test_kernel_matches_plain_on_card(cuda, trees, scale_by_dis, noise_kind, max
     for k in (0, 1):
         torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=0)
     assert torch.equal(got[4], want[4])
+
+
+# the warp-per-ray layout's edges: R (1, 5, and 300, not a multiple of the
+# rays a block), rays with no hits, a hit cap of 1 and one past a 32-entry
+# chunk, max_s below, just past and beyond a 32-sample chunk, a subdivided
+# tree (a new leaf at every hit), scale_by_dis both ways
+CARD_CASES = [  # tree, R, hit cap, max_s, scale_by_dis, noise, rays without hits
+    ("rig", 1, 32, 96, True, "random", False),
+    ("rig", 5, 32, 33, False, "ones", False),
+    ("rig", 300, 32, 8, True, "random", False),
+    ("rig", 300, 32, 96, False, "ones", True),
+    ("rig", 300, 1, 33, True, "random", False),
+    ("subdivided", 300, 64, 96, True, "random", False),
+    ("subdivided", 300, 64, 33, False, "random", True),
+    ("subdivided", 5, 64, 96, False, "ones", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_kernel_cases_on_card(cuda, trees, sub_host, case):
+    """K7 against the plain version on the card: all four outputs equal,
+    one launch."""
+    kind, R, max_hits, max_s, scale_by_dis, noise_kind, empty = case
+    host = octree_from_fields(trees[0]) if kind == "rig" else sub_host
+    caps = CAPS if kind == "rig" else SUB_CAPS
+    dtree = tdv.to_device_tree(host, *caps, device=cuda)
+    o, d, near, far = rays(9, R)
+    hits = hits_of(tdv.to_device_tree(host, *caps), o, d, near, far, max_hits=max_hits)
+    if empty:
+        hits[3] = hits[3].copy()
+        hits[3][::3] = 0
+    assert hits[0].shape[1] == max_hits
+    if max_hits > 32 and R > 5:
+        assert (hits[3] > 32).any()
+    hits = [T(h).to(cuda) for h in hits]
+    noise = T(np.resize(noise_of(noise_kind, R), R + max_s + 16)).to(cuda)
+    args = (dtree, T(o).to(cuda), T(d).to(cuda), *hits, noise, SAMPLE_L,
+            scale_by_dis, max_s)
+    before = tdv.ray_march.launches
+    got = tdv.ray_march(*args)
+    want = tdv.ray_march_plain(*args)
+    assert tdv.ray_march.launches == before + 1
+    for k in range(4):
+        assert torch.equal(got[k], want[k]), k
+    if max_s > 32 and R > 5:
+        assert int(want[3].max()) > 32
