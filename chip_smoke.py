@@ -37,12 +37,23 @@ Phases:
                K3 held to one launch a step throughout.
   7. runner  — the port's CLI (f2nerf_torch.run.main) at full width on the
                ball scene: mode=train for 40 iterations (report, stats, save,
-               vis cadences, then the test render), then mode=render_path
-               from the checkpoint; the artifact set, launch counts of both
-               runs, and Trainer.render_image timed over all 24 cameras.
+               vis cadences, then the test render; the Runner steps through
+               Trainer.train_auto, its (iteration, chunk) calls printed),
+               then mode=render_path from the checkpoint; the artifact set,
+               launch counts of both runs, and Trainer.render_image timed
+               over all 24 cameras.
   8. eval_parity — one test camera rendered from the saved checkpoint on the
                card (kernels) and on the CPU (plain versions), compared.
-  9. variants — the configurations beside the default slice
+  9. bench   — the benchmark entry (f2nerf_torch/bench.py) at full width on
+               the ball scene (phase_bench): run_bench's JSON line (settle
+               60, 40 timed steps); on a second settled, frozen trainer,
+               timed turns of synced single steps and pipelined chunks
+               (synced, pipelined, pipelined, synced; rays/s each), K1-K4
+               launches over the first pipelined turn; then train_many(3)
+               against three train_one calls from one state and one set of
+               draws, within STEP_TOL (torch's deterministic algorithms,
+               so K3's atomics are what differs).
+ 10. variants — the configurations beside the default slice
                (phase_variants): (a) the reference-semantics config
                (field.type=Hash3DAnchored +pts_sampler.march_mode=lockstep)
                at full width, 20 steps timed as the slice is, K5 twice and
@@ -104,7 +115,19 @@ TOL_SCATTER_REL = 1e-5
 TOL_MARCH_REL = 1e-6
 RUNNER_ITERS = 40      # the runner phase's mode=train iterations
 PHASES = ("device", "build", "kernels", "slice", "parity", "maintain", "runner",
-          "eval_parity", "variants")
+          "eval_parity", "bench", "variants")
+# the runner phase's train_auto calls, (iteration, chunk): chunks of
+# train.step_chunk = 10, each ending on a report/vis/stats/save cadence
+RUNNER_CHUNKS = [(0, 10), (10, 10), (20, 10), (30, 10)]
+# the bench phase: settle iterations (chunks of 10 from iteration 0, so
+# every timed turn starts on a chunk boundary; the EMAs, fetched up to 3
+# chunks late, have seen ~30 steps when the bucket freezes), the bench's
+# own timed steps, the steps of each timed turn, and the chunk held
+# against steps
+BENCH_SETTLE = 60
+BENCH_STEPS = 40
+BENCH_TURN_STEPS = 20
+BENCH_CHUNK = 3
 # the variants phase: the reference-semantics config (a), single-pass
 # training (b), the host loader / single-image sampling / reset (c)
 REF_OVERRIDES = ["field.type=Hash3DAnchored", "+pts_sampler.march_mode=lockstep"]
@@ -133,6 +156,7 @@ MARCH_CHAIN_EMIT = 32
 MARCH_CHAIN_ADVANCE = 7
 CYCLES_PER_OP = 4
 CARD = {}              # what phase_device reads of the card (max SM clock)
+OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
                 "hash_encode_fwd", "hash_encode_bwd", "ray_march")
 # the maintain phase: (a) a compressed maintenance schedule, (c) real scale
@@ -835,8 +859,7 @@ def step_parity(tr, max_hits: int, where: str, single_pass: bool = False) -> Non
             n=float(aux["stats"]["n_meaningful"]), lr=float(t.runtime()["lr"]),
             params={k: v.detach().cpu() for k, v in named_leaves(t.params)},
             grads={k: v.detach().cpu() for k, v in named_leaves(grads)},
-            occ={k: getattr(tree, k).cpu() for k in
-                 ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")})
+            occ={k: getattr(tree, k).cpu() for k in OCC_FIELDS})
     a, b = res["cuda"], res["cpu"]
     err = step_errors(a["loss"], b["loss"], a["grads"], b["grads"], a["params"],
                       b["params"], a["occ"], b["occ"], b["lr"])
@@ -1007,6 +1030,28 @@ def phase_maintain(tmp: str) -> dict:
     return launches
 
 
+class TrainAutoSpy(list):
+    """The (iteration, chunk) of every ``Trainer.train_auto`` call made
+    while active; the real method runs as always."""
+
+    def __enter__(self):
+        from f2nerf_torch.train.trainer import Trainer
+        self.real = real = Trainer.train_auto
+        calls = self
+
+        def train_auto(tr, *a, **kw):
+            s = tr.iter_step
+            out = real(tr, *a, **kw)
+            calls.append((s, tr.iter_step - s))
+            return out
+        Trainer.train_auto = train_auto
+        return self
+
+    def __exit__(self, *exc):
+        from f2nerf_torch.train.trainer import Trainer
+        Trainer.train_auto = self.real
+
+
 def phase_runner(tmp: str):
     """The port's CLI at full width: mode=train (40 iterations, then the
     test render), then mode=render_path from the checkpoint. Checks the
@@ -1032,11 +1077,14 @@ def phase_runner(tmp: str):
     try:
         reset_counts()
         t0 = time.perf_counter()
-        runner = cli.main(args + ["mode=train"])
+        with TrainAutoSpy() as chunks:
+            runner = cli.main(args + ["mode=train"])
         torch.cuda.synchronize()
         train_counts = read_counts()
-        log(f"[runner] mode=train: {time.perf_counter() - t0:.2f} s; launches "
-            f"{train_counts}")
+        log(f"[runner] mode=train: {time.perf_counter() - t0:.2f} s; train_auto "
+            f"(iteration, chunk) calls {chunks}; launches {train_counts}")
+        if chunks != RUNNER_CHUNKS:
+            raise AssertionError(f"the Runner stepped {chunks}, expected {RUNNER_CHUNKS}")
         tr = runner.trainer
         n_leaves = len(list(named_leaves(tr.params)))
         check_counts("mode=train", train_counts, {
@@ -1109,6 +1157,153 @@ def phase_runner(tmp: str):
     if not np.isfinite(colors).all():
         raise AssertionError("non-finite colours in render_image")
     return runner
+
+
+def trainer_state(tr) -> dict:
+    """Params, Adam first moments and occupancy counters, on the host."""
+    from f2nerf_torch.utils.tree import named_leaves
+    return dict(params={k: v.detach().cpu() for k, v in named_leaves(tr.params)},
+                mu={k: v.cpu() for k, v in named_leaves(tr.opt_state["mu"])},
+                occ={k: getattr(tr.tree, k).cpu() for k in OCC_FIELDS})
+
+
+def leaf_outliers(a: dict, b: dict) -> dict:
+    """Per leaf: (entries differing by more than STEP_TOL's param_atol,
+    entries, the largest difference)."""
+    from f2nerf_torch.utils.parity import STEP_TOL
+    out = {}
+    for k in b:
+        d = (a[k] - b[k]).abs()
+        out[k] = (int((d > STEP_TOL["param_atol"]).sum()), d.numel(), float(d.max()))
+    return out
+
+
+def trainer_snapshot(tr) -> dict:
+    """The trainer's training state, kept on the card: the iteration, the
+    params and Adam state (cloned) and the tree (each step makes a new
+    one). The frozen controller's state does not move."""
+    from f2nerf_torch.utils.tree import named_leaves
+    return dict(iter_step=tr.iter_step, tree=tr.tree,
+                params={k: v.detach().clone() for k, v in named_leaves(tr.params)},
+                opt={k: v.clone() for k, v in named_leaves(tr.opt_state)})
+
+
+def restore_snapshot(tr, snap: dict) -> None:
+    from f2nerf_torch.utils.tree import named_leaves
+    with torch.no_grad():
+        for k, v in named_leaves(tr.params):
+            v.copy_(snap["params"][k])
+        for k, v in named_leaves(tr.opt_state):
+            v.copy_(snap["opt"][k])
+    tr.tree, tr.iter_step = snap["tree"], snap["iter_step"]
+
+
+def chunk_parity(tr, k: int = BENCH_CHUNK) -> None:
+    """``train_many(k)`` against k ``train_one`` calls from one state
+    (``trainer_snapshot``) with one set of draws, at the trainer's frozen
+    controller, held to
+    STEP_TOL (the Adam first moments standing for the gradients, the k
+    steps' learning rates summed as the step bound's unit) with equal
+    n_rays, caps and hit cap. Both runs use torch's deterministic
+    algorithms (``index_add_`` and the other scatters without float
+    atomics), so what differs is K3's atomics alone. The same pair is run
+    again with torch's atomics and printed, not held: over k steps their
+    order alone moves more entries than STEP_TOL's one-step outlier
+    bound allows (bf16-rounded MLP inputs turn last-bit differences into
+    larger ones, step after step; PERF.md §6)."""
+    import warnings
+    from f2nerf_torch.utils.parity import STEP_TOL, step_agrees, step_errors
+
+    snap = trainer_snapshot(tr)
+    n_rays = tr.cur_batch_size()
+    _, st = tr._get_step(n_rays)
+    draws = [tr.draw(st, n_rays) for _ in range(k)]
+    lr = sum(float(rt["lr"]) for rt in tr._runtimes(k))
+    statics = ("n_rays", "cap1", "cap2", "hit_cap", "single_pass")
+    for deterministic in (True, False):
+        ends = {}
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # an op without a deterministic form warns
+                for name in ("train_many", "train_one"):
+                    restore_snapshot(tr, snap)
+                    t0 = time.perf_counter()
+                    last = tr.train_many(k, draws=draws) if name == "train_many" else \
+                        [tr.train_one(draws=d) for d in draws][-1]
+                    torch.cuda.synchronize()
+                    ends[name] = dict(trainer_state(tr), last=last, mse=tr.mse_records[-k:],
+                                      secs=time.perf_counter() - t0)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        a, b = ends["train_many"], ends["train_one"]
+        err = step_errors(a["last"]["loss"], b["last"]["loss"], a["mu"], b["mu"], a["params"],
+                          b["params"], a["occ"], b["occ"], lr)
+        log(f"[bench] train_many({k}) vs {k} train_one from iteration {tr.iter_step - k}, "
+            f"{'torch deterministic' if deterministic else 'torch atomics (not held)'}: "
+            f"{ {f: a['last'][f] for f in statics} } vs { {f: b['last'][f] for f in statics} }; "
+            f"mse {a['mse']} vs {b['mse']}; errors {err} (tolerances {STEP_TOL}); per leaf "
+            f"(entries over param_atol, entries, max |diff|) "
+            f"{leaf_outliers(a['params'], b['params'])}; seconds {a['secs']:.3f} vs "
+            f"{b['secs']:.3f}")
+        if any(a["last"][f] != b["last"][f] for f in statics):
+            raise AssertionError("train_many and train_one ran different statics")
+        if deterministic and not step_agrees(err):
+            raise AssertionError("train_many and train_one disagree beyond STEP_TOL")
+
+
+def phase_bench(tmp: str) -> dict:
+    """The benchmark entry at full width on the ball scene (the
+    wanjinyou widths; F2_BENCH_SYNTH=1, no checkpoint):
+      (a) ``run_bench``: settle, freeze, 40 pipelined steps; its JSON line;
+      (b) a second trainer from ``bench.prepare``, timed in turns of
+          BENCH_TURN_STEPS (``bench.time_steps``): synced single steps,
+          pipelined chunks, pipelined chunks, synced single steps, each
+          turn's rays/s printed; K1-K4 launches counted over the first
+          pipelined turn (K3 and K4 once an iteration);
+      (c) ``chunk_parity`` on that trainer.
+    Returns the launches of (b)'s counted turn."""
+    from f2nerf_torch import bench
+    from f2nerf_torch.utils.tree import named_leaves
+
+    os.environ["F2_BENCH_SYNTH"] = "1"
+    os.environ["F2_BENCH_CKPT"] = "0"
+    over = ["+train.fused_adam=true"]          # the full widths, not TINY
+    t0 = time.perf_counter()
+    out = bench.run_bench(over, settle=BENCH_SETTLE, timed_steps=BENCH_STEPS)
+    log(f"[bench] run_bench (settle {BENCH_SETTLE}, {BENCH_STEPS} timed steps) in "
+        f"{time.perf_counter() - t0:.2f} s: {json.dumps(out)}")
+    if not (out["unit"] == "rays/sec" and np.isfinite(out["value"]) and out["value"] > 0):
+        raise AssertionError(f"bad bench line: {out}")
+    torch.cuda.empty_cache()
+
+    tr, workload, n_rays = bench.prepare(os.path.join(tmp, "bench"), over,
+                                         settle=BENCH_SETTLE)
+    n_leaves = len(list(named_leaves(tr.params)))
+    log(f"[bench] {workload}: frozen at iteration {tr.iter_step}, n_rays {n_rays}, "
+        f"chunk {tr.chunk_size}, pipeline depth {tr.pipeline_depth}")
+    launches = None
+    for turn, pipelined in enumerate((False, True, True, False)):
+        if launches is None and pipelined:
+            reset_counts()
+        it0 = tr.iter_step
+        iters, secs = bench.time_steps(tr, BENCH_TURN_STEPS, pipelined)
+        if launches is None and pipelined:
+            launches = read_counts()
+            check_counts("the bench's pipelined chunks", launches, {
+                "fused_adam": iters * n_leaves, "hash_block_fwd": 2 * iters},
+                exact={"hash_block_bwd": iters, "row_gather": iters,
+                       "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0})
+        log(f"[bench] turn {turn}: {'pipelined chunks' if pipelined else 'synced single steps'}"
+            f", iterations {it0}-{tr.iter_step}: {iters / secs:.3f} steps/s, "
+            f"{iters * n_rays / secs:.1f} rays/s"
+            + (f"; launches {launches}" if turn == 1 else ""))
+    if not np.isfinite(tr.psnr_smooth):
+        raise AssertionError("non-finite PSNR after the bench turns")
+    chunk_parity(tr)
+    del tr
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_eval_parity(runner) -> None:
@@ -1460,6 +1655,7 @@ def main(argv=None) -> int:
         timed("build", phase_build)
     rows = timed("kernels", phase_kernels) if "kernels" in phases else []
     launches = {}
+    paths = {}            # each further path's launches, by its key in the rows
     with tempfile.TemporaryDirectory(prefix="f2smoke_") as tmp:
         if "slice" in phases:
             launches, tr, (cap1, cap2) = timed("slice", phase_slice, tmp)
@@ -1473,9 +1669,7 @@ def main(argv=None) -> int:
             del tr
             torch.cuda.empty_cache()
         if "maintain" in phases:
-            maint_launches = timed("maintain", phase_maintain, tmp)
-            for r in rows:
-                r["maintain_launches"] = maint_launches.get(r["name"], 0)
+            paths["maintain_launches"] = timed("maintain", phase_maintain, tmp)
             torch.cuda.empty_cache()
         if "runner" in phases:
             runner = timed("runner", phase_runner, tmp)
@@ -1483,6 +1677,8 @@ def main(argv=None) -> int:
                 timed("eval_parity", phase_eval_parity, runner)
             del runner
             torch.cuda.empty_cache()
+        if "bench" in phases:
+            paths["bench_launches"] = timed("bench", phase_bench, tmp)
         if "march" in phases:
             timed("march", phase_march, tmp)
         var_launches = {}
@@ -1495,6 +1691,7 @@ def main(argv=None) -> int:
         # semantics run, the others the default slice
         path = var_launches if r.get("path") == "variants (a)" else launches
         r["launches"] = path.get(r["name"], 0)
+        r.update({key: counts.get(r["name"], 0) for key, counts in paths.items()})
     rows.sort(key=lambda r: KERNEL_ORDER.index(r["name"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -30,6 +30,18 @@ BACKUP_PATTERNS = [
 ]
 
 
+def require_device(device: str) -> None:
+    """Raise unless ``device`` can run here: a CUDA device needs a card
+    (nothing falls back to the CPU)."""
+    if device.startswith("cuda"):
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but "
+                               "torch.cuda.is_available() is False; pass "
+                               "+device=cpu (run) or --device cpu (bench) "
+                               "to run on the CPU")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config-name", dest="config_name", default="wanjinyou")
@@ -41,12 +53,7 @@ def main(argv=None):
     config_dir = args.config_path or os.path.join(REPO_ROOT, "confs")
     cfg = cfglib.compose(config_dir, args.config_name, args.overrides)
     cfg["device"] = str(cfg.get("device") or "cuda")
-    if cfg["device"].startswith("cuda"):
-        import torch
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {cfg['device']!r} requested but "
-                               "torch.cuda.is_available() is False; pass "
-                               "+device=cpu to run on the CPU")
+    require_device(cfg["device"])
 
     base_dir = cfg.get("work_dir") or os.getcwd()
     print(f"Working directory is {base_dir}")

@@ -4,7 +4,8 @@ ExpRunner.cpp).
 One step: random ray batch -> render (sample/prefilter/field/shader/
 composite) -> losses -> grads -> NaN-guarded Adam -> occupancy update. The
 host loop handles schedules, the adaptive batch-size controller (copied
-verbatim from the JAX package: buckets, hit-cap growth, flat caps) and
+verbatim from the JAX package: buckets, hit-cap growth, flat caps, the
+frozen controller), step chunking with a deferred metric fetch, and
 checkpoints in the JAX package's npz layout.
 
 Losses (ExpRunner.cpp:96-118):
@@ -43,6 +44,9 @@ from . import schedules
 
 ADAM_KW = dict(b1=0.9, b2=0.99, eps=1e-15)
 WEIGHT_DECAY = 1e-6
+# the per-iteration schedules a step reads (``runtime``), in the column
+# order of ``Trainer._runtimes``' table
+RUNTIME_KEYS = ("lr", "fineness", "grad_progress", "var_loss_weight")
 
 # batch-size buckets: ~sqrt(2) spacing keeps recompiles bounded while
 # tracking the reference's adaptive ray count (ExpRunner.cpp:86)
@@ -427,9 +431,20 @@ class Trainer:
     reaches a milestone or a multiple of ``compact_freq``
     (``maybe_maintain_tree``). With ``dataset.data_at_gpu=false`` the
     training images stay on the host and each step's pixels are gathered
-    there (``_host_sample``). Data parallelism and step chunking are not
-    ported yet (ROADMAP.md): a config that asks for more than one device
-    raises."""
+    there (``_host_sample``).
+
+    Stepping follows the JAX Trainer: ``train_auto`` runs a chunk of
+    ``chunk_size`` iterations (``train.step_chunk``, default 10; 1 with the
+    host loader) through ``train_many`` when no milestone, compaction,
+    ``end_iter`` or the caller's ``limit`` falls inside it (``_chunk_k``),
+    else one ``train_one``. A chunk keeps one bucket, one set of caps and
+    one hit cap. Each step's metrics stay on the device in ``_pending``
+    until ``_drain`` copies them to the host (one copy for a step or a
+    chunk): at once with ``sync=True``, else once more than
+    ``pipeline_depth`` entries wait. ``freeze_controller`` stops the EMAs
+    and the hit-cap growth, so the bucket and caps stay fixed. Data
+    parallelism is not ported yet (ROADMAP.md): a config that asks for
+    more than one device raises."""
 
     def __init__(self, cfg: dict, base_exp_dir: str, data_path: str,
                  seed: int = 2022, device="cuda",
@@ -447,6 +462,7 @@ class Trainer:
                 "parallel training is not ported (ROADMAP queue 1); pass "
                 "+train.data_parallel=off to train on one device")
         self.pts_batch = int(tcfg["pts_batch_size"])
+        self.end_iter = int(tcfg["end_iter"])
         self.iter_step = 0
 
         self.dataset = ds.Dataset(data_path, cfg["dataset"])
@@ -493,12 +509,21 @@ class Trainer:
         self.oct_max = 0.0
         self.trunc_ema = 0.0
         self.b_trunc_ema = 0.0
+        self.controller_frozen = False
         self._cur_bucket: int | None = None
         self.sat_ema = 0.0
         self.psnr_smooth = -1.0
         self.mse_records: list[float] = []
         self._step_cache: dict[tuple, object] = {}
         self._cap_memo: dict[int, tuple] = {}
+        # steps whose metrics are still on the device: (n_rays, keys,
+        # [k, m] f32 rows, k dicts of the steps' statics)
+        self._pending: list[tuple] = []
+        self.pipeline_depth = 3
+        self.chunk_size = int(tcfg.get("step_chunk", 10))
+        if not self.data_at_gpu:
+            # the host loader gathers each iteration's pixels on the host
+            self.chunk_size = 1
 
     # ------------------------------------------------------------------ steps
 
@@ -523,7 +548,9 @@ class Trainer:
             self.ema_meaningful > 0.9 * self.ema_sampled
         if single_pass:
             cap2 = cap1
-        self.hit_cap = grow_hit_cap(self.hit_cap, self.hit_cap_limit, self.ema_oct)
+        if not self.controller_frozen:
+            self.hit_cap = grow_hit_cap(self.hit_cap, self.hit_cap_limit,
+                                        self.ema_oct)
         key = (n_rays, cap1, cap2, single_pass, self.hit_cap)
         if key not in self._step_cache:
             st = render_statics(self.cfg, n_rays, self.dataset.near,
@@ -540,71 +567,164 @@ class Trainer:
         self._cur_bucket = b
         return b
 
-    def _ingest_aux(self, n_rays: int, aux):
-        """Fold one step's aux into host EMAs/records (one device->host
-        copy for all scalars)."""
-        scalars = {k: v for k, v in aux.items() if torch.is_tensor(v)}
-        skeys = list(aux["stats"])
-        host = torch.stack([scalars[k].to(torch.float32).reshape(())
-                            for k in scalars]
-                           + [aux["stats"][k].reshape(()) for k in skeys]).cpu()
-        vals = dict(zip(list(scalars), host[:len(scalars)].tolist()))
-        stats = dict(zip(skeys, host[len(scalars):].tolist()))
-        self.ema_sampled = 0.9 * self.ema_sampled + \
-            0.1 * (stats["n_sampled"] + stats["overflow_a"]) / n_rays
-        self.ema_meaningful = 0.9 * self.ema_meaningful + \
-            0.1 * stats["n_meaningful"] / n_rays
-        self.ema_oct = 0.9 * self.ema_oct + 0.1 * stats["n_oct_hits"] / n_rays
-        trunc = stats["n_trav_truncated"]
-        self.trunc_ema = 0.9 * self.trunc_ema + 0.1 * trunc
-        self.oct_max = max(self.oct_max, stats["max_oct_hits"])
-        if self.oct_max > 0.9 * self.hit_cap and \
-                self.hit_cap < self.hit_cap_limit:
-            self.hit_cap = min(2 * self.hit_cap, self.hit_cap_limit)
-        self.sat_ema = 0.9 * self.sat_ema + \
-            0.1 * stats["n_saturated"] / n_rays
-        n_keep = max(stats["n_meaningful"], 1.0)
-        self.b_trunc_ema = 0.9 * self.b_trunc_ema + \
-            0.1 * stats["overflow_b"] / n_keep
-        if trunc > 0 and self.hit_cap < self.hit_cap_limit:
-            self.hit_cap = min(2 * self.hit_cap, self.hit_cap_limit)
-        mse = vals["mse"]
+    def freeze_controller(self, frozen: bool = True):
+        """Pin the adaptive batch-size/capacity controller: the EMAs, the
+        observed hit maximum and the hit cap stop moving, so the bucket,
+        the caps and the step (the cache entry) stay fixed. The MSE
+        records and the smoothed PSNR go on."""
+        self.controller_frozen = frozen
+
+    def _ingest_aux(self, n_rays: int, aux: dict):
+        """Fold one step's host metrics into the controller's EMAs and the
+        records. ``aux``: the step's scalars (loss terms, mse,
+        grads_finite) and its render ``stats``, as floats (``_drain``)."""
+        stats = aux["stats"]
+        if not self.controller_frozen:
+            self.ema_sampled = 0.9 * self.ema_sampled + \
+                0.1 * (stats["n_sampled"] + stats["overflow_a"]) / n_rays
+            self.ema_meaningful = 0.9 * self.ema_meaningful + \
+                0.1 * stats["n_meaningful"] / n_rays
+            self.ema_oct = 0.9 * self.ema_oct + 0.1 * stats["n_oct_hits"] / n_rays
+            trunc = stats["n_trav_truncated"]
+            self.trunc_ema = 0.9 * self.trunc_ema + 0.1 * trunc
+            self.oct_max = max(self.oct_max, stats["max_oct_hits"])
+            if self.oct_max > 0.9 * self.hit_cap and \
+                    self.hit_cap < self.hit_cap_limit:
+                self.hit_cap = min(2 * self.hit_cap, self.hit_cap_limit)
+            self.sat_ema = 0.9 * self.sat_ema + \
+                0.1 * stats["n_saturated"] / n_rays
+            n_keep = max(stats["n_meaningful"], 1.0)
+            self.b_trunc_ema = 0.9 * self.b_trunc_ema + \
+                0.1 * stats["overflow_b"] / n_keep
+            if trunc > 0 and self.hit_cap < self.hit_cap_limit:
+                self.hit_cap = min(2 * self.hit_cap, self.hit_cap_limit)
+        mse = aux["mse"]
         self.mse_records.append(mse)
         psnr = 20.0 * np.log10(1.0 / np.sqrt(max(mse, 1e-10)))
         self.psnr_smooth = psnr if self.psnr_smooth < 0 else \
             0.1 * psnr + 0.9 * self.psnr_smooth
-        return dict(n_rays=n_rays, psnr=psnr, trav_iters=aux["trav_iters"],
-                    **vals, **stats)
+        return dict(n_rays=n_rays, psnr=psnr,
+                    **{k: v for k, v in aux.items() if k != "stats"}, **stats)
+
+    def _runtimes(self, k: int) -> list[dict]:
+        """The schedules of iterations iter_step .. iter_step + k - 1, as
+        0-d f32 tensors on the device: one [k, 4] upload, sliced."""
+        tcfg = self.cfg["train"]
+        table = torch.tensor(
+            [[schedules.learning_rate(s, tcfg), schedules.ray_march_fineness(s, tcfg),
+              schedules.gradient_scaling_progress(s, tcfg),
+              schedules.var_loss_weight(s, tcfg)]
+             for s in range(self.iter_step, self.iter_step + k)],
+            dtype=torch.float32, device=self.device)
+        return [dict(zip(RUNTIME_KEYS, row)) for row in table]
 
     def runtime(self) -> dict:
         """Schedule values for the current iteration, as 0-d tensors on
         the device."""
-        tcfg = self.cfg["train"]
-        s = self.iter_step
+        return self._runtimes(1)[0]
 
-        def t(x):
-            return torch.tensor(x, dtype=torch.float32, device=self.device)
-
-        return dict(lr=t(schedules.learning_rate(s, tcfg)),
-                    fineness=t(schedules.ray_march_fineness(s, tcfg)),
-                    grad_progress=t(schedules.gradient_scaling_progress(s, tcfg)),
-                    var_loss_weight=t(schedules.var_loss_weight(s, tcfg)))
-
-    def train_one(self, draws: dict | None = None):
-        """One training iteration; returns the host metrics (including
-        ``cap1``/``cap2``/``hit_cap`` of the step). ``draws`` overrides the
-        step's random draws (see ``draw_step``)."""
-        n_rays = self.cur_batch_size()
-        core, st = self._get_step(n_rays)
+    def _step(self, core, st: RenderStatics, n_rays: int, runtime: dict,
+              draws: dict | None):
+        """One iteration of ``core`` at the current state, its draws from
+        the trainer's generators unless given. Returns the step's metrics
+        as (keys, one f32 row on the device) and its host-side extras
+        (traversal iterations and the step's statics); nothing is read
+        back from the device."""
         if draws is None:
             draws = self.draw(st, n_rays)
         self.tree, aux, _ = core(self.params, self.opt_state, self.tree,
-                                 self.consts, self.data, self.runtime(), draws,
-                                 n_rays)
+                                 self.consts, self.data, runtime, draws, n_rays)
+        names = [k for k, v in aux.items() if torch.is_tensor(v)]
+        skeys = list(aux["stats"])
+        row = torch.stack([aux[k].to(torch.float32).reshape(()) for k in names]
+                          + [aux["stats"][k].to(torch.float32).reshape(())
+                             for k in skeys])
+        extra = dict(trav_iters=aux["trav_iters"], cap1=st.cap1, cap2=st.cap2,
+                     hit_cap=st.max_hits, single_pass=st.single_pass)
+        return (tuple(names), tuple(skeys)), row, extra
+
+    def train_one(self, sync: bool = True, draws: dict | None = None):
+        """One training iteration. Returns the host metrics of the latest
+        step drained (``cap1``/``cap2``/``hit_cap``/``single_pass``/
+        ``trav_iters`` of that step), or None while pipelining
+        (``sync=False``: the metric copy waits until more than
+        ``pipeline_depth`` entries are pending, so the EMAs lag by up to
+        that many entries; the training math is the same). ``draws``
+        overrides the step's random draws (see ``draw_step``)."""
+        n_rays = self.cur_batch_size()
+        core, st = self._get_step(n_rays)
+        keys, row, extra = self._step(core, st, n_rays, self.runtime(), draws)
         self.iter_step += 1
-        out = self._ingest_aux(n_rays, aux)
-        out.update(cap1=st.cap1, cap2=st.cap2, hit_cap=st.max_hits,
-                   single_pass=st.single_pass)
+        self._pending.append((n_rays, keys, row[None], [extra]))
+        out = self._drain(sync)
+        self.maybe_maintain_tree()
+        return out
+
+    def _drain(self, sync: bool):
+        """Ingest pending metrics: all with ``sync``, else the oldest
+        until ``pipeline_depth`` entries are left. One device-to-host copy
+        an entry (a step or a chunk). Returns the last step's metrics, or
+        None when nothing was drained."""
+        out = None
+        while self._pending and (sync or len(self._pending) > self.pipeline_depth):
+            n_rays, (names, skeys), rows, extras = self._pending.pop(0)
+            for vals, extra in zip(rows.cpu().tolist(), extras):
+                aux = dict(zip(names, vals))
+                aux["stats"] = dict(zip(skeys, vals[len(names):]))
+                out = self._ingest_aux(n_rays, aux)
+                out.update(extra)
+        return out
+
+    def _chunk_k(self, limit: int | None = None) -> int:
+        """Iterations safely fusable into one chunk from the current step:
+        bounded by controller alignment, the next milestone/compaction
+        boundary, end_iter, and the caller's cadence ``limit`` (the JAX
+        Trainer's rule)."""
+        k = self.chunk_size
+        s = self.iter_step
+        if k <= 1 or s % k:
+            return 1
+        nxt = self.end_iter
+        t = self.tree_host
+        for m in t.milestones:
+            if m > s:
+                nxt = min(nxt, m)
+        nxt = min(nxt, (s // self.compact_freq + 1) * self.compact_freq)
+        if limit is not None:
+            nxt = min(nxt, s + limit)
+        return k if s + k <= nxt else 1
+
+    def train_auto(self, sync: bool = True, limit: int | None = None):
+        """One controller round: a chunk when the boundaries allow it,
+        otherwise a single step. Advances iter_step by the count actually
+        run; returns the latest ingested per-iteration metrics (None while
+        pipelining). ``limit`` caps the chunk (the Runner passes the
+        distance to its next report/vis/stats/save cadence)."""
+        k = self._chunk_k(limit)
+        if k == 1:
+            return self.train_one(sync=sync)
+        return self.train_many(k, sync=sync)
+
+    def train_many(self, k: int, sync: bool = True, draws: list | None = None):
+        """k iterations with one bucket, one set of caps and one hit cap
+        (one ``_get_step``): the schedules uploaded once, each step's draws
+        from the trainer's generators in order (``draws``: k dicts to use
+        instead), no host read of the metrics in between; the k metric
+        rows go to ``_pending`` as one entry, then ``_drain`` and octree
+        maintenance, as the JAX Trainer's scan chunk. The training math is
+        that of k ``train_one`` calls."""
+        n_rays = self.cur_batch_size()
+        core, st = self._get_step(n_rays)
+        runtimes = self._runtimes(k)
+        rows, extras = [], []
+        for i in range(k):
+            keys, row, extra = self._step(core, st, n_rays, runtimes[i],
+                                          None if draws is None else draws[i])
+            rows.append(row)
+            extras.append(extra)
+        self.iter_step += k
+        self._pending.append((n_rays, keys, torch.stack(rows), extras))
+        out = self._drain(sync)
         self.maybe_maintain_tree()
         return out
 
@@ -645,7 +765,8 @@ class Trainer:
         ``compact_freq`` iterations, compact. The host tree is synced from
         the device first. At a milestone the hit buffer is pre-sized from
         the observed maximum (an 8-way split about doubles the worst-case
-        hits a ray) and that maximum halved; when the tree changed, the
+        hits a ray) and that maximum halved, unless the controller is
+        frozen; when the tree changed, the
         capacities grow to fit it and the device tree (ropes included) is
         rebuilt."""
         t = self.tree_host
@@ -657,7 +778,7 @@ class Trainer:
         self.tree_host = dv.sync_host_tree(self.tree_host, self.tree)
         self.tree_host, changed = oc.maintain(
             self.tree_host, self.iter_step, self.compact_freq, intri, w2c, bounds)
-        if need_milestone:
+        if need_milestone and not self.controller_frozen:
             want = pow2ceil(2.0 * max(self.oct_max, 1.0))
             self.hit_cap = min(max(self.hit_cap, want), self.hit_cap_limit)
             self.oct_max = self.oct_max * 0.5

@@ -157,9 +157,12 @@ class FakeDataset:
 
 
 class FakeTrainer:
-    """Duck-typed stand-in driving only the loop surface train() touches."""
+    """Duck-typed stand-in driving only the loop surface train() touches:
+    ``train_auto`` runs a chunk of ``chunk_size`` iterations where one is
+    aligned and fits the Runner's limit, else one iteration."""
 
-    def __init__(self, test_set=()):
+    def __init__(self, test_set=(), chunk_size=1):
+        self.chunk_size = chunk_size
         self.iter_step = 0
         self.mse_records = [1e-2]
         self.psnr_smooth = 20.0
@@ -169,11 +172,14 @@ class FakeTrainer:
         self.dataset.test_set = np.asarray(test_set, np.int64)
         self.saved_at = []
 
-    def train_one(self):
+    def train_auto(self, sync=True, limit=None):
         import time
         time.sleep(0.002)
-        self.iter_step += 1
-        return dict(n_rays=512)
+        k = self.chunk_size
+        if self.iter_step % k or (limit is not None and limit < k):
+            k = 1
+        self.iter_step += k
+        return dict(n_rays=512) if sync else None
 
     def save_checkpoint(self):
         self.saved_at.append(self.iter_step)
@@ -212,7 +218,7 @@ def test_sigterm_saves_and_finishes(tmp_path):
 def test_normal_completion_and_cadences(tmp_path, capsys):
     """end_iter off the save cadence still saves at the end; stats, save
     before vis, and a vis failure is logged and training goes on."""
-    r = make_runner(tmp_path, end_iter=7, trainer=FakeTrainer(test_set=[0, 8]))
+    r = make_runner(tmp_path, end_iter=7, trainer=FakeTrainer(test_set=[0, 8], chunk_size=2))
     r.save_freq, r.stats_freq, r.vis_freq, r.report_freq = 3, 2, 2, 5
     seen = []
 
