@@ -68,6 +68,18 @@ Phases:
                steps each, then Trainer.reset and a step; (d) one
                two-pass eval render card vs CPU for each field.
                K5/K6 are also timed at the kernels phase's uniform shape.
+ 11. data_parallel — the data-parallel path at full width on the ball
+               scene (phase_data_parallel): (a) world size 1 on NCCL, one
+               step of a Trainer under the process group against a plain
+               Trainer from one state with one set of draws (torch's
+               deterministic algorithms, STEP_TOL), then 10 steps with the
+               collectives timed; (b) two gloo ranks sharing cuda:0 (spawned
+               processes), 20 iterations each through train_auto: params,
+               Adam state, tree and controller state bitwise equal across
+               the ranks (all-reduced checksums), K1-K4 launched on each
+               rank, losses finite; steps/s, rays/s and the collectives' ms
+               a step of each rank (two ranks on one card: not a scaling
+               figure). A failed rank fails the phase.
   march      — not run by default: K7 alone at variants (a)'s step inputs
                and uniform shape, for kernel sweeps (--phases
                device,build,march).
@@ -115,7 +127,7 @@ TOL_SCATTER_REL = 1e-5
 TOL_MARCH_REL = 1e-6
 RUNNER_ITERS = 40      # the runner phase's mode=train iterations
 PHASES = ("device", "build", "kernels", "slice", "parity", "maintain", "runner",
-          "eval_parity", "bench", "variants")
+          "eval_parity", "bench", "variants", "data_parallel")
 # the runner phase's train_auto calls, (iteration, chunk): chunks of
 # train.step_chunk = 10, each ending on a report/vis/stats/save cadence
 RUNNER_CHUNKS = [(0, 10), (10, 10), (20, 10), (30, 10)]
@@ -134,6 +146,11 @@ REF_OVERRIDES = ["field.type=Hash3DAnchored", "+pts_sampler.march_mode=lockstep"
 VAR_STEPS = 20
 SINGLE_PASS_STEPS = 10
 HOST_STEPS = 3
+# the data_parallel phase: steps timed at world size 1 on NCCL, and the
+# train_auto iterations of each of the two gloo ranks (two chunks of 10;
+# the second is timed)
+DP_STEPS = 10
+DP_ITERS = 20
 # K7's operations bound: f32 operations of one EMIT evaluation (the warp
 # Jacobian: 12 projections x 33, the step and the sample ~20), over the
 # H100 SXM's 67 TFLOP/s f32 peak outside the tensor cores
@@ -1635,6 +1652,225 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ data parallel
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+class TimedReduce:
+    """A trainer's cross-rank reduction (``Trainer.reduce``) with each
+    call's wall time on the host, the device synchronised on both sides."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, *args):
+        _sync()
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        _sync()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def replica_checksums(tr) -> torch.Tensor:
+    """Two int64 checksums a tensor of the trainer's params, Adam state and
+    device tree (its bits, summed plain and position-weighted; overflow
+    wraps alike everywhere), then the controller state's f64 bits: equal on
+    two ranks only if those ranks hold the same bits, short of a collision."""
+    from f2nerf_torch.utils.tree import named_leaves
+    tensors = [v for _, v in named_leaves(tr.params)] + \
+        [v for _, v in named_leaves(tr.opt_state)] + \
+        [getattr(tr.tree, f) for f in tr.tree.__dataclass_fields__
+         if torch.is_tensor(getattr(tr.tree, f))]
+    sums = []
+    for t in tensors:
+        t = t.detach().reshape(-1)
+        bits = (t.view(torch.int32) if t.dtype == torch.float32 else t).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 1009 + 1
+        sums += [bits.sum(), (bits * w).sum()]
+    ctl = [tr.ema_sampled, tr.ema_meaningful, tr.ema_oct, tr.trunc_ema, tr.sat_ema,
+           tr.b_trunc_ema, tr.oct_max, tr.psnr_smooth, tr.hit_cap, tr._cur_bucket,
+           tr.iter_step] + [c for k in sorted(tr._cap_memo) for c in (k, *tr._cap_memo[k])]
+    ctl = torch.tensor(ctl, dtype=torch.float64).view(torch.int64).to(sums[0].device)
+    return torch.cat([torch.stack(sums), ctl])
+
+
+def dp_rank(rank: int, world: int, tmp: str, data_dir: str, device: str,
+            overrides: list, iters: int) -> None:
+    """One gloo rank of the data_parallel phase (a spawned process): a
+    Trainer at the given config trains ``iters`` iterations through
+    ``train_auto`` (chunks of 10), timed over the second half; its launch
+    counts, the collectives' ms a step, steps/s, rays/s and whether the
+    replica checksums agree across ranks (all-reduced MIN and MAX) go to
+    ``<tmp>/dp_rank<rank>.json``."""
+    from f2nerf_torch.parallel import data_parallel as dp
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.tree import named_leaves
+
+    dp.init_distributed(backend="gloo", init_method="file://" + os.path.join(tmp, "gloo_pg"),
+                        world_size=world, rank=rank, timeout_s=300)
+    try:
+        tr = Trainer(_compose(overrides), os.path.join(tmp, f"dp_rank{rank}"), data_dir,
+                     seed=2022, device=device)
+        timed = tr.reduce = TimedReduce(tr.reduce)
+        reset_counts()
+        rays, t0, losses = 0, None, []
+        while tr.iter_step < iters:
+            if t0 is None and tr.iter_step >= iters // 2:
+                _sync()
+                t0, rays, n_timed, it0 = time.perf_counter(), 0, len(timed.ms), tr.iter_step
+            s = tr.iter_step
+            m = tr.train_auto()
+            rays += (tr.iter_step - s) * m["n_rays"]
+            losses.append(m["loss"])
+            if not (np.isfinite(m["loss"]) and m["grads_finite"] == 1.0):
+                raise AssertionError(f"rank {rank}: non-finite step at iteration {s}: {m}")
+        _sync()
+        secs = time.perf_counter() - t0
+        sums = replica_checksums(tr)
+        lo, hi = sums.clone(), sums.clone()
+        torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN)
+        torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX)
+        out = dict(rank=rank, n_shards=tr.n_shards, launches=read_counts(),
+                   replicated=bool(torch.equal(lo, hi)), n_checksums=sums.numel(),
+                   timed_from=it0, steps_per_s=(iters - it0) / secs, rays_per_s=rays / secs,
+                   reduce_ms=statistics.median(timed.ms[n_timed:]),
+                   reduce_ms_all=[round(x, 3) for x in timed.ms], losses=losses,
+                   n_rays=m["n_rays"], n_local_rows=int(tr.data["train_ids"].numel()),
+                   n_leaves=len(named_leaves(tr.params)))
+        with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_dp_ranks(tmp: str, data_dir: str, device: str, overrides: list, iters: int,
+                 world: int = 2, timeout_s: float = 300.0) -> list[dict]:
+    """``world`` gloo ranks (``dp_rank``) as spawned processes; a rank that
+    fails or outlives ``timeout_s`` fails the phase, and every process is
+    ended before this returns."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(r, world, tmp, data_dir, device,
+                                                overrides, iters))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.pid is not None:       # started
+                if p.is_alive():
+                    p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"data_parallel ranks exited with {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_data_parallel(tmp: str) -> dict:
+    """The data-parallel path (f2nerf_torch/parallel/data_parallel.py) on the
+    card, at full width on the ball scene:
+      (a) world size 1 on NCCL: one step from one state with one set of
+          draws through a Trainer under the process group (its step
+          all-reduces) against a plain Trainer, under torch's
+          deterministic algorithms, held to STEP_TOL; then DP_STEPS more
+          steps timed (the collectives' ms a step);
+      (b) two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one
+          card; gloo stages CUDA tensors through the host): DP_ITERS
+          iterations through train_auto on each, params, Adam state, tree
+          and controller state bitwise equal across the ranks (all-reduced
+          checksums), K1-K4 launched on each rank, losses finite; steps/s,
+          rays/s and the collectives' ms a step printed. Two ranks on one
+          card: not a scaling figure.
+    Returns rank 0's launches of (b)."""
+    import warnings
+    from f2nerf_torch.parallel import data_parallel as dp
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.parity import STEP_TOL, step_agrees, step_errors
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    from f2nerf_torch.utils.tree import named_leaves
+
+    data_dir = os.path.join(tmp, "ball")
+    if not os.path.isdir(data_dir):
+        write_ball_dataset(data_dir)
+    cfg = _compose()
+    plain = Trainer(cfg, os.path.join(tmp, "dp_plain"), data_dir, seed=2022, device=DEV)
+    dp.init_distributed(backend="nccl", init_method="file://" + os.path.join(tmp, "nccl_pg"),
+                        world_size=1, rank=0)
+    try:
+        tr = Trainer(cfg, os.path.join(tmp, "dp_nccl"), data_dir, seed=2022, device=DEV)
+        if tr.reduce is None or tr.n_shards != 1:
+            raise AssertionError("the Trainer under a process group does not reduce")
+        timed = tr.reduce = TimedReduce(tr.reduce)
+        n_rays = plain.cur_batch_size()
+        _, st = plain._get_step(n_rays)
+        draws = plain.draw(st, n_rays)
+        lr = float(plain.runtime()["lr"])
+        ends = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for name, t in (("plain", plain), ("nccl", tr)):
+                    ends[name] = dict(trainer_state(t), last=t.train_one(draws=draws))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        a, b = ends["nccl"], ends["plain"]
+        err = step_errors(a["last"]["loss"], b["last"]["loss"], a["mu"], b["mu"],
+                          a["params"], b["params"], a["occ"], b["occ"], lr)
+        log(f"[data_parallel] (a) world size 1 on NCCL vs the plain trainer, one step "
+            f"(n_rays {n_rays}, torch deterministic): errors {err} (tolerances {STEP_TOL}); "
+            f"per leaf (entries over param_atol, entries, max |diff|) "
+            f"{leaf_outliers(a['params'], b['params'])}")
+        if not step_agrees(err):
+            raise AssertionError("the NCCL world-size-1 step disagrees beyond STEP_TOL")
+        del plain
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_STEPS):
+            m = tr.train_one()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[data_parallel] (a) {DP_STEPS} more steps at world size 1 on NCCL: "
+            f"{DP_STEPS / secs:.3f} steps/s, n_rays {m['n_rays']}; the collectives "
+            f"(all-reduce SUM of {sum(p.numel() for _, p in named_leaves(tr.params))} gradient "
+            f"floats + metrics, all-reduce MAX of the votes) {statistics.median(timed.ms):.3f} "
+            f"ms a step (median; all {[round(x, 3) for x in timed.ms]})")
+        del tr
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    ranks = run_dp_ranks(tmp, data_dir, DEV, [], DP_ITERS)
+    for r in ranks:
+        log(f"[data_parallel] (b) gloo rank {r['rank']} of 2 on cuda:0 (two ranks on one "
+            f"card, not a scaling figure): iterations {r['timed_from']}-{DP_ITERS}: "
+            f"{r['steps_per_s']:.3f} steps/s, {r['rays_per_s']:.1f} rays/s (global "
+            f"n_rays {r['n_rays']}); collectives {r['reduce_ms']:.3f} ms a step (median over "
+            f"the timed steps; all {r['reduce_ms_all']}); {r['n_local_rows']} camera rows; "
+            f"replicated across ranks ({r['n_checksums']} checksums): {r['replicated']}; "
+            f"launches {r['launches']}; losses {r['losses']}")
+        if not r["replicated"]:
+            raise AssertionError("the two ranks' states differ")
+        check_counts(f"data_parallel rank {r['rank']}", r["launches"], {
+            "fused_adam": DP_ITERS * r["n_leaves"], "hash_block_fwd": DP_ITERS},
+            exact={"hash_block_bwd": DP_ITERS, "row_gather": DP_ITERS,
+                   "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0})
+    return ranks[0]["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1685,6 +1921,8 @@ def main(argv=None) -> int:
         if "variants" in phases:
             var_launches = timed("variants", phase_variants, tmp, rows,
                                  "profile" in phases)
+        if "data_parallel" in phases:
+            paths["data_parallel_launches"] = timed("data_parallel", phase_data_parallel, tmp)
     log(f"[time] phases (s): {walls}")
     for r in rows:
         # each kernel's launches on its own path: K5-K7 the reference-

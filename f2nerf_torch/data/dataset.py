@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core import camera
+from ..parallel.data_parallel import shard_rows
 
 
 class Dataset:
@@ -94,10 +95,15 @@ class Dataset:
         self.images = np.stack(imgs, axis=0)
         self.height, self.width = self.images.shape[1:3]
 
-    def device_arrays(self, device="cpu") -> dict:
-        """Camera metadata and the train-image pool [n_train, H, W, 3]
-        uint8 on ``device``."""
-        ids = self.train_set
+    def device_arrays(self, device="cpu", n_shards: int = 1, shard: int = 0) -> dict:
+        """Camera metadata (every camera) and one shard's rows of the
+        train-image pool, [rows, H, W, 3] uint8, with their ids, on
+        ``device``: the train ids padded with the leading ones to a
+        multiple of ``n_shards``, block ``shard`` of them
+        (``parallel.data_parallel.shard_rows``, the JAX package's
+        ``device_arrays(n_shards)`` then ``shard_data``); all of them with
+        one shard."""
+        ids = self.train_set[shard_rows(len(self.train_set), n_shards, shard)]
         out = dict(
             poses=torch.as_tensor(self.poses, device=device),
             intri=torch.as_tensor(self.intri, device=device),
@@ -120,7 +126,8 @@ class Dataset:
 
 def draw_rays(data: dict, generator: torch.Generator, n_rays: int,
               height: int, width: int) -> dict:
-    """Random (train camera, pixel) picks for ``sample_rays``."""
+    """Random (train camera, pixel) picks for ``sample_rays``, among the
+    cameras of ``data`` (under data parallel, the rank's own rows)."""
     dev = generator.device
     n_train = data["train_ids"].shape[0]
     kw = dict(generator=generator, device=dev)
@@ -133,7 +140,9 @@ def draw_rays_single_image(data: dict, generator: torch.Generator,
                            n_rays: int, height: int, width: int) -> dict:
     """ray_sample_mode=single_image (RandRaysDataOfCamera,
     Dataset.cpp:251-267): one train-camera pick broadcast to every ray,
-    then the pixels; the same keys as ``draw_rays``."""
+    then the pixels; the same keys as ``draw_rays``. Under data parallel
+    each rank picks among its own rows, so a batch mixes one camera per
+    shard (JAX trainer.py:324-326)."""
     dev = generator.device
     n_train = data["train_ids"].shape[0]
     kw = dict(generator=generator, device=dev)

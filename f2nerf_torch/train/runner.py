@@ -20,8 +20,16 @@ optional resume (``Trainer.reset``). ``F2_TORCH_PROFILE=<dir>`` traces
 iterations 30-50 of ``train()`` with ``torch.profiler`` (host and CUDA)
 and writes a chrome trace there: the counterpart of the JAX package's
 ``F2_JAX_PROFILE`` window. A chunk also ends at the window's edges, so
-the trace holds exactly those iterations. Every process writes the
-outputs, as in the JAX package; the port has one.
+the trace holds exactly those iterations.
+
+Under data parallel (``torchrun``: one rank a shard) every rank trains;
+rank 0 alone writes (train_info.txt, stats.npy, checkpoints, images/,
+test_images/, novel_images/, the profile trace, cam_pos.ply, octree.obj)
+and prints the reports, and the test, vis and path renders run on rank
+0's card while the other ranks wait at a barrier after each, so all ranks
+enter the next step's collectives together. (The JAX Runner writes from
+every process.) A stop signal on any rank stops every rank at the same
+chunk boundary.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import numpy as np
 import yaml
 
 from ..data import dataset as ds
+from ..parallel import data_parallel as dp
 from ..utils import io
 from ..utils.metrics import make_lpips, psnr_float, rgb_ssim
 from .trainer import Trainer
@@ -92,16 +101,16 @@ class Runner:
         self.cfg = cfg
         self.base_exp_dir = cfg["base_exp_dir"]
         data_path = cfg["dataset"]["data_path"]
-        os.makedirs(self.base_exp_dir, exist_ok=True)
 
         t0 = time.time()
         self.trainer = Trainer(cfg, self.base_exp_dir, data_path,
                                device=cfg.get("device", "cuda"))
-        print(f"Trainer built in {time.time() - t0:.1f}s", flush=True)
-        io.export_pcd(os.path.join(self.base_exp_dir, "cam_pos.ply"),
-                      self.trainer.dataset.poses[:, :3, 3])
-        io.export_octree_obj(os.path.join(self.base_exp_dir, "octree.obj"),
-                             self.trainer.tree_host)
+        if self.lead:
+            print(f"Trainer built in {time.time() - t0:.1f}s", flush=True)
+            io.export_pcd(os.path.join(self.base_exp_dir, "cam_pos.ply"),
+                          self.trainer.dataset.poses[:, :3, 3])
+            io.export_octree_obj(os.path.join(self.base_exp_dir, "octree.obj"),
+                                 self.trainer.tree_host)
 
         if cfg.get("is_continue"):
             self.trainer.load_checkpoint()
@@ -115,6 +124,11 @@ class Runner:
         self.stats_freq = int(t["stats_freq"])
         self.save_freq = int(t["save_freq"])
 
+    @property
+    def lead(self) -> bool:
+        """Rank 0 (or no process group): the rank that writes and renders."""
+        return dp.world()[0] == 0
+
     # ------------------------------------------------------------------ modes
 
     def execute(self):
@@ -122,13 +136,25 @@ class Runner:
         if mode == "train":
             self.train()
         elif mode == "test":
-            self.test_images()
+            self._lead_renders(self.test_images)
         elif mode == "render_path":
-            self.render_path()
+            self._lead_renders(self.render_path)
         elif mode == "render_all":
-            self.render_all_images()
+            self._lead_renders(self.render_all_images)
         else:
             raise ValueError(f"Unknown mode {mode!r}")
+
+    def _lead_renders(self, fn, *args):
+        """``fn`` on rank 0 alone; every rank then meets at a barrier
+        (nothing to wait for without a process group). Returns fn's result
+        on rank 0, None elsewhere."""
+        out = None
+        try:
+            if self.lead:
+                out = fn(*args)
+        finally:
+            dp.barrier()
+        return out
 
     def train(self):
         tr = self.trainer
@@ -145,7 +171,7 @@ class Runner:
             for sig in (signal.SIGTERM, signal.SIGINT):
                 prev_handlers[sig] = signal.signal(
                     sig, lambda n, f: stop_sig.__setitem__("n", n))
-        prof = ProfileWindow(os.environ.get("F2_TORCH_PROFILE"))
+        prof = ProfileWindow(os.environ.get("F2_TORCH_PROFILE") if self.lead else None)
         try:
             self._train_loop(tr, stop_sig, time.time(), prof)
         finally:
@@ -154,21 +180,26 @@ class Runner:
             # handlers installed (later SIGINT/SIGTERM would be ignored)
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
-        if stop_sig["n"] is not None:
+        stopped = tr.iter_step < self.end_iter
+        if stopped and self.lead:
             print(f"Graceful stop (signal {stop_sig['n']}) at iter "
                   f"{tr.iter_step}; saving state.", flush=True)
         # final state must always be on disk, whether or not end_iter lands
         # on the save cadence
-        if stop_sig["n"] is not None or self.end_iter % self.save_freq != 0:
+        if stopped or self.end_iter % self.save_freq != 0:
             tr.save_checkpoint()
-        with open(os.path.join(self.base_exp_dir, "train_info.txt"), "w") as f:
-            f.write(f"{time.time() - t_start}\n")
-        print("Train done, test.", flush=True)
-        self.test_images()
+        if self.lead:
+            with open(os.path.join(self.base_exp_dir, "train_info.txt"), "w") as f:
+                f.write(f"{time.time() - t_start}\n")
+            print("Train done, test.", flush=True)
+        self._lead_renders(self.test_images)
 
     def _train_loop(self, tr, stop_sig, t_report, prof):
         freqs = [self.report_freq, self.vis_freq, self.stats_freq, self.save_freq]
-        while tr.iter_step < self.end_iter and stop_sig["n"] is None:
+        # a signal may reach the ranks at different steps: they agree on it
+        # before each chunk, so all of them leave the loop together
+        while tr.iter_step < self.end_iter and \
+                not dp.any_rank(stop_sig["n"] is not None):
             s = tr.iter_step
             prof.at(s)
             # distance to the next report/vis/stats/save cadence bounds the
@@ -181,7 +212,7 @@ class Runner:
             limit = nb - s
             m = tr.train_auto(sync=limit <= tr.chunk_size, limit=limit)
             step = tr.iter_step
-            if step % self.stats_freq == 0:
+            if step % self.stats_freq == 0 and self.lead:
                 np.save(os.path.join(self.base_exp_dir, "stats.npy"),
                         np.asarray(tr.mse_records, np.float32))
             # checkpoint BEFORE the vis render: the vis is the riskiest call
@@ -191,18 +222,8 @@ class Runner:
             if step % self.vis_freq == 0 and len(tr.dataset.test_set):
                 vis_idx = int(tr.dataset.test_set[
                     (step // self.vis_freq) % len(tr.dataset.test_set)])
-                try:
-                    t_vis = time.time()
-                    self.visualize_image(vis_idx)
-                    print(f"[vis] image {vis_idx} rendered in "
-                          f"{time.time() - t_vis:.1f}s", flush=True)
-                except Exception as e:  # noqa: BLE001
-                    # a vis render must never kill a long training run (e.g.
-                    # an eval-capacity OOM at an unlucky tree state);
-                    # training state is untouched — log and continue
-                    print(f"[vis] render failed at iter {step}: {e!r} "
-                          "(training continues)", flush=True)
-            if m and step % self.report_freq == 0:
+                self._lead_renders(self._vis, vis_idx, step)
+            if m and step % self.report_freq == 0 and self.lead:
                 ips = self.report_freq / max(time.time() - t_report, 1e-6)
                 t_report = time.time()
                 trunc = (f" TravTrunc: {tr.trunc_ema:.2f}"
@@ -216,6 +237,19 @@ class Runner:
                       f"Samples: {tr.ema_sampled:.1f} "
                       f"MeaningfulSamples: {tr.ema_meaningful:.1f} "
                       f"IPS: {ips:.2f}{trunc}", flush=True)
+
+    def _vis(self, vis_idx: int, step: int):
+        try:
+            t_vis = time.time()
+            self.visualize_image(vis_idx)
+            print(f"[vis] image {vis_idx} rendered in "
+                  f"{time.time() - t_vis:.1f}s", flush=True)
+        except Exception as e:  # noqa: BLE001
+            # a vis render must never kill a long training run (e.g.
+            # an eval-capacity OOM at an unlucky tree state);
+            # training state is untouched — log and continue
+            print(f"[vis] render failed at iter {step}: {e!r} "
+                  "(training continues)", flush=True)
 
     # ------------------------------------------------------------- rendering
 

@@ -33,6 +33,7 @@ from ..fields import hash_encoding as he
 from ..fields.mlp import init_mlp
 from ..ops.activations import weight_var
 from ..ops.fused_adam import apply_adam, init_adam_state
+from ..parallel import data_parallel as dp
 from ..render.renderer import (FIELD_TYPES, RenderStatics, check_supported,
                                draw_render, render)
 from ..sampler import device as dv
@@ -141,22 +142,6 @@ def init_mlps(generator: torch.Generator, cfg: dict, device="cpu"):
             init_mlp(generator, int(scfg["d_in"]), int(scfg["d_out"]),
                      int(scfg["d_hidden"]), int(scfg["n_hiddens"]),
                      device=device))
-
-
-def data_parallel_devices(dp_cfg, device: torch.device) -> int:
-    """The device count ``train.data_parallel`` asks for, read as the JAX
-    Trainer reads it (trainer.py:559-571): an int pins the count, 'auto'/
-    'on'/true means every local device of ``device``'s type, 'off'/false
-    one."""
-    if isinstance(dp_cfg, str):
-        dp_cfg = dp_cfg.strip().lower()
-    if not isinstance(dp_cfg, bool) and isinstance(dp_cfg, int):
-        return int(dp_cfg)
-    if dp_cfg in ("auto", "on", None, True):
-        return torch.cuda.device_count() if device.type == "cuda" else 1
-    if dp_cfg in ("off", "none", False):
-        return 1
-    return int(dp_cfg)
 
 
 def grow_hit_cap(hit_cap: int, limit: int, ema_oct: float) -> int:
@@ -339,17 +324,23 @@ def draw_step(generator: torch.Generator, data: dict, statics: RenderStatics,
     return draws
 
 
-def make_core(cfg: dict, statics: RenderStatics, height: int, width: int):
+def make_core(cfg: dict, statics: RenderStatics, height: int, width: int,
+              dist=None):
     """The per-iteration step body: rays -> render -> losses -> grads ->
-    all-finite guard -> Adam (kernel K1 on every leaf, skipped on the
-    device when a gradient is non-finite) -> occupancy fold (applied
-    whether or not the update was skipped).
+    (cross-rank reductions) -> all-finite guard -> Adam (kernel K1 on
+    every leaf, skipped on the device when a gradient is non-finite) ->
+    occupancy fold (applied whether or not the update was skipped).
 
     Returns core(params, opt_state, tree, consts, data, runtime, draws,
     n_rays) -> (new_tree, aux, grads); params and opt_state are updated in
-    place. ``draws`` holds either the ray picks (cam_pick, i, j) or a host
-    batch (img_idx, i, j, gt: ``Trainer._host_sample``), and the render
-    draws. The JAX package's ``train.fused_adam`` switch picks Pallas or
+    place. ``n_rays`` is this rank's ray count. ``draws`` holds either the
+    ray picks (cam_pick, i, j) or a host batch (img_idx, i, j, gt:
+    ``Trainer._host_sample``), and the render draws. ``dist``
+    (``parallel.data_parallel.reduce_step`` under a process group) reduces
+    the gradients, loss scalars, stats and occupancy votes across ranks
+    before the guard, the fold and Adam, as the JAX step's pmean/pmax/psum
+    do (trainer.py:355-363): one rank's NaN gradient skips every rank's
+    update. The JAX package's ``train.fused_adam`` switch picks Pallas or
     optax there; the port has the one fused path, with the optax chain's
     math and state layout."""
     tcfg = cfg["train"]
@@ -380,6 +371,11 @@ def make_core(cfg: dict, statics: RenderStatics, height: int, width: int):
         loss.backward()
         grads = map_leaves(lambda p: p.grad if p.grad is not None
                            else torch.zeros_like(p), params)
+        aux = {k: v.detach() for k, v in aux.items()}
+        stats = result["stats"]
+        if dist is not None:
+            spans("step.allreduce")
+            grads, aux, stats, occ = dist(grads, aux, stats, occ)
         spans("step.occupancy_fold")
         new_tree = dv.apply_occupancy_adders(tree, occ)
         spans("step.adam")
@@ -388,8 +384,7 @@ def make_core(cfg: dict, statics: RenderStatics, height: int, width: int):
         apply_adam(params, opt_state, grads, runtime["lr"], finite,
                    weight_decay=WEIGHT_DECAY, **ADAM_KW)
         spans.close()
-        aux = {k: v.detach() for k, v in aux.items()}
-        aux["stats"] = result["stats"]
+        aux["stats"] = stats
         aux["grads_finite"] = finite
         aux["trav_iters"] = result["trav_iters"]
         return new_tree, aux, grads
@@ -442,9 +437,16 @@ class Trainer:
     until ``_drain`` copies them to the host (one copy for a step or a
     chunk): at once with ``sync=True``, else once more than
     ``pipeline_depth`` entries wait. ``freeze_controller`` stops the EMAs
-    and the hit-cap growth, so the bucket and caps stay fixed. Data
-    parallelism is not ported yet (ROADMAP.md): a config that asks for
-    more than one device raises."""
+    and the hit-cap growth, so the bucket and caps stay fixed.
+
+    Data parallel (``parallel/data_parallel.py``): under a process group
+    each rank is one shard (``n_shards`` = the world size, ``rank`` the
+    shard). ``n_rays`` stays the global ray count wherever the controller
+    reads it; a step draws and renders ``n_rays // n_shards`` rays from
+    the rank's own camera rows with the rank's own random stream (rank 0's
+    is the single-device trainer's), and ``make_core`` reduces across
+    ranks, so every rank walks the same controller schedule. Only rank 0
+    writes checkpoints."""
 
     def __init__(self, cfg: dict, base_exp_dir: str, data_path: str,
                  seed: int = 2022, device="cuda",
@@ -452,15 +454,14 @@ class Trainer:
         self.cfg = cfg
         self.device = torch.device(device)
         self.base_exp_dir = base_exp_dir
-        os.makedirs(base_exp_dir, exist_ok=True)
         tcfg = cfg["train"]
-        n_dev = data_parallel_devices(tcfg.get("data_parallel", "auto"),
-                                      self.device)
-        if n_dev > 1:
-            raise NotImplementedError(
-                f"train.data_parallel resolves to {n_dev} devices: data "
-                "parallel training is not ported (ROADMAP queue 1); pass "
-                "+train.data_parallel=off to train on one device")
+        self.rank, world_size = dp.world()
+        if self.rank == 0:
+            os.makedirs(base_exp_dir, exist_ok=True)
+        self.n_shards = dp.data_parallel_shards(tcfg.get("data_parallel", "auto"),
+                                                world_size)
+        # the step's cross-rank reductions, under a process group of any size
+        self.reduce = dp.reduce_step if dp.initialized() else None
         self.pts_batch = int(tcfg["pts_batch_size"])
         self.end_iter = int(tcfg["end_iter"])
         self.iter_step = 0
@@ -469,7 +470,8 @@ class Trainer:
         self.data_at_gpu = bool(cfg["dataset"].get("data_at_gpu", True))
         self.single_image = str(cfg["dataset"].get(
             "ray_sample_mode", "all_images")) == "single_image"
-        self.data = self.dataset.device_arrays(self.device)
+        self.data = self.dataset.device_arrays(self.device, self.n_shards,
+                                               self.rank)
         if not self.data_at_gpu:
             # host data loader: only camera metadata on the device; the
             # same generator as the JAX Trainer's, so the picks match
@@ -497,6 +499,10 @@ class Trainer:
         self.params, self.consts = init_params(
             self.generator, cfg, self.dataset.n_images,
             max(self.n_volumes, 1), device=self.device)
+        if self.rank:
+            # every rank inits the same params; the draws are its own
+            self.generator = torch.Generator(device=self.device).manual_seed(
+                dp.rank_seed(seed, self.rank))
         self.opt_state = init_adam_state(self.params)
 
         self.compact_freq = int(cfg["pts_sampler"]["compact_freq"])
@@ -528,22 +534,28 @@ class Trainer:
     # ------------------------------------------------------------------ steps
 
     def _caps(self, n_rays: int, max_s: int):
-        """EMA-driven flat-buffer capacities (see flat_caps)."""
-        caps = flat_caps(n_rays, max_s, self.pts_batch,
+        """EMA-driven flat-buffer capacities (see flat_caps) for ``n_rays``
+        rays of one shard, against its share of the point budget."""
+        lo = max(16384 // self.n_shards, 2048)
+        pts_local = self.pts_batch // self.n_shards
+        caps = flat_caps(n_rays, max_s, pts_local,
                          self.ema_sampled, self.ema_meaningful,
-                         self._cap_memo.get(n_rays), 16384,
+                         self._cap_memo.get(n_rays), lo,
                          cap1_mult=int(self.cfg.get("capacity", {})
                                        .get("cap1_mult", 16)))
         self._cap_memo[n_rays] = caps
         return caps
 
     def _get_step(self, n_rays: int):
-        """(core, statics) for a ray bucket; capacities from the EMAs.
+        """(core, statics) for a global ray bucket; the statics and
+        capacities are one shard's (``n_rays // n_shards`` rays; the same
+        with one shard), the capacities from the EMAs.
         With ``train.single_pass`` the step skips the prefilter while the
         early stop would cull almost nothing (meaningful > 0.9 sampled),
         and B is then all of A (cap2 = cap1), as in the JAX Trainer."""
-        max_s = max_s_for(n_rays, self.pts_batch)
-        cap1, cap2 = self._caps(n_rays, max_s)
+        n_local = n_rays // self.n_shards
+        max_s = max_s_for(n_local, self.pts_batch // self.n_shards)
+        cap1, cap2 = self._caps(n_local, max_s)
         single_pass = bool(self.cfg["train"].get("single_pass", False)) and \
             self.ema_meaningful > 0.9 * self.ema_sampled
         if single_pass:
@@ -553,11 +565,12 @@ class Trainer:
                                         self.ema_oct)
         key = (n_rays, cap1, cap2, single_pass, self.hit_cap)
         if key not in self._step_cache:
-            st = render_statics(self.cfg, n_rays, self.dataset.near,
+            st = render_statics(self.cfg, n_local, self.dataset.near,
                                 train=True, max_s=max_s, cap1=cap1, cap2=cap2,
                                 max_hits=self.hit_cap)
             st = st._replace(single_pass=single_pass)
-            fn = make_core(self.cfg, st, self.dataset.height, self.dataset.width)
+            fn = make_core(self.cfg, st, self.dataset.height, self.dataset.width,
+                           dist=self.reduce)
             self._step_cache[key] = (fn, st)
         return self._step_cache[key]
 
@@ -565,7 +578,7 @@ class Trainer:
         want = self.pts_batch / max(self.ema_meaningful, 1.0)
         b = pick_bucket_hysteresis(want, self._cur_bucket)
         self._cur_bucket = b
-        return b
+        return max(b // self.n_shards, 1) * self.n_shards
 
     def freeze_controller(self, frozen: bool = True):
         """Pin the adaptive batch-size/capacity controller: the EMAs, the
@@ -625,15 +638,16 @@ class Trainer:
 
     def _step(self, core, st: RenderStatics, n_rays: int, runtime: dict,
               draws: dict | None):
-        """One iteration of ``core`` at the current state, its draws from
-        the trainer's generators unless given. Returns the step's metrics
-        as (keys, one f32 row on the device) and its host-side extras
-        (traversal iterations and the step's statics); nothing is read
-        back from the device."""
+        """One iteration of ``core`` at the current state (``n_rays``
+        global), its draws from the trainer's generators unless given.
+        Returns the step's metrics as (keys, one f32 row on the device)
+        and its host-side extras (this rank's traversal iterations and the
+        step's statics); nothing is read back from the device."""
         if draws is None:
             draws = self.draw(st, n_rays)
         self.tree, aux, _ = core(self.params, self.opt_state, self.tree,
-                                 self.consts, self.data, runtime, draws, n_rays)
+                                 self.consts, self.data, runtime, draws,
+                                 n_rays // self.n_shards)
         names = [k for k, v in aux.items() if torch.is_tensor(v)]
         skeys = list(aux["stats"])
         row = torch.stack([aux[k].to(torch.float32).reshape(()) for k in names]
@@ -729,14 +743,17 @@ class Trainer:
         return out
 
     def draw(self, st: RenderStatics, n_rays: int) -> dict:
-        """One step's draws from the trainer's generators: the ray picks
-        (or, with data_at_gpu=false, a host batch) and the render draws."""
+        """One step's draws of this rank's ``n_rays // n_shards`` rays
+        (``n_rays`` global) from the trainer's generators: the ray picks
+        among the rank's cameras (or, with data_at_gpu=false, its rows of
+        a host batch) and the render draws."""
+        n_local = n_rays // self.n_shards
         if self.data_at_gpu:
-            return draw_step(self.generator, self.data, st, n_rays,
+            return draw_step(self.generator, self.data, st, n_local,
                              self.dataset.height, self.dataset.width, self.tree,
                              self.single_image)
         draws = self._host_sample(n_rays)
-        draws.update(draw_render(self.generator, st, n_rays, self.tree))
+        draws.update(draw_render(self.generator, st, n_local, self.tree))
         return draws
 
     def _host_sample(self, n_rays: int) -> dict:
@@ -744,12 +761,18 @@ class Trainer:
         trainer.py:934-949): random (train image, pixel) picks from the
         host generator, the gt pixels gathered by the native multithreaded
         loader (``native.sample_pixels``), then uploaded: img_idx [n] i32,
-        i, j [n] row/col as f32, gt [n, 3] f32."""
+        i, j [n] row/col as f32, gt [n, 3] f32. Every rank draws the global
+        ``n_rays`` picks from the same host generator and keeps its own
+        block of ``n_rays // n_shards`` (JAX's ``P("data")`` split of the
+        host batch, trainer.py:427-429), so the generators stay in step."""
         rng = self._host_rng
         ts = self.dataset.train_set
         img_idx = ts[rng.integers(0, len(ts), n_rays)].astype(np.int32)
         i = rng.integers(0, self.dataset.height, n_rays).astype(np.int32)
         j = rng.integers(0, self.dataset.width, n_rays).astype(np.int32)
+        n_local = n_rays // self.n_shards
+        rows = slice(self.rank * n_local, (self.rank + 1) * n_local)
+        img_idx, i, j = img_idx[rows], i[rows], j[rows]
         gt = native.sample_pixels(self.dataset.images, img_idx, i, j)
 
         def dev(x, dtype):
@@ -801,7 +824,8 @@ class Trainer:
         ``reset`` flag; JAX trainer.py:951-966, Hash3DAnchored::Reset feat
         ~ U(-1e-2, 1e-2) + MLP re-init, Hash3DAnchored.cpp:152-155,
         SHShader.cpp:58-60) from the trainer's generator, and the Adam
-        state. The appearance embedding and the tree are kept."""
+        state. The appearance embedding and the tree are kept. Under a
+        process group every rank takes rank 0's draw."""
         g = self.generator
         pool = self.params["feat_pool"]
         feat = torch.rand(tuple(pool.shape), generator=g, device=g.device) \
@@ -811,6 +835,8 @@ class Trainer:
                            shader_mlp=shader_mlp)
         self.params = map_leaves(lambda t: t.detach().contiguous().requires_grad_(True),
                                  self.params)
+        if self.n_shards > 1:
+            dp.broadcast_params(self.params)
         self.opt_state = init_adam_state(self.params)
 
     # -------------------------------------------------------------- rendering
@@ -902,11 +928,15 @@ class Trainer:
 
     def save_checkpoint(self):
         """Write ``checkpoints/<iter>/state.npz`` with the JAX package's
-        name-keyed layout (either package can resume the other's run)."""
+        name-keyed layout (either package can resume the other's run).
+        Every rank syncs its host tree from the device (so the host trees
+        stay alike); rank 0 alone writes (the state is replicated)."""
+        self.tree_host = dv.sync_host_tree(self.tree_host, self.tree)
+        if self.rank:
+            return
         out_dir = os.path.join(self.base_exp_dir, "checkpoints",
                                f"{self.iter_step:08d}")
         os.makedirs(out_dir, exist_ok=True)
-        self.tree_host = dv.sync_host_tree(self.tree_host, self.tree)
         t = self.tree_host
         np.savez(
             os.path.join(out_dir, "state.npz"),

@@ -29,6 +29,7 @@ from f2nerf_tpu.utils.synthetic import TINY_OVERRIDES, write_ball_dataset
 from f2nerf_torch import native as tnative
 from f2nerf_torch.core import camera as tcam
 from f2nerf_torch.data import dataset as tds
+from f2nerf_torch.parallel import data_parallel as tdp
 from f2nerf_torch.train import runner as trun
 from f2nerf_torch.train import trainer as ttr
 from f2nerf_torch.utils.tree import named_leaves
@@ -84,11 +85,20 @@ def test_host_sample_matches_jax(ds_pair):
     fake = dict(dataset=ds_pair["jd"], _host_rng=np.random.default_rng(seed + 1))
     want = [jtr.Trainer._host_sample(types.SimpleNamespace(**fake), n) for _ in range(2)]
     fake.update(dataset=ds_pair["td"], _host_rng=np.random.default_rng(seed + 1),
-                device=torch.device("cpu"))
+                device=torch.device("cpu"), n_shards=1, rank=0)
     got = [ttr.Trainer._host_sample(types.SimpleNamespace(**fake), n) for _ in range(2)]
     for g, w in zip(got, want):
         for k in ("img_idx", "i", "j", "gt"):
             np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]), err_msg=k)
+    # two ranks: each draws the global batch from its own copy of the host
+    # generator and keeps its half (JAX's P("data") split of the batch)
+    halves = []
+    for rank in range(2):
+        fake.update(_host_rng=np.random.default_rng(seed + 1), n_shards=2, rank=rank)
+        halves.append(ttr.Trainer._host_sample(types.SimpleNamespace(**fake), n))
+    for k in ("img_idx", "i", "j", "gt"):
+        np.testing.assert_array_equal(torch.cat([h[k] for h in halves]).numpy(),
+                                      np.asarray(want[0][k]), err_msg=k)
     ro, rd, gt, img = tds.host_batch_rays(ds_pair["tdata"], got[0])
     w = want[0]
     jro, jrd = jcam.pixel_to_ray(ds_pair["jdata"]["poses"][w["img_idx"]],
@@ -232,17 +242,19 @@ def test_reset_reinitialises_field_and_shader(host_trainer):
 
 
 def test_data_parallel_guard(ds_pair, tmp_path):
-    """The port trains on one device: a config that pins more resolves to
-    NotImplementedError (read as the JAX Trainer reads it)."""
-    cpu = torch.device("cpu")
-    assert ttr.data_parallel_devices("auto", cpu) == 1
-    assert ttr.data_parallel_devices("off", cpu) == 1
-    assert ttr.data_parallel_devices(False, cpu) == 1
-    assert ttr.data_parallel_devices(4, cpu) == 4
-    assert ttr.data_parallel_devices("2", cpu) == 2
+    """A shard is a torch.distributed rank: 'auto'/'on' mean the world
+    size, and 'off' or an int pin must equal it, else ValueError naming
+    torchrun (with no process group the world size is 1)."""
+    dps = tdp.data_parallel_shards
+    assert dps("auto", 1) == 1 and dps("on", 3) == 3 and dps(True, 2) == 2
+    assert dps("off", 1) == 1 and dps(False, 1) == 1
+    assert dps(4, 4) == 4 and dps("2", 2) == 2
+    for pin, world in (("off", 2), (4, 1), ("2", 3)):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
+            dps(pin, world)
     cfg = compose(os.path.join(REPO, "confs"), "wanjinyou",
                   list(TINY_OVERRIDES) + ["+train.data_parallel=2"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
         ttr.Trainer(cfg, str(tmp_path / "dp"), ds_pair["data_dir"], device="cpu")
 
 
