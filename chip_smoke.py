@@ -18,14 +18,24 @@ Phases:
                K2 on A at cap1, K3 on B at cap2 plus the edge samples with
                that step's gradient, K4 on the step's cached encodings and
                grad-pass indices, all captured from one more step; K4 also
-               at an earlier stand-in for them). K7's bound also has a
-               chain term (march_case): the longest ray's dependent
-               operations at the card's max SM clock.
+               at an earlier stand-in for them; K8, the traversal, at the
+               step's own rays, 2,048 uniform rays, distant origins and
+               grazing rays on a culled copy of the tree, all equal to
+               traverse_plain with the floats bit for bit; K9, the
+               parallel marcher, at the step's own hits, with scale_by_dis
+               flipped, eval's all-ones jitter and a degenerate warp, bit
+               for bit its plain version). K7's and K8's bounds also have
+               a chain term (march_case, traverse_case): the longest ray's
+               dependent operations at the card's max SM clock.
   4. slice   — the ball scene, confs/wanjinyou.yaml at full width with
                +train.fused_adam=true, 20 Trainer.train_one steps on the card;
                losses finite, grads finite, params moved, every kernel
                launched by the main path (launch counters reset just before),
-               the table-gradient scatter K3 exactly once a step.
+               the table-gradient scatter K3, the traversal K8 and the
+               marcher K9 exactly once a step; then one pipelined
+               train_many chunk under torch.cuda.set_sync_debug_mode:
+               the synchronizing calls a step by span, none allowed in
+               render.traverse and render.march (sync_counts).
   5. parity  — one step from one saved state with one set of draws on the
                card (kernels) and on the CPU (plain versions), compared.
   6. maintain — octree maintenance on the card: (a) the slice's config with
@@ -33,8 +43,10 @@ Phases:
                maintenance events, each printed with its host seconds);
                (b) one step card vs CPU on the subdivided tree, as parity;
                (c) milestones [0, 0, 0]: three brute-force subdivisions
-               after the first step (~224k nodes), then 5 timed steps.
-               K3 held to one launch a step throughout.
+               after the first step (~224k nodes), then 5 timed steps, and
+               K8/K9 against their plain versions at one more step's
+               inputs on that tree. K3, K8 and K9 held to one launch a
+               step throughout.
   7. runner  — the port's CLI (f2nerf_torch.run.main) at full width on the
                ball scene: mode=train for 40 iterations (report, stats, save,
                vis cadences, then the test render; the Runner steps through
@@ -172,10 +184,33 @@ F32_FLOPS = 67e12
 MARCH_CHAIN_EMIT = 32
 MARCH_CHAIN_ADVANCE = 7
 CYCLES_PER_OP = 4
+# K8's chain bound, as K7's: a ray's iterations depend on one another (t,
+# u), so the kernel takes at least the longest ray's iterations (counted by
+# traverse_plain) times the dependent f32 operations of the shortest kind
+# of iteration, CYCLES_PER_OP cycles each at the max SM clock. The loads on
+# the path (the node's row, its child, the child's center, the rope) are
+# not counted, so this stays a lower bound. Per kind, every independent
+# operation taken as running in parallel, a division or a comparison
+# counted as one:
+#   descent (p inside the child): p >= center (1), then, once the child's
+#   row is loaded, |p - child center| (1), its max over the axes (2), the
+#   test against half the child's side (1): 5;
+#   leaf: max(far, t) (1), eps's ulp term and its two maxima (3), t + eps
+#   (1), p = o + d (t + eps) (2), the next containment test (4): 11 (the
+#   node's slab, 8 more, runs beside them once its row is loaded);
+#   skip: the octant's and the child's slabs, then the skip point: > 11.
+TRAV_CHAIN = 5
+# a tree row K8 reads: center, side, child, is_leaf, trans_idx, rope
+TRAV_NODE_BYTES = 12 + 4 + 32 + 1 + 4 + 24
+# K8's uniform case: rays from U[-1, 1]^3, uniform directions, hit cap 64
+TRAV_UNIFORM_RAYS = 2048
 CARD = {}              # what phase_device reads of the card (max SM clock)
 OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
-                "hash_encode_fwd", "hash_encode_bwd", "ray_march")
+                "hash_encode_fwd", "hash_encode_bwd", "ray_march", "traverse",
+                "ray_march_parallel")
+# the spans that must not synchronize the host on the card (sync_counts)
+NO_SYNC_SPANS = ("render.traverse", "render.march")
 # the maintain phase: (a) a compressed maintenance schedule, (c) real scale
 MAINT_STEPS = 50
 MAINT_OVERRIDES = ["pts_sampler.compact_freq=10", "pts_sampler.sub_div_milestones=[20,40]"]
@@ -191,6 +226,8 @@ PREFILL_CYCLES = 2_000_000     # ~1 ms of the SM clock (cuda_time)
 NO_LIBRARY = "none: no single PyTorch call computes the hashed trilinear " \
              "encode or its scatter"
 NO_LIBRARY_MARCH = "none: no PyTorch call marches rays through their hit lists"
+NO_LIBRARY_TRAVERSE = "none: no PyTorch call traverses an octree"
+NO_LIBRARY_MARCH_PARALLEL = "none: no PyTorch call marches a jittered grid"
 
 
 def log(*a):
@@ -256,7 +293,8 @@ def wrappers():
     from f2nerf_torch.ops import gather as ga
     from f2nerf_torch.sampler import device as dv
     return (fa.fused_adam, hb.hash_block_fwd, hb.hash_block_bwd, ga.row_gather,
-            he.hash_encode_fwd, he.hash_encode_bwd, dv.ray_march)
+            he.hash_encode_fwd, he.hash_encode_bwd, dv.ray_march, dv.traverse,
+            dv.ray_march_parallel)
 
 
 def reset_counts() -> None:
@@ -533,15 +571,16 @@ def march_case(args: tuple, label: str) -> dict:
     terms = {"bytes": bound_ms(nbytes),
              "operations": emits * MARCH_FLOPS_PER_EMIT / F32_FLOPS * 1e3,
              "chain": int(chain[longest]) * CYCLES_PER_OP / CARD["max_sm_hz"] * 1e3}
-    bound_by = max(terms, key=terms.get)
-    bound = terms[bound_by]
+    term = max(terms, key=terms.get)
+    bound = terms[term]
+    bound_by = "bytes" if term == "bytes" else "operations"
     old_bound = max(terms["bytes"], terms["operations"])
     ns_per_iter = ms * 1e6 / max(e_max + a_max, 1)
     log(f"[kernels] K7 ray_march {label}: R={R}, H={H}, max_s={max_s}, {n_s} samples, "
         f"{emits} EMIT evaluations, {leaves} leaves: n_s and out_node equal: {same}; "
         f"t/dt max rel err {rel:.3e} (tol {TOL_MARCH_REL:g}), max abs {err:.3e} "
         f"(bit for bit: {exact}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms by {bound_by} (bytes {terms['bytes']:.4f}, operations "
+        f"{bound:.4f} ms by {term} (bytes {terms['bytes']:.4f}, operations "
         f"{terms['operations']:.4f}, chain {terms['chain']:.4f}; {100 * bound / ms:.1f}% "
         f"of it, {100 * old_bound / ms:.1f}% of max(bytes, operations)); longest ray "
         f"{longest}: {e_max} EMIT + {a_max} ADVANCE iterations, {ns_per_iter:.2f} ns "
@@ -550,10 +589,212 @@ def march_case(args: tuple, label: str) -> dict:
     if not (same and rel <= TOL_MARCH_REL):
         raise AssertionError(f"ray_march disagrees with its plain version ({label})")
     return dict(max_abs_err=err, max_rel_err=rel, bit_for_bit=exact, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, bound_term=term,
                 bytes_ms=terms["bytes"], operations_ms=terms["operations"],
                 chain_ms=terms["chain"], longest_emit=e_max, longest_advance=a_max,
                 ns_per_iter=ns_per_iter, samples=n_s, R=R, H=H)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype and the same bits (float32 compared as int32)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def traverse_case(args: tuple, label: str) -> dict:
+    """K8 against traverse_plain on one input (tree, rays_o, rays_d, near,
+    far, max_hits[, max_iters]): hit_idx, n_hits, trunc, n_iters and each
+    ray's iterations equal, hit_near and hit_far bit for bit. The bound
+    is the larger of: the bytes (rays, near and far read; the hit rows,
+    n_hits, trunc and the iteration counts written; the rows of the
+    distinct leaves emitted read once, fewer rows than the traversal
+    touches) over 3.35 TB/s, and the chain, the longest ray's iterations
+    (counted by the plain version) at TRAV_CHAIN dependent operations,
+    CYCLES_PER_OP cycles each at the card's max SM clock."""
+    from f2nerf_torch.sampler import device as dv
+    got = dv.traverse(*args)
+    k_iters = dv.traverse.last_iters
+    want = dv.traverse_plain(*args)
+    iters = dv.traverse_plain.last_iters
+    torch.cuda.synchronize()
+    names = ("hit_idx", "hit_near", "hit_far", "n_hits", "trunc", "n_iters")
+    same = {n: bits_equal(g, w) for n, g, w in zip(names, got, want)}
+    same["iters"] = bits_equal(k_iters, iters)
+    err = max((got[k] - want[k]).abs().max().item() for k in (1, 2))
+    R, H = want[0].shape
+    n_hits, n_trunc, longest = int(want[3].sum()), int(want[4].sum()), int(iters.max())
+    leaves = torch.unique(want[0][want[0] >= 0]).numel()
+    del got, want
+    ms = cuda_time(lambda: dv.traverse(*args))
+    plain_ms = cuda_time(lambda: dv.traverse_plain(*args), reps=3)
+    nbytes = R * (12 + 12 + 4 + 4) + leaves * TRAV_NODE_BYTES + R * H * 12 + R * 13 + 4
+    terms = {"bytes": bound_ms(nbytes),
+             "chain": longest * TRAV_CHAIN * CYCLES_PER_OP / CARD["max_sm_hz"] * 1e3}
+    term = max(terms, key=terms.get)
+    bound = terms[term]
+    log(f"[kernels] K8 traverse {label}: R={R}, H={H}, {n_hits} hits, {n_trunc} "
+        f"truncated, {leaves} leaves; iterations: loop {longest}, mean a ray "
+        f"{float(iters.float().mean()):.1f}; equal (floats bit for bit): {same}; "
+        f"max abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms by {term} (bytes {terms['bytes']:.4f}, chain {terms['chain']:.4f}; "
+        f"{100 * bound / ms:.1f}% of it); {ms * 1e6 / max(longest, 1):.2f} ns an "
+        f"iteration of the longest ray; library call: none")
+    if not all(same.values()):
+        raise AssertionError(f"traverse disagrees with traverse_plain ({label}): {same}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if term == "bytes" else "operations", bound_term=term,
+                bytes_ms=terms["bytes"], chain_ms=terms["chain"], longest_iters=longest,
+                mean_iters=float(iters.float().mean()), hits=n_hits, truncated=n_trunc,
+                leaves=leaves, R=R, H=H)
+
+
+def march_parallel_case(args: tuple, label: str) -> dict:
+    """K9 against ray_march_parallel_plain on one input (tree, rays_o,
+    rays_d, hit_idx, hit_near, hit_far, n_hits, jitter, fineness,
+    sample_l, scale_by_dis, max_s): all five outputs bit for bit. The
+    bound is bytes: the valid hit entries and n_hits, the rays, the
+    jitter of the slots filled, the fineness, the trans_idx of the
+    distinct nodes and the warp rows of the distinct leaves read once;
+    the dense outputs, n_samples and first_oct written once."""
+    from f2nerf_torch.sampler import device as dv
+    tree, _, _, hit_idx, _, _, n_hits, _, _, _, scale_by_dis, max_s = args
+    got = dv.ray_march_parallel(*args)
+    want = dv.ray_march_parallel_plain(*args)
+    torch.cuda.synchronize()
+    names = ("out_t", "out_dt", "out_node", "n_samples", "first_oct")
+    same = {n: bits_equal(g, w) for n, g, w in zip(names, got, want)}
+    err = max((got[k] - want[k]).abs().max().item() for k in (0, 1, 4))
+    n_s = int(want[3].sum())
+    del got, want
+    ms = cuda_time(lambda: dv.ray_march_parallel(*args))
+    plain_ms = cuda_time(lambda: dv.ray_march_parallel_plain(*args), reps=3)
+    R, H = hit_idx.shape
+    valid = torch.arange(H, device=hit_idx.device)[None, :] < n_hits[:, None]
+    nodes = torch.unique(hit_idx[valid].long())
+    leaves = torch.unique(tree.trans_idx[nodes].clamp(min=0)).numel()
+    n_h = int(n_hits.sum())
+    nbytes = (n_h * 12 + R * 4 + R * 24 + n_s * 4 + 4 + nodes.numel() * 4
+              + leaves * (96 + 36 + 3 + 1) * 4 + R * max_s * 12 + R * 8)
+    bound = bound_ms(nbytes)
+    log(f"[kernels] K9 ray_march_parallel {label}: R={R}, H={H}, max_s={max_s}, "
+        f"scale_by_dis={scale_by_dis}, {n_h} hits, {n_s} samples, {leaves} leaves: "
+        f"bit for bit {same}; max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f}% "
+        f"of it); library call: none")
+    if not all(same.values()):
+        raise AssertionError(f"ray_march_parallel disagrees with its plain version "
+                             f"({label}): {same}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", samples=n_s, hits=n_h, R=R, H=H, max_s=max_s)
+
+
+def uniform_rays(gen, R: int, lo: float = -1.0, hi: float = 1.0):
+    """R rays on the card with origins uniform in [lo, hi]^3 and uniform
+    directions."""
+    from f2nerf_torch.sampler import device as dv
+    dev = torch.device(DEV)
+    o = torch.rand((R, 3), generator=gen, device=dev) * (hi - lo) + lo
+    d = torch.randn((R, 3), generator=gen, device=dev)
+    return o, d / dv.norm3(d)[:, None]
+
+
+def traverse_extra_cases(tr, near: float) -> dict:
+    """K8 on the trainer's tree beyond the step's inputs:
+      uniform  — TRAV_UNIFORM_RAYS rays from U[-1, 1]^3, hit cap 64;
+      distant  — 512 rays from ~4000 units away, each aimed at a random
+                 valid leaf's center (ulp(t) exceeds a leaf's eps:
+                 tests/test_torch_sampler.py's distant-origin case);
+      grazing  — a copy of the tree with 60% of its valid leaves culled,
+                 rays nearly parallel to a face of a culled leaf, 600
+                 iterations at most (that file's grazing case)."""
+    from f2nerf_torch.sampler import device as dv
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    R = TRAV_UNIFORM_RAYS
+    full = torch.full((R,), 1e8, device=dev)
+    o, d = uniform_rays(gen, R)
+    out["uniform"] = traverse_case((tr.tree, o, d, torch.full((R,), near, device=dev),
+                                    full, 64), f"{R} uniform rays, hit cap 64")
+    host = tr.tree_host
+    s0 = float(host.side[0])
+    rng = np.random.RandomState(7)
+    valid = np.nonzero((host.trans_idx >= 0) & host.is_leaf)[0]
+    aim = host.center[rng.choice(valid, 512)].astype(np.float64)
+    dd = rng.randn(512, 3)
+    dd /= np.linalg.norm(dd, axis=-1, keepdims=True)
+    o = torch.tensor(aim - 4000.0 * dd, dtype=torch.float32, device=dev)
+    d = torch.tensor(dd, dtype=torch.float32, device=dev)
+    out["distant"] = traverse_case((tr.tree, o, d, torch.full((512,), near, device=dev),
+                                    torch.full((512,), 1e8, device=dev), 64),
+                                   "512 rays from 4000 units away")
+    culled = copy.deepcopy(host)
+    kill = rng.choice(valid, size=int(0.6 * len(valid)), replace=False)
+    culled.trans_idx[kill] = -1
+    os_, ds_ = [], []
+    for u in kill[:256]:
+        c, s = culled.center[u].astype(np.float64), float(culled.side[u])
+        for dz in (1e-6, 1e-5, 1e-4, -1e-6, -1e-5):
+            v = np.array([1.0, 0.0, dz]) / np.sqrt(1.0 + dz * dz)
+            face = c[2] + s / 2 if dz > 0 else c[2] - s / 2
+            os_.append([c[0] - 5.0 * s0, c[1], face - np.sign(dz) * 3e-6 - v[2] * 5.0 * s0])
+            ds_.append(v)
+    n = len(os_)
+    ctree = dv.to_device_tree(culled, tr.max_nodes, tr.max_trans, tr.max_edges, device=DEV)
+    out["grazing"] = traverse_case(
+        (ctree, torch.tensor(np.asarray(os_), dtype=torch.float32, device=dev),
+         torch.tensor(np.asarray(ds_), dtype=torch.float32, device=dev),
+         torch.full((n,), near, device=dev),
+         torch.full((n,), 1e8, device=dev), 64, 600),
+        f"{n} grazing rays, 60% of the leaves culled, 600 iterations at most")
+    return out
+
+
+def degenerate_march_args() -> tuple:
+    """tests/test_torch_sampler.py:244's case on the card: a one-leaf tree
+    whose warp is degenerate (b == 0) at the camera origin, the hit
+    slots past n_hits evaluating it; all-ones jitter."""
+    from f2nerf_torch.sampler import device as dv
+    from f2nerf_torch.sampler.octree import OctreeHost
+    w2xz = np.zeros((1, 12, 2, 4), np.float32)
+    w2xz[0, :, 0, :3] = [1.0, 0.0, 0.0]
+    w2xz[0, :, 1, :3] = [0.0, 0.0, 1.0]
+    weight = np.zeros((1, 3, 12), np.float32)
+    weight[0, 0, 0] = weight[0, 1, 1] = weight[0, 2, 2] = 1.0
+    f32 = np.float32
+    host = OctreeHost(
+        center=np.array([[0.0, 0.0, -2.0]], f32), side=np.array([1.0], f32),
+        parent=np.array([-1], np.int32), childs=np.full((1, 8), -1, np.int32),
+        is_leaf=np.array([True]), trans_idx=np.array([0], np.int32),
+        weight_stats=np.full(1, 1000, np.int32), alpha_stats=np.full(1, 1000, np.int32),
+        visit_cnt=np.zeros(1, np.int32), w2xz=w2xz, weight=weight,
+        t_center=np.array([[0.0, 0.0, -2.0]], f32), t_dis=np.array([1.0], f32),
+        edge_t=np.zeros((0, 2), np.int32), edge_center=np.zeros((0, 3), f32),
+        edge_dir0=np.zeros((0, 3), f32), edge_dir1=np.zeros((0, 3), f32), side_len=1.0)
+    tree = dv.to_device_tree(host, 8, 8, 8, device=DEV)
+    dev = torch.device(DEV)
+    d = np.array([[-0.05, 0.0, -1.0]], f32)
+    o = torch.tensor([[0.3, 0.0, 0.0]], device=dev)
+    d = torch.tensor(d / np.linalg.norm(d), device=dev)
+    hits = dv.traverse(tree, o, d, torch.tensor([0.01], device=dev),
+                       torch.tensor([1e8], device=dev), 4)[:4]
+    return (tree, o, d, *hits, torch.ones((1, 64), device=dev),
+            torch.ones((), device=dev), 1.0 / 16, False, 64)
+
+
+def march_parallel_extra_cases(step_args: tuple) -> dict:
+    """K9 beyond the step's inputs: the step's hits with scale_by_dis
+    flipped, with eval's all-ones jitter, and the degenerate-warp case."""
+    a = list(step_args)
+    flipped = tuple(a[:10] + [not a[10]] + a[11:])
+    ones = tuple(a[:7] + [torch.ones_like(a[7])] + a[8:])
+    return {"flipped": march_parallel_case(flipped, f"step's hits, scale_by_dis {not a[10]}"),
+            "ones": march_parallel_case(ones, "step's hits, all-ones jitter (eval)"),
+            "degenerate": march_parallel_case(degenerate_march_args(),
+                                              "degenerate warp past n_hits")}
 
 
 def phase_kernels() -> list[dict]:
@@ -688,11 +929,13 @@ def phase_kernels() -> list[dict]:
 
 def capture_step_inputs(tr) -> dict:
     """One more slice step with K2's, K3's and K4's wrappers spied on (as
-    fields/hash_block.py calls them): the arguments of every call, in
-    order (``capture_calls``)."""
+    fields/hash_block.py calls them) and K8's and K9's (as
+    render/renderer.py calls them): the arguments of every call, in order
+    (``capture_calls``)."""
     from f2nerf_torch.fields import hash_block as hb
-    return capture_calls(tr, {name: hb for name in
-                              ("hash_block_fwd", "hash_block_bwd", "row_gather")})
+    from f2nerf_torch.sampler import device as dv
+    return capture_calls(tr, {"hash_block_fwd": hb, "hash_block_bwd": hb, "row_gather": hb,
+                              "traverse": dv, "ray_march_parallel": dv})
 
 
 def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
@@ -707,9 +950,33 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
       K4: that step's [cap1, 32] cache of A's encodings and its cap2 int64
           indices (increasing; the padding rows all at cap1 - 1). Also at
           the earlier stand-in for them (``standin_`` keys): a random
-          [cap1, 32] cache and cap2 distinct increasing indices."""
+          [cap1, 32] cache and cap2 distinct increasing indices;
+      K8: that step's rays and tree (a new row; also ``traverse_extra_cases``
+          under their names);
+      K9: that step's hits and jitter (a new row; also
+          ``march_parallel_extra_cases`` under their names)."""
     dev = torch.device("cuda")
     calls = capture_step_inputs(tr)
+    (trav,), (march,) = calls["traverse"], calls["ray_march_parallel"]
+    r8 = traverse_case(trav, "slice step's own rays")
+    r8.update({f"{k}_{f}": v for k, r in traverse_extra_cases(tr, float(trav[3][0])).items()
+               for f, v in r.items()})
+    r9 = march_parallel_case(march, "slice step's own hits")
+    r9.update({f"{k}_{f}": v for k, r in march_parallel_extra_cases(march).items()
+               for f, v in r.items()})
+    del trav, march
+    rows.append(dict(name="traverse", route="cuda", source="f2nerf_torch/csrc/traverse.cu",
+                     replaces="f2nerf_tpu/sampler/device.py:231", library_ms=None,
+                     library=NO_LIBRARY_TRAVERSE, **{f"slice_{k}": v for k, v in r8.items()},
+                     **{k: r8[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by")}))
+    rows.append(dict(name="ray_march_parallel", route="cuda",
+                     source="f2nerf_torch/csrc/march_parallel.cu",
+                     replaces="f2nerf_tpu/sampler/device.py:547", library_ms=None,
+                     library=NO_LIBRARY_MARCH_PARALLEL,
+                     **{f"slice_{k}": v for k, v in r9.items()},
+                     **{k: r9[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by")}))
     fwd = max(calls["hash_block_fwd"], key=lambda a: a[3].shape[0])
     r2 = encode_case(fwd, f"slice A at cap1 {fwd[3].shape[0]}")
     r3 = scatter_case(calls["hash_block_bwd"], f"slice B at cap2 {cap2} + edges")
@@ -791,12 +1058,81 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
     if not moved > 0:
         raise AssertionError("params did not move")
     # one table-gradient scatter a step: the grad pass's B and edge samples
-    # share one K3 launch
+    # share one K3 launch; one traversal and one march a step
     check_counts("the slice", launches, {
         "fused_adam": N_STEPS * n_leaves, "hash_block_fwd": N_STEPS},
         exact={"hash_block_bwd": N_STEPS, "row_gather": N_STEPS, "hash_encode_fwd": 0,
-               "hash_encode_bwd": 0, "ray_march": 0})
+               "hash_encode_bwd": 0, "ray_march": 0, "traverse": N_STEPS,
+               "ray_march_parallel": N_STEPS})
+    sync_counts(tr)
     return launches, tr, (m["cap1"], m["cap2"])
+
+
+class SpanSyncCounter:
+    """While active: torch's synchronizing-call warnings (under
+    ``torch.cuda.set_sync_debug_mode("warn")``), counted by the innermost
+    span open when each was raised (f2nerf_torch/utils/spans.py; the
+    step's spans nest the render's). Wraps ``Spans``' methods and
+    ``warnings.showwarning``; the real ones run as always."""
+
+    def __enter__(self):
+        import collections
+        import warnings
+        from f2nerf_torch.utils.spans import Spans
+        self.counts = collections.Counter()
+        self.real = (Spans.__call__, Spans.close)
+        real_call, real_close = self.real
+        stack = []
+
+        def call(sp, name):
+            real_call(sp, name)             # closes sp's open span first
+            stack.append((id(sp), name))
+
+        def close(sp):
+            if sp._cur is not None:
+                i = max(k for k, (owner, _) in enumerate(stack) if owner == id(sp))
+                del stack[i]
+            real_close(sp)
+
+        def show(message, category, *a, **kw):
+            if "synchroniz" in str(message):
+                self.counts[stack[-1][1] if stack else "(outside the step's spans)"] += 1
+            else:
+                self.real_show(message, category, *a, **kw)
+
+        Spans.__call__, Spans.close = call, close
+        self.warn = warnings.catch_warnings()
+        self.warn.__enter__()
+        warnings.simplefilter("always")
+        self.real_show, warnings.showwarning = warnings.showwarning, show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        from f2nerf_torch.utils.spans import Spans
+        torch.cuda.set_sync_debug_mode("default")
+        self.warn.__exit__(*exc)
+        Spans.__call__, Spans.close = self.real
+
+
+def sync_counts(tr, k: int = 10) -> dict:
+    """One pipelined ``train_many(k)`` chunk under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing calls a
+    step, by span, printed; any in NO_SYNC_SPANS (the traversal and the
+    march, K8 and K9) fails. The rest (the compactions, scans and votes,
+    still plain torch) is printed, not held."""
+    torch.cuda.synchronize()
+    it0 = tr.iter_step
+    with SpanSyncCounter() as sc:
+        tr.train_many(k, sync=False)
+    tr._drain(sync=True)
+    per_step = {name: n / k for name, n in sorted(sc.counts.items(), key=lambda x: -x[1])}
+    log(f"[slice] synchronizing calls a step (set_sync_debug_mode, train_many({k}) "
+        f"pipelined, iterations {it0}-{tr.iter_step}): {per_step}; in "
+        f"{list(NO_SYNC_SPANS)}: {[sc.counts.get(n, 0) for n in NO_SYNC_SPANS]}")
+    if any(sc.counts.get(n, 0) for n in NO_SYNC_SPANS):
+        raise AssertionError(f"{NO_SYNC_SPANS} synchronized the host: {dict(sc.counts)}")
+    return per_step
 
 
 def phase_profile(tr, n_steps: int = 3, where: str = "profile") -> None:
@@ -960,7 +1296,7 @@ def _train_checked(tr, n: int, where: str, spy=None) -> list[dict]:
     return out
 
 
-def phase_maintain(tmp: str) -> dict:
+def phase_maintain(tmp: str, rows: list[dict]) -> dict:
     """Octree maintenance on the card, in three parts:
       (a) the slice's config with compact_freq 10 and milestones [20, 40],
           50 steps: maintenance at 10, 20, 30, 40, 50, each printed (counts
@@ -970,7 +1306,9 @@ def phase_maintain(tmp: str) -> dict:
       (b) one step card vs CPU on the subdivided tree (step_parity);
       (c) milestones [0, 0, 0]: the first maintenance (after step 1) runs
           three brute-force subdivisions (>= 150,000 nodes), then 5 steps
-          timed: steps/s, rays/s, traversal iterations, hit cap, peak memory.
+          timed: steps/s, rays/s, traversal iterations, hit cap, peak memory;
+          then K8 and K9 at one more step's inputs on that tree against
+          their plain versions (``subdivided_`` keys of their rows).
     Returns the launches of (a)."""
     from f2nerf_torch.train.trainer import Trainer
     from f2nerf_torch.utils.synthetic import write_ball_dataset
@@ -1008,7 +1346,9 @@ def phase_maintain(tmp: str) -> dict:
         raise AssertionError(f"milestones left: {tr.tree_host.milestones}")
     check_counts("the maintain phase (a)", launches, {
         "fused_adam": MAINT_STEPS * n_leaves, "hash_block_fwd": MAINT_STEPS,
-        "row_gather": MAINT_STEPS}, exact={"hash_block_bwd": MAINT_STEPS})
+        "row_gather": MAINT_STEPS}, exact={"hash_block_bwd": MAINT_STEPS,
+                                           "traverse": MAINT_STEPS,
+                                           "ray_march_parallel": MAINT_STEPS})
 
     step_parity(tr, max_hits=tr.hit_cap, where="maintain (b)")
     del tr
@@ -1043,7 +1383,17 @@ def phase_maintain(tmp: str) -> dict:
     n = 1 + REAL_SCALE_STEPS
     check_counts("the maintain phase (c)", real, {
         "fused_adam": n * n_leaves, "hash_block_fwd": n, "row_gather": n},
-        exact={"hash_block_bwd": n})
+        exact={"hash_block_bwd": n, "traverse": n, "ray_march_parallel": n})
+    from f2nerf_torch.sampler import device as dv
+    calls = capture_calls(tr, {"traverse": dv, "ray_march_parallel": dv})
+    label = f"step's own inputs on {tr.tree_host.n_nodes} nodes"
+    at = {"traverse": traverse_case(calls["traverse"][0], label),
+          "ray_march_parallel": march_parallel_case(calls["ray_march_parallel"][0], label)}
+    del calls
+    for r in rows:
+        if r["name"] in at:
+            r.update({f"subdivided_{k}": v for k, v in at[r["name"]].items()},
+                     max_abs_err=max(r["max_abs_err"], at[r["name"]]["max_abs_err"]))
     return launches
 
 
@@ -1106,7 +1456,8 @@ def phase_runner(tmp: str):
         n_leaves = len(list(named_leaves(tr.params)))
         check_counts("mode=train", train_counts, {
             "fused_adam": RUNNER_ITERS * n_leaves, "hash_block_fwd": RUNNER_ITERS,
-            "row_gather": RUNNER_ITERS}, exact={"hash_block_bwd": RUNNER_ITERS})
+            "row_gather": RUNNER_ITERS, "traverse": RUNNER_ITERS,
+            "ray_march_parallel": RUNNER_ITERS}, exact={"hash_block_bwd": RUNNER_ITERS})
         exp, test_set = runner.base_exp_dir, [int(i) for i in tr.dataset.test_set]
         del runner, tr
         torch.cuda.empty_cache()
@@ -1118,8 +1469,10 @@ def phase_runner(tmp: str):
         eval_counts = read_counts()
         log(f"[runner] mode=render_path: {time.perf_counter() - t0:.2f} s; "
             f"launches {eval_counts}")
-        # eval renders single-pass: one K2 launch per chunk, no cached gather
-        check_counts("mode=render_path", eval_counts, {"hash_block_fwd": 3})
+        # eval renders single-pass: one K2, K8 and K9 launch per chunk, no
+        # cached gather
+        check_counts("mode=render_path", eval_counts, {
+            "hash_block_fwd": 3, "traverse": 3, "ray_march_parallel": 3})
         if eval_counts["row_gather"] or eval_counts["fused_adam"]:
             raise AssertionError(f"render_path launched training kernels: {eval_counts}")
     finally:
@@ -1310,7 +1663,8 @@ def phase_bench(tmp: str) -> dict:
             check_counts("the bench's pipelined chunks", launches, {
                 "fused_adam": iters * n_leaves, "hash_block_fwd": 2 * iters},
                 exact={"hash_block_bwd": iters, "row_gather": iters,
-                       "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0})
+                       "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0,
+                       "traverse": iters, "ray_march_parallel": iters})
         log(f"[bench] turn {turn}: {'pipelined chunks' if pipelined else 'synced single steps'}"
             f", iterations {it0}-{tr.iter_step}: {iters / secs:.3f} steps/s, "
             f"{iters * n_rays / secs:.1f} rays/s"
@@ -1545,7 +1899,7 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     check_counts("variants (a)", launches, {"fused_adam": VAR_STEPS * n_leaves}, exact={
         "hash_encode_fwd": 2 * VAR_STEPS, "hash_encode_bwd": VAR_STEPS,
         "ray_march": VAR_STEPS, "hash_block_fwd": 0, "hash_block_bwd": 0,
-        "row_gather": 0})
+        "row_gather": 0, "traverse": VAR_STEPS, "ray_march_parallel": 0})
     if profile:
         phase_profile(tr, where="profile (a)")
 
@@ -1602,10 +1956,12 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {ev}")
     if not np.isfinite(colors).all():
         raise AssertionError("(a): non-finite colours in render_image")
-    check_counts("variants (a) render_image", ev, {"hash_encode_fwd": 1, "ray_march": 1},
-                 exact={"hash_block_fwd": 0, "hash_encode_bwd": 0})
+    check_counts("variants (a) render_image", ev, {"hash_encode_fwd": 1, "ray_march": 1,
+                                                   "traverse": 1},
+                 exact={"hash_block_fwd": 0, "hash_encode_bwd": 0, "ray_march_parallel": 0})
     eval_image_parity(tr, "variants (a) eval parity")
-    two_pass_eval_parity(tr, "variants (d)", {"hash_encode_fwd": 2, "ray_march": 1})
+    two_pass_eval_parity(tr, "variants (d)", {"hash_encode_fwd": 2, "ray_march": 1,
+                                              "traverse": 1})
     del tr
     torch.cuda.empty_cache()
 
@@ -1623,9 +1979,11 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
         raise AssertionError("(b): a step ran two passes")
     check_counts("variants (b)", sp, {}, exact={
         "hash_block_fwd": SINGLE_PASS_STEPS, "hash_block_bwd": SINGLE_PASS_STEPS,
-        "row_gather": 0, "hash_encode_fwd": 0, "ray_march": 0})
+        "row_gather": 0, "hash_encode_fwd": 0, "ray_march": 0,
+        "traverse": SINGLE_PASS_STEPS, "ray_march_parallel": SINGLE_PASS_STEPS})
     step_parity(tr, max_hits=64, where="variants (b) parity", single_pass=True)
-    two_pass_eval_parity(tr, "variants (d)", {"hash_block_fwd": 1, "row_gather": 1})
+    two_pass_eval_parity(tr, "variants (d)", {"hash_block_fwd": 1, "row_gather": 1,
+                                              "traverse": 1, "ray_march_parallel": 1})
     del tr
     torch.cuda.empty_cache()
 
@@ -1867,7 +2225,8 @@ def phase_data_parallel(tmp: str) -> dict:
         check_counts(f"data_parallel rank {r['rank']}", r["launches"], {
             "fused_adam": DP_ITERS * r["n_leaves"], "hash_block_fwd": DP_ITERS},
             exact={"hash_block_bwd": DP_ITERS, "row_gather": DP_ITERS,
-                   "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0})
+                   "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0,
+                   "traverse": DP_ITERS, "ray_march_parallel": DP_ITERS})
     return ranks[0]["launches"]
 
 
@@ -1905,7 +2264,7 @@ def main(argv=None) -> int:
             del tr
             torch.cuda.empty_cache()
         if "maintain" in phases:
-            paths["maintain_launches"] = timed("maintain", phase_maintain, tmp)
+            paths["maintain_launches"] = timed("maintain", phase_maintain, tmp, rows)
             torch.cuda.empty_cache()
         if "runner" in phases:
             runner = timed("runner", phase_runner, tmp)

@@ -29,9 +29,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# no --use_fast_math: K2/K3's, K5/K6's and K7's arithmetic must round
+# no --use_fast_math: K2/K3's, K5/K6's and K7-K9's arithmetic must round
 # exactly like the plain versions (see csrc/hash_block.cu, hash3d.cu,
-# ray_march.cu)
+# ray_march.cu, traverse.cu, march_parallel.cu)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,6 +47,8 @@ _SIGNATURES = {
     "f2_hash3d_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     "f2_hash3d_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     "f2_ray_march_lockstep": [_vp] * 16 + [_i, _i, _i, _i, _f, _i, _vp],
+    "f2_traverse": [_vp] * 17 + [_i, _i, _i, _vp],
+    "f2_ray_march_parallel": [_vp] * 18 + [_i, _i, _i, _f, _i, _vp],
 }
 
 

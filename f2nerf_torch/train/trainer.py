@@ -640,9 +640,10 @@ class Trainer:
               draws: dict | None):
         """One iteration of ``core`` at the current state (``n_rays``
         global), its draws from the trainer's generators unless given.
-        Returns the step's metrics as (keys, one f32 row on the device)
-        and its host-side extras (this rank's traversal iterations and the
-        step's statics); nothing is read back from the device."""
+        Returns the step's metrics as (keys, one f32 row on the device;
+        this rank's traversal iterations among them) and its host-side
+        extras (the step's statics); nothing is read back from the
+        device."""
         if draws is None:
             draws = self.draw(st, n_rays)
         self.tree, aux, _ = core(self.params, self.opt_state, self.tree,
@@ -653,8 +654,8 @@ class Trainer:
         row = torch.stack([aux[k].to(torch.float32).reshape(()) for k in names]
                           + [aux["stats"][k].to(torch.float32).reshape(())
                              for k in skeys])
-        extra = dict(trav_iters=aux["trav_iters"], cap1=st.cap1, cap2=st.cap2,
-                     hit_cap=st.max_hits, single_pass=st.single_pass)
+        extra = dict(cap1=st.cap1, cap2=st.cap2, hit_cap=st.max_hits,
+                     single_pass=st.single_pass)
         return (tuple(names), tuple(skeys)), row, extra
 
     def train_one(self, sync: bool = True, draws: dict | None = None):
@@ -684,6 +685,7 @@ class Trainer:
             n_rays, (names, skeys), rows, extras = self._pending.pop(0)
             for vals, extra in zip(rows.cpu().tolist(), extras):
                 aux = dict(zip(names, vals))
+                aux["trav_iters"] = int(aux["trav_iters"])
                 aux["stats"] = dict(zip(skeys, vals[len(names):]))
                 out = self._ingest_aux(n_rays, aux)
                 out.update(extra)
