@@ -31,7 +31,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: K2/K3's, K5/K6's and K7-K9's arithmetic must round
 # exactly like the plain versions (see csrc/hash_block.cu, hash3d.cu,
-# ray_march.cu, traverse.cu, march_parallel.cu)
+# ray_march.cu, traverse.cu, march_parallel.cu), and K10/K11 add in a
+# fixed order (csrc/segment.cu)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "f2_ray_march_lockstep": [_vp] * 16 + [_i, _i, _i, _i, _f, _i, _vp],
     "f2_traverse": [_vp] * 17 + [_i, _i, _i, _vp],
     "f2_ray_march_parallel": [_vp] * 18 + [_i, _i, _i, _f, _i, _vp],
+    "f2_segment_reduce": [_vp, _vp, _vp, _ll, _i, _i, _vp],
+    "f2_segment_scan": [_vp] * 5 + [_ll, _i, _i, _vp],
 }
 
 

@@ -44,7 +44,7 @@ from ..fields.hash_encoding import hash_encode
 from ..fields.mlp import mlp_apply
 from ..fields.sh import sh_encode
 from ..ops.activations import density_activation, gradient_scaling
-from ..ops.segment import (first_flags_from_ray_id, local_index,
+from ..ops.segment import (first_flags_from_ray_id, local_index, ray_gather,
                            segment_cumsum, segment_sum)
 from ..sampler import device as dv
 from ..utils.spans import Spans
@@ -96,7 +96,9 @@ def _compact(valid_flat: torch.Tensor, cap: int, fields: dict, n_rays: int,
     target = torch.where(valid_flat & (pos < cap), pos,
                          torch.full_like(pos, cap))          # cap = dump slot
     idx = torch.full((cap + 1,), n, dtype=torch.int64, device=dev)
-    idx.scatter_(0, target, torch.arange(n, device=dev))
+    # the dump slot takes many writes: scatter_ would keep any one of them,
+    # the minimum is the same on every run (the kept slots take one each)
+    idx.scatter_reduce_(0, target, torch.arange(n, device=dev), "amin")
     idx = idx[:cap]
     ok = idx < n
     idx_c = torch.clamp(idx, max=n - 1)
@@ -141,6 +143,16 @@ def _field_encode(params, consts, pts01, vol_idx, statics: RenderStatics):
               else hash_encode)
     return encode(params["feat_pool"], consts["prim_pool"],
                   consts["bias_pool"], pts01, vol_idx, statics.log2_table_size)
+
+
+def _image_rows(app_emb: torch.Tensor, emb_idx: torch.Tensor) -> torch.Tensor:
+    """``app_emb[emb_idx]`` [R, d] as the product of emb_idx's one-hot rows
+    with the table: the same values (TF32 is off), and a backward, the
+    one-hot's transpose times the gradient, that sums each image's rays in
+    cuBLAS's fixed order."""
+    hot = emb_idx.long()[:, None] == torch.arange(app_emb.shape[0],
+                                                  device=app_emb.device)
+    return hot.to(app_emb.dtype) @ app_emb
 
 
 def _shader_query(params, shading_feat, dirs, statics: RenderStatics):
@@ -269,7 +281,6 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
                                 trans=trans_a, dirs=dirs_a, node=a["node"]),
             R, ray_id_src=rid_a)
         vol_b = torch.where(ok_b, b["trans"], torch.zeros_like(b["trans"]))
-    rid_bc = torch.clamp(rid_b, max=R - 1).long()
 
     # --- grad-enabled field query (+ edge samples for the TV loss)
     spans("render.field_shader")
@@ -311,16 +322,16 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
     shading_feat = torch.cat([torch.ones_like(scene_feat[:, :1]),
                               scene_feat[:, 1:]], dim=-1)
     if st.train and st.use_app_emb:
-        # index_select: its backward is an index_add (atomics); an indexing
-        # backward sorts 262k duplicate indices on the card
-        shading_feat = shading_feat + params["app_emb"].index_select(
-            0, emb_idx.long()[rid_bc])
+        # each ray's image row, then to its samples: both backwards sum in a
+        # fixed order (an index_select's would be an index_add of atomics)
+        shading_feat = shading_feat + ray_gather(
+            _image_rows(params["app_emb"], emb_idx), rid_b, R)
 
     colors_s = _shader_query(params, shading_feat, b["dirs"], st)
 
     i_local = local_index(rid_b, R)
     counts_b = segment_sum(torch.ones_like(rid_b, dtype=torch.float32), rid_b, R)
-    count_of = torch.clamp(counts_b[rid_bc], min=1.0)
+    count_of = torch.clamp(ray_gather(counts_b, rid_b, R), min=1.0)
     a_norm = (i_local.to(torch.float32) + 0.5) / count_of
     sigma = gradient_scaling(sigma, a_norm, grad_progress)
     colors_s = gradient_scaling(colors_s, a_norm, grad_progress)
@@ -345,11 +356,14 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
     else:
         bg = torch.full((R, 3), 0.5, **f32)
 
-    last_trans = torch.exp(-segment_sum(sec, rid_b, R))
-    colors = segment_sum(weights[:, None] * colors_s, rid_b, R)
-    colors = colors + last_trans[:, None] * bg
-    disparity = segment_sum(weights / sampled_t, rid_b, R)
-    depth = segment_sum(weights * sampled_t, rid_b, R) / (1.0 - last_trans + 1e-4)
+    # the four per-ray sums in one K10 launch (each channel summed as alone)
+    sums = segment_sum(torch.cat([sec[:, None], weights[:, None] * colors_s,
+                                  (weights / sampled_t)[:, None],
+                                  (weights * sampled_t)[:, None]], dim=1), rid_b, R)
+    last_trans = torch.exp(-sums[:, 0])
+    colors = sums[:, 1:4] + last_trans[:, None] * bg
+    disparity = sums[:, 4]
+    depth = sums[:, 5] / (1.0 - last_trans + 1e-4)
 
     if st.single_pass:
         n_keep = (ok_b & (trans_vis > 1e-4)).to(torch.float32).sum()

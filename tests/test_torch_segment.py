@@ -1,0 +1,325 @@
+"""The port's segment ops (f2nerf_torch/ops/segment.py) through their
+autograd Functions, against the JAX package's (f2nerf_tpu/ops/segment.py,
+run on the CPU), forward and backward; and, on the card, kernels K10
+(``segment_reduce``) and K11 (``segment_scan``) against their plain
+versions.
+
+Inputs come from numpy seeds: ray-sorted ids with empty rays and trailing
+padding (id == n_rays), a buffer that is all padding, a single 512-sample
+ray, and a buffer with no padding.
+
+Tolerances:
+  * per-ray sums, and the gathers' backward (a per-ray sum): rtol 1e-5,
+    atol 1e-6 — f32 sums in another order than XLA's segment_sum;
+  * scans against JAX: rtol 1e-5, atol 1e-6 of the largest |value| compared
+    (JAX's associative scan adds in f32, the port in f64: JAX's rounding
+    grows with the running sums, ~400 over the 512-sample ray); the
+    reverse scan against float64 numpy suffix sums: rtol 1e-6, atol 1e-6;
+  * gathers' forward and local_index: exact;
+  * on the card, K10 against index_add: |diff| <= 1e-5 of the ray's sum of
+    |x| (both f32, other orders); K11 against the plain f64 cumsum: rtol
+    1e-6, atol 1e-6 (both sum in f64 and round once to f32, so they differ
+    by an f32 ulp at most); the same launch twice: the same bits.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from f2nerf_tpu.ops import activations as jact
+from f2nerf_tpu.ops import segment as jseg
+from f2nerf_torch.ops import activations as tact
+from f2nerf_torch.ops import segment as tseg
+from f2nerf_torch.render import renderer as trend
+
+RTOL, ATOL = 1e-5, 1e-6
+CASES = ("ragged", "all_padding", "single_512", "no_padding")
+
+
+def T(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def make_case(name: str, seed: int = 0, c: int = 0):
+    """(ray_id int32 [cap], x [cap] or [cap, c] f32, n_rays)."""
+    rng = np.random.RandomState(seed)
+    if name == "ragged":
+        n_rays = 40
+        counts = rng.randint(0, 30, n_rays)
+        counts[rng.randint(0, n_rays, 4)] = 0
+        rid = np.concatenate([np.repeat(np.arange(n_rays), counts), np.full(25, n_rays)])
+    elif name == "all_padding":
+        n_rays = 5
+        rid = np.full(37, n_rays)
+    elif name == "single_512":
+        n_rays = 1
+        rid = np.concatenate([np.zeros(512), np.full(9, n_rays)])
+    else:
+        n_rays = 12
+        rid = np.repeat(np.arange(n_rays), rng.randint(1, 20, n_rays))
+    shape = rid.shape if c == 0 else rid.shape + (c,)
+    x = rng.uniform(-1.0, 2.0, shape).astype(np.float32)
+    return rid.astype(np.int32), x, n_rays
+
+
+def suffix_sums(x, is_first, exclusive):
+    """float64 per-segment suffix sums (segments start at is_first and at 0)."""
+    out = np.zeros(x.shape[0], np.float64)
+    starts = sorted(set([0]) | set(np.nonzero(is_first)[0].tolist())) + [x.shape[0]]
+    for s, e in zip(starts[:-1], starts[1:]):
+        run = x[s:e].astype(np.float64)
+        inc = np.cumsum(run[::-1])[::-1]
+        out[s:e] = inc - run if exclusive else inc
+    return out
+
+
+# --------------------------------------------------- sums and gathers vs JAX
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("c", [0, 6, 16])
+def test_segment_sum_forward_backward_match_jax(case, c):
+    rid, x, n = make_case(case, seed=c, c=c)
+    g = np.random.RandomState(1).randn(*((n,) if c == 0 else (n, c))).astype(np.float32)
+    want, vjp = jax.vjp(lambda v: jseg.segment_sum(v, jnp.asarray(rid), n), jnp.asarray(x))
+    xt = T(x).requires_grad_(True)
+    got = tseg.segment_sum(xt, T(rid), n)
+    got.backward(T(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]))
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("c", [0, 16])
+def test_ray_gather_forward_backward_match_jax(case, c):
+    """RayGather against jax.vjp of x[rid] over x with a zero row for the
+    padding id."""
+    rid, g, n = make_case(case, seed=3, c=c)
+    x = np.random.RandomState(4).randn(*((n,) if c == 0 else (n, c))).astype(np.float32)
+
+    def jgather(v):
+        return jnp.concatenate([v, jnp.zeros((1,) + v.shape[1:], v.dtype)])[jnp.asarray(rid)]
+
+    want, vjp = jax.vjp(jgather, jnp.asarray(x))
+    xt = T(x).requires_grad_(True)
+    got = tseg.ray_gather(xt, T(rid), n)
+    got.backward(T(g))
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------------------------ scans vs JAX
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("exclusive", [True, False])
+def test_segment_cumsum_forward_backward_match_jax(case, exclusive):
+    rid, x, n = make_case(case, seed=5)
+    g = np.random.RandomState(6).randn(x.shape[0]).astype(np.float32)
+    jf = jseg.first_flags_from_ray_id(jnp.asarray(rid), n)
+    want, vjp = jax.vjp(lambda v: jseg.segment_cumsum(v, jf, exclusive=exclusive),
+                        jnp.asarray(x))
+    xt = T(x).requires_grad_(True)
+    tf = tseg.first_flags_from_ray_id(T(rid), n)
+    got = tseg.segment_cumsum(xt, tf, exclusive=exclusive)
+    got.backward(T(g))
+    for a, b in ((got.detach().numpy(), np.asarray(want)),
+                 (xt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]))):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL * max(np.abs(b).max(), 1.0))
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("exclusive", [True, False])
+def test_reverse_scan_is_the_suffix_sum(case, exclusive):
+    """segment_scan(reverse=True): each segment's suffix sums, rows before
+    the first flag one segment, padding part of the last ray's."""
+    rid, x, n = make_case(case, seed=7)
+    tf = tseg.first_flags_from_ray_id(T(rid), n)
+    got = tseg.segment_scan(T(x), tf, exclusive=exclusive, reverse=True).numpy()
+    np.testing.assert_allclose(got, suffix_sums(x, tf.numpy(), exclusive),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_scan_without_flags_is_one_segment():
+    x = np.random.RandomState(8).uniform(0.0, 1.0, 300).astype(np.float32)
+    none = torch.zeros(300, dtype=torch.bool)
+    for exclusive in (True, False):
+        got = tseg.segment_cumsum(T(x), none, exclusive=exclusive).numpy()
+        want = np.asarray(jseg.segment_cumsum(jnp.asarray(x), jnp.zeros(300, bool),
+                                              exclusive=exclusive))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_local_index_matches_jax_and_plain(case):
+    rid, _, n = make_case(case, seed=9)
+    got = tseg.local_index(T(rid), n)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jseg.local_index(jnp.asarray(rid), n)))
+    np.testing.assert_array_equal(got.numpy(), tseg.local_index_plain(T(rid), n).numpy())
+
+
+# --------------------------------------------------------- callers vs JAX
+
+@pytest.mark.parametrize("case", CASES)
+def test_weight_var_forward_backward_match_jax(case):
+    rid, w, n = make_case(case, seed=10)
+    w = np.abs(w)
+    li = np.asarray(jseg.local_index(jnp.asarray(rid), n))
+    g = np.random.RandomState(11).randn(n).astype(np.float32)
+    want, vjp = jax.vjp(lambda v: jact.weight_var(v, jnp.asarray(rid), jnp.asarray(li), n),
+                        jnp.asarray(w))
+    wt = T(w).requires_grad_(True)
+    got = tact.weight_var(wt, T(rid), T(li), n)
+    got.backward(T(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=RTOL, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["ragged", "single_512", "no_padding"])
+def test_appearance_gather_matches_jax(case):
+    """The renderer's appearance rows (one-hot product, then RayGather)
+    against the JAX renderer's ``app_emb[emb_idx[rid_bc]]``: equal on every
+    sample row, and the same gradient of app_emb for a cotangent that is
+    zero on padding rows (the composite's weights are zero there; the port
+    gathers zeros there, the JAX package the last ray's row)."""
+    rid, _, n = make_case(case, seed=12)
+    rng = np.random.RandomState(13)
+    app = rng.randn(7, 16).astype(np.float32)
+    emb_idx = rng.randint(0, 7, n).astype(np.int32)
+    valid = rid < n
+    g = (rng.randn(rid.shape[0], 16) * valid[:, None]).astype(np.float32)
+    rid_c = np.minimum(rid, n - 1)
+    want, vjp = jax.vjp(lambda a: a[jnp.asarray(emb_idx)[jnp.asarray(rid_c)]], jnp.asarray(app))
+    at = T(app).requires_grad_(True)
+    got = tseg.ray_gather(trend._image_rows(at, T(emb_idx)), T(rid), n)
+    got.backward(T(g))
+    np.testing.assert_array_equal(got.detach().numpy()[valid], np.asarray(want)[valid])
+    assert not got.detach().numpy()[~valid].any()
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------------------ the wrappers' routes
+
+def test_wrappers_take_the_plain_versions_on_the_cpu():
+    rid, x, n = make_case("ragged", seed=14, c=6)
+    before = (tseg.segment_reduce.launches, tseg.segment_scan.launches)
+    assert torch.equal(tseg.segment_reduce(T(x), T(rid), n),
+                       tseg.segment_sum_plain(T(x), T(rid), n))
+    tf = tseg.first_flags_from_ray_id(T(rid), n)
+    for reverse in (False, True):
+        assert torch.equal(tseg.segment_scan(T(x[:, 0]), tf, True, reverse),
+                           tseg.segment_cumsum_plain(T(x[:, 0]), tf, True, reverse))
+    assert (tseg.segment_reduce.launches, tseg.segment_scan.launches) == before
+
+
+def test_wrappers_refuse_other_devices():
+    """No quiet route to the plain versions off the CPU: a device that is
+    neither the CPU nor CUDA raises."""
+    x = torch.zeros(8, device="meta")
+    rid = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tseg.segment_reduce(x, rid, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tseg.segment_scan(x, torch.zeros(8, dtype=torch.bool, device="meta"))
+
+
+# ----------------------------------------------------------------- the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def step_case(seed: int, n_rays: int = 2048, per: int = 192, cap: int = 393216):
+    """The slice's shape: 2,048 rays of 0-2*per samples (mean per), the rest
+    of cap padding."""
+    rng = np.random.RandomState(seed)
+    counts = rng.randint(0, 2 * per, n_rays)
+    rid = np.repeat(np.arange(n_rays), counts)[:cap]
+    return np.concatenate([rid, np.full(cap - rid.shape[0], n_rays)]).astype(np.int32), n_rays
+
+
+def _reduce_on_card(cuda, rid, x, n):
+    xd, rd = T(x).to(cuda), T(rid).to(cuda)
+    got = tseg.segment_reduce(xd, rd, n)
+    again = tseg.segment_reduce(xd, rd, n)
+    want = tseg.segment_sum_plain(xd, rd, n)
+    scale = tseg.segment_sum_plain(xd.abs(), rd, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def _scan_on_card(cuda, rid, x, n):
+    xd = T(x).to(cuda)
+    tf = tseg.first_flags_from_ray_id(T(rid).to(cuda), n)
+    for exclusive in (True, False):
+        for reverse in (False, True):
+            got = tseg.segment_scan(xd, tf, exclusive, reverse)
+            again = tseg.segment_scan(xd, tf, exclusive, reverse)
+            want = tseg.segment_cumsum_plain(xd, tf, exclusive, reverse)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [0, 1, 6, 16])
+def test_k10_matches_plain_at_the_step_shape(cuda, c):
+    rid, n = step_case(c)
+    x = np.random.RandomState(c).uniform(-1, 2, rid.shape + ((c,) if c else ())).astype(np.float32)
+    _reduce_on_card(cuda, rid, x, n)
+
+
+@pytest.mark.cuda
+def test_k11_matches_plain_at_the_step_shape(cuda):
+    rid, n = step_case(20)
+    x = np.random.RandomState(21).uniform(0.0, 2.0, rid.shape).astype(np.float32)
+    _scan_on_card(cuda, rid, x, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_k10_k11_edge_cases(cuda, case):
+    rid, x, n = make_case(case, seed=22, c=6)
+    _reduce_on_card(cuda, rid, x, n)
+    _scan_on_card(cuda, rid, x[:, 0].copy(), n)
+
+
+@pytest.mark.cuda
+def test_k11_long_unflagged_tail(cuda):
+    """A last segment 100k rows long (the padding of a compacted buffer),
+    and a buffer with no flag at all: many windows carry into one
+    segment."""
+    rid = np.concatenate([np.repeat(np.arange(64), 100), np.full(100_000, 64)]).astype(np.int32)
+    x = np.random.RandomState(23).uniform(0.0, 1.0, rid.shape).astype(np.float32)
+    _scan_on_card(cuda, rid, x, 64)
+    _scan_on_card(cuda, np.full(70_001, 3, np.int32), x[:70_001].copy(), 3)
+
+
+@pytest.mark.cuda
+def test_functions_on_card_match_cpu(cuda):
+    """SegmentSum, SegmentCumsum and RayGather forward and backward: the
+    kernels on the card against the plain versions on the CPU."""
+    rid, n = step_case(24, n_rays=256, per=100, cap=60000)
+    rng = np.random.RandomState(25)
+    x6 = rng.uniform(-1, 1, (rid.shape[0], 6)).astype(np.float32)
+    x1 = rng.uniform(0, 1, rid.shape[0]).astype(np.float32)
+    per_ray = rng.randn(n, 16).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        a, b, p = (T(v).to(dev).requires_grad_(True) for v in (x6, x1, per_ray))
+        r = T(rid).to(dev)
+        s = tseg.segment_sum(a, r, n)
+        cs = tseg.segment_cumsum(b, tseg.first_flags_from_ray_id(r, n))
+        gat = tseg.ray_gather(p, r, n)
+        ((s * s).sum() + (cs * cs).sum() + (gat * gat.detach()).sum()).backward()
+        out[str(dev)] = [v.detach().cpu() for v in (s, cs, gat, a.grad, b.grad, p.grad)]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
