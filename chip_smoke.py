@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py                 # every phase; needs one CUDA card
     python3 chip_smoke.py --phases build,kernels   # a subset (no final line)
+    python3 chip_smoke.py --phases device,build,kernels,slice,maintain \
+        --baseline DIR    # K8 and K11 of an earlier tree (a checkout in DIR)
+                          # timed in turns beside this tree's, same inputs
 
 Phases:
   1. device  — refuse to run without CUDA; print the card, its power limit
@@ -19,15 +22,18 @@ Phases:
                that step's gradient, K4 on the step's cached encodings and
                grad-pass indices, all captured from one more step; K4 also
                at an earlier stand-in for them; K8, the traversal, at the
-               step's own rays, 2,048 uniform rays, distant origins and
-               grazing rays on a culled copy of the tree, all equal to
+               step's own rays, 2,048 uniform rays, distant origins,
+               grazing rays on a culled copy of the tree, and uniform rays
+               on the tree split to just under and just over the node
+               count K8 stages in shared memory, all equal to
                traverse_plain with the floats bit for bit; K9, the
                parallel marcher, at the step's own hits, with scale_by_dis
                flipped, eval's all-ones jitter and a degenerate warp, bit
                for bit its plain version; K10 and K11, the segment ops,
                at 2,048 uniform rays of 192 samples and at every call of
                one step, forward and backward, each launch repeated bit
-               for bit, K10 beside torch.segment_reduce). K7's and K8's
+               for bit, K10 beside torch.segment_reduce, K11 one device
+               launch a call (torch.profiler)). K7's and K8's
                bounds also have a chain term (march_case, traverse_case):
                the longest ray's dependent operations at the card's max
                SM clock.
@@ -217,11 +223,16 @@ CYCLES_PER_OP = 4
 #   node's slab, 8 more, runs beside them once its row is loaded);
 #   skip: the octant's and the child's slabs, then the skip point: > 11.
 TRAV_CHAIN = 5
-# a tree row K8 reads: center, side, child, is_leaf, trans_idx, rope
-TRAV_NODE_BYTES = 12 + 4 + 32 + 1 + 4 + 24
+# a tree row K8 reads: its node record (center, side, children, ropes,
+# is_leaf: 80 B) and its trans_idx
+TRAV_NODE_BYTES = 80 + 4
 # K8's uniform case: rays from U[-1, 1]^3, uniform directions, hit cap 64
 TRAV_UNIFORM_RAYS = 2048
 CARD = {}              # what phase_device reads of the card (max SM clock)
+# --baseline ROOT: an earlier tree's K8 (reading the tree's SoA arrays) and
+# K11 (two launches a call), built from ROOT's csrc/ and timed beside this
+# tree's on the same inputs (build_baseline)
+BASELINE = {}
 OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
                 "hash_encode_fwd", "hash_encode_bwd", "ray_march", "traverse",
@@ -422,7 +433,7 @@ def phase_build() -> None:
     log(f"[build] {len(kernels.sources())} sources -> {kernels.library_path().name} "
         f"in {time.perf_counter() - t0:.2f} s (nvcc {info['seconds']} s)")
     for line in info["ptxas"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "stack frame" in line:
             log("[build] " + line.strip())
 
 
@@ -641,6 +652,76 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
+def build_baseline(root: str) -> None:
+    """--baseline ROOT: compile ROOT's f2nerf_torch/csrc/traverse.cu and
+    segment.cu (an earlier K8, which reads the tree's six SoA arrays, and
+    an earlier K11, two launches a call) into a library of their own under
+    ROOT, with this tree's nvcc flags, for ``baseline_traverse`` and
+    ``baseline_scan``."""
+    import ctypes
+    from f2nerf_torch import kernels
+    src = os.path.join(root, "f2nerf_torch", "csrc")
+    so = os.path.join(root, "f2nerf_torch", "_build", "libf2baseline.so")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
+                    os.path.join(src, "traverse.cu"), os.path.join(src, "segment.cu")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(so)
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.f2_traverse.argtypes = [vp] * 17 + [i, i, i, vp]
+    lib.f2_segment_scan.argtypes = [vp] * 5 + [ll, i, i, vp]
+    lib.f2_traverse.restype = lib.f2_segment_scan.restype = ctypes.c_int
+    BASELINE.update(lib=lib, root=root)
+    log(f"[build] baseline K8/K11 from {src} in {time.perf_counter() - t0:.2f} s")
+
+
+def baseline_traverse(tree, rays_o, rays_d, near, far, max_hits: int,
+                      max_iters: int = 4096):
+    """The baseline's K8 on the same inputs: what ``traverse`` returns."""
+    from f2nerf_torch import kernels
+    R, H, dev = rays_o.shape[0], max_hits, rays_o.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    outs = (torch.empty((R, H), **i32), torch.empty((R, H), device=dev),
+            torch.empty((R, H), device=dev), torch.empty((R,), **i32),
+            torch.empty((R,), dtype=torch.bool, device=dev), torch.empty((R,), **i32),
+            torch.empty((), **i32))
+    ins = (tree.center, tree.side, tree.child, tree.is_leaf, tree.trans_idx, tree.rope,
+           *(x.contiguous() for x in (rays_o, rays_d, near, far)))
+    kernels.check(BASELINE["lib"].f2_traverse(
+        *(x.data_ptr() for x in ins + outs), R, H, max_iters, kernels.stream_ptr(dev)),
+        "baseline traverse")
+    return outs[:5] + outs[6:]
+
+
+def baseline_scan(x, is_first, exclusive: bool, reverse: bool):
+    """The baseline's K11 on the same inputs (its scratch: a tail and a
+    flag a window of 256 rows)."""
+    from f2nerf_torch import kernels
+    n = x.shape[0]
+    n_win = -(-n // 256)
+    x, is_first = x.contiguous(), is_first.contiguous()
+    out = torch.empty_like(x)
+    scratch = torch.empty((9 * n_win,), dtype=torch.uint8, device=x.device)
+    kernels.check(BASELINE["lib"].f2_segment_scan(
+        x.data_ptr(), is_first.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr() + 8 * n_win, n, int(exclusive), int(reverse),
+        kernels.stream_ptr(x.device)), "baseline segment_scan")
+    return out
+
+
+def device_kernels(fn) -> list:
+    """The names of the device activities (kernels, memsets) that one call
+    of fn puts on the card, in order (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type != DeviceType.CPU]
+
+
 def traverse_case(args: tuple, label: str) -> dict:
     """K8 against traverse_plain on one input (tree, rays_o, rays_d, near,
     far, max_hits[, max_iters]): hit_idx, n_hits, trunc, n_iters and each
@@ -650,8 +731,12 @@ def traverse_case(args: tuple, label: str) -> dict:
     distinct leaves emitted read once, fewer rows than the traversal
     touches) over 3.35 TB/s, and the chain, the longest ray's iterations
     (counted by the plain version) at TRAV_CHAIN dependent operations,
-    CYCLES_PER_OP cycles each at the card's max SM clock."""
+    CYCLES_PER_OP cycles each at the card's max SM clock. With --baseline,
+    the baseline's K8 runs on the same input too (held to the plain
+    version alike) and the two are timed in turns."""
     from f2nerf_torch.sampler import device as dv
+    tree = args[0]
+    smem = dv.traverse_smem_nodes(tree)
     got = dv.traverse(*args)
     k_iters = dv.traverse.last_iters
     want = dv.traverse_plain(*args)
@@ -664,24 +749,40 @@ def traverse_case(args: tuple, label: str) -> dict:
     R, H = want[0].shape
     n_hits, n_trunc, longest = int(want[3].sum()), int(want[4].sum()), int(iters.max())
     leaves = torch.unique(want[0][want[0] >= 0]).numel()
+    base = {}
+    if BASELINE:
+        old = baseline_traverse(*args)
+        torch.cuda.synchronize()
+        base["baseline_equal"] = all(bits_equal(g, w) for g, w in zip(old, want))
+        del old
     del got, want
-    ms = cuda_time(lambda: dv.traverse(*args))
+    if BASELINE:
+        t = cuda_time_turns({"kernel": lambda: dv.traverse(*args),
+                             "baseline": lambda: baseline_traverse(*args)})
+        ms, base["baseline_ms"] = t["kernel"], t["baseline"]
+    else:
+        ms = cuda_time(lambda: dv.traverse(*args))
     plain_ms = cuda_time(lambda: dv.traverse_plain(*args), reps=3)
     nbytes = R * (12 + 12 + 4 + 4) + leaves * TRAV_NODE_BYTES + R * H * 12 + R * 13 + 4
     terms = {"bytes": bound_ms(nbytes),
              "chain": longest * TRAV_CHAIN * CYCLES_PER_OP / CARD["max_sm_hz"] * 1e3}
     term = max(terms, key=terms.get)
     bound = terms[term]
-    log(f"[kernels] K8 traverse {label}: R={R}, H={H}, {n_hits} hits, {n_trunc} "
-        f"truncated, {leaves} leaves; iterations: loop {longest}, mean a ray "
+    where = f"shared memory ({smem} nodes)" if smem else \
+        f"global memory ({tree.n_nodes} nodes > {dv.TRAVERSE_SMEM_NODES})"
+    old = (f"; baseline K8 {base['baseline_ms']:.4f} ms in turns (equal to the plain "
+           f"version: {base['baseline_equal']})") if base else ""
+    log(f"[kernels] K8 traverse {label}: tree in {where}; R={R}, H={H}, {n_hits} hits, "
+        f"{n_trunc} truncated, {leaves} leaves; iterations: loop {longest}, mean a ray "
         f"{float(iters.float().mean()):.1f}; equal (floats bit for bit): {same}; "
         f"max abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound:.4f} ms by {term} (bytes {terms['bytes']:.4f}, chain {terms['chain']:.4f}; "
         f"{100 * bound / ms:.1f}% of it); {ms * 1e6 / max(longest, 1):.2f} ns an "
-        f"iteration of the longest ray; library call: none")
+        f"iteration of the longest ray; library call: none{old}")
     if not all(same.values()):
         raise AssertionError(f"traverse disagrees with traverse_plain ({label}): {same}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, **base,
+                nodes=tree.n_nodes, smem_nodes=smem,
                 bound_by="bytes" if term == "bytes" else "operations", bound_term=term,
                 bytes_ms=terms["bytes"], chain_ms=terms["chain"], longest_iters=longest,
                 mean_iters=float(iters.float().mean()), hits=n_hits, truncated=n_trunc,
@@ -780,8 +881,9 @@ def segment_reduce_case(x, ray_id, n_rays: int, label: str) -> dict:
 
 def segment_scan_case(x, is_first, exclusive: bool, reverse: bool, label: str) -> dict:
     """K11 against segment_cumsum_plain on one input: rtol/atol TOL_SCAN, a
-    repeated launch bit for bit; the median time of both. Bound: x and
-    the flags read once, the output written."""
+    repeated launch bit for bit; the median time of both. Bound: x and the
+    flags read once, the output written. With --baseline, the baseline's
+    K11 on the same input too, the two timed in turns."""
     from f2nerf_torch.ops import segment as sg
     got = sg.segment_scan(x, is_first, exclusive, reverse)
     again = sg.segment_scan(x, is_first, exclusive, reverse)
@@ -793,20 +895,35 @@ def segment_scan_case(x, is_first, exclusive: bool, reverse: bool, label: str) -
     held = bool((diff <= TOL_SCAN + TOL_SCAN * want.abs()).all())
     n = x.shape[0]
     n_seg = int(is_first.sum())
+    base = {}
+    if BASELINE:
+        old = baseline_scan(x, is_first, exclusive, reverse)
+        torch.cuda.synchronize()
+        base["baseline_max_abs_err"] = (old - want).abs().max().item() if n else 0.0
+        del old
     del got, again, want, diff
-    ms = cuda_time(lambda: sg.segment_scan(x, is_first, exclusive, reverse))
+    if BASELINE:
+        t = cuda_time_turns({
+            "kernel": lambda: sg.segment_scan(x, is_first, exclusive, reverse),
+            "baseline": lambda: baseline_scan(x, is_first, exclusive, reverse)})
+        ms, base["baseline_ms"] = t["kernel"], t["baseline"]
+    else:
+        ms = cuda_time(lambda: sg.segment_scan(x, is_first, exclusive, reverse))
     plain_ms = cuda_time(lambda: sg.segment_cumsum_plain(x, is_first, exclusive, reverse))
     bound = bound_ms(n * (4 + 1 + 4))
+    old = (f"; baseline K11 {base['baseline_ms']:.4f} ms in turns (max_abs_err "
+           f"{base['baseline_max_abs_err']:.3e})") if base else ""
     log(f"[kernels] K11 segment_scan {label}: n={n}, {n_seg} flags, exclusive "
         f"{exclusive}, reverse {reverse}: max_abs_err {err:.3e} (rtol/atol {TOL_SCAN:g}); "
-        f"repeated launch bit for bit: {repeat}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms; bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f}% of "
-        f"it); library call: none")
+        f"repeated launch bit for bit: {repeat}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms by bytes "
+        f"({100 * bound / ms:.1f}% of it); library call: none{old}")
     if not (held and repeat):
         raise AssertionError(f"segment_scan disagrees with its plain version or "
                              f"repeats differently ({label})")
     return dict(max_abs_err=err, repeat_bit_for_bit=repeat, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, n=n, flags=n_seg, exclusive=exclusive, reverse=reverse)
+                bound_ms=bound, n=n, flags=n_seg, exclusive=exclusive, reverse=reverse,
+                **base)
 
 
 def segment_uniform_rows(gen) -> list[dict]:
@@ -826,7 +943,16 @@ def segment_uniform_rows(gen) -> list[dict]:
     x = torch.rand(rid.shape, generator=gen, device=dev)
     r11 = {f"uniform_{d}_{k}": v for d, rev in (("forward", False), ("reverse", True))
            for k, v in segment_scan_case(x, first, True, rev, f"uniform {shape}").items()}
+    # one launch a call: what a forward and a reverse call put on the card
+    # (one profiler session: the profile phase's is the only other)
+    on_card = device_kernels(lambda: (sg.segment_scan(x, first, True, False),
+                                      sg.segment_scan(x, first, True, True)))
+    log(f"[kernels] K11 segment_scan: a forward and a reverse call put {on_card} on the card")
+    if len(on_card) != 2 or not all("segment_scan" in k for k in on_card):
+        raise AssertionError(f"segment_scan: expected one launch a call, got {on_card}")
+    r11["device_launches_a_call"] = len(on_card) / 2
     pick = ("max_abs_err", "ms", "plain_ms", "bound_ms")
+    scan_pick = pick + (("baseline_ms",) if BASELINE else ())
     return [dict(name="segment_reduce", route="cuda", source="f2nerf_torch/csrc/segment.cu",
                  replaces="f2nerf_tpu/ops/segment.py:23", bound_by="bytes",
                  library="torch.segment_reduce", **r10,
@@ -834,7 +960,7 @@ def segment_uniform_rows(gen) -> list[dict]:
             dict(name="segment_scan", route="cuda", source="f2nerf_torch/csrc/segment.cu",
                  replaces="f2nerf_tpu/ops/segment.py:38", bound_by="bytes",
                  library_ms=None, library=NO_LIBRARY_SCAN, **r11,
-                 **{k: r11[f"uniform_forward_{k}"] for k in pick})]
+                 **{k: r11[f"uniform_forward_{k}"] for k in scan_pick})]
 
 
 def segment_step_cases(calls: dict) -> dict:
@@ -847,7 +973,8 @@ def segment_step_cases(calls: dict) -> dict:
                      ("segment_scan", lambda a: segment_scan_case(
             *a, f"step call{' (backward)' if a[3] else ''}"))):
         rs = [fn(a) for a in calls[name]]
-        tot = {k: sum(r[k] for r in rs) for k in ("ms", "plain_ms", "bound_ms")}
+        tot = {k: sum(r[k] for r in rs) for k in ("ms", "plain_ms", "bound_ms", "baseline_ms")
+               if k in rs[0]}
         if name == "segment_reduce":
             lib = [r["library_ms"] for r in rs]
             tot["library_ms"] = None if None in lib else sum(lib)
@@ -856,6 +983,7 @@ def segment_step_cases(calls: dict) -> dict:
         log(f"[kernels] {name} at one slice step's {len(rs)} calls: kernel "
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
             f"{tot['bound_ms']:.4f} ms a step"
+            + (f", baseline {tot['baseline_ms']:.4f} ms" if "baseline_ms" in tot else "")
             + (f", torch.segment_reduce {tot['library_ms']} ms" if "library_ms" in tot
                else ""))
     return out
@@ -871,6 +999,26 @@ def uniform_rays(gen, R: int, lo: float = -1.0, hi: float = 1.0):
     return o, d / dv.norm3(d)[:, None]
 
 
+def tree_near_cap(host, over: bool):
+    """A copy of the host tree split (proc_octree, no compaction) until its
+    node count lies just under K8's shared-memory cap (over=False: staged
+    in shared memory) or just over it (read from global memory): every
+    valid leaf split 8 ways while that stays under the cap, then the first
+    k valid leaves, marked as visited."""
+    from f2nerf_torch.sampler import device as dv
+    from f2nerf_torch.sampler import octree as oc
+    cap = dv.TRAVERSE_SMEM_NODES
+    base = oc.proc_octree(host, False, False, False)      # the nodes a split keeps
+
+    def valid_leaves(t):
+        return np.nonzero(t.is_leaf & (t.trans_idx >= 0))[0]
+    while base.n_nodes + 8 * len(valid_leaves(base)) <= cap:
+        base = oc.proc_octree(base, False, True, True)
+    k = (cap - base.n_nodes) // 8 + (1 if over else 0)
+    base.visit_cnt[valid_leaves(base)[:k]] = 5
+    return oc.proc_octree(base, False, True, False)
+
+
 def traverse_extra_cases(tr, near: float) -> dict:
     """K8 on the trainer's tree beyond the step's inputs:
       uniform  — TRAV_UNIFORM_RAYS rays from U[-1, 1]^3, hit cap 64;
@@ -879,7 +1027,10 @@ def traverse_extra_cases(tr, near: float) -> dict:
                  tests/test_torch_sampler.py's distant-origin case);
       grazing  — a copy of the tree with 60% of its valid leaves culled,
                  rays nearly parallel to a face of a culled leaf, 600
-                 iterations at most (that file's grazing case)."""
+                 iterations at most (that file's grazing case);
+      under_cap, over_cap — the uniform rays on the tree split to just
+                 under and just over K8's shared-memory cap
+                 (``tree_near_cap``): the two memory paths."""
     from f2nerf_torch.sampler import device as dv
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -920,6 +1071,17 @@ def traverse_extra_cases(tr, near: float) -> dict:
          torch.full((n,), near, device=dev),
          torch.full((n,), 1e8, device=dev), 64, 600),
         f"{n} grazing rays, 60% of the leaves culled, 600 iterations at most")
+    o, d = uniform_rays(gen, R)
+    for key, over in (("under_cap", False), ("over_cap", True)):
+        host_k = tree_near_cap(host, over)
+        tree_k = dv.to_device_tree(host_k, tr.max_nodes, tr.max_trans, tr.max_edges,
+                                   device=DEV)
+        if (dv.traverse_smem_nodes(tree_k) > 0) == over:
+            raise AssertionError(f"{key}: {host_k.n_nodes} nodes on the wrong side of "
+                                 f"the cap {dv.TRAVERSE_SMEM_NODES}")
+        out[key] = traverse_case((tree_k, o, d, torch.full((R,), near, device=dev), full, 64),
+                                 f"{R} uniform rays, {host_k.n_nodes} nodes "
+                                 f"({key.replace('_', ' ')})")
     return out
 
 
@@ -1150,7 +1312,7 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
                      replaces="f2nerf_tpu/sampler/device.py:231", library_ms=None,
                      library=NO_LIBRARY_TRAVERSE, **{f"slice_{k}": v for k, v in r8.items()},
                      **{k: r8[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                           "bound_by")}))
+                                           "bound_by", "baseline_ms") if k in r8}))
     rows.append(dict(name="ray_march_parallel", route="cuda",
                      source="f2nerf_torch/csrc/march_parallel.cu",
                      replaces="f2nerf_tpu/sampler/device.py:547", library_ms=None,
@@ -1176,7 +1338,8 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
     for r in rows:
         new = at_slice.get(r["name"])
         if new is not None:
-            r.update({k: new[k] for k in ("ms", "plain_ms", "bound_ms")},
+            r.update({k: new[k] for k in ("ms", "plain_ms", "bound_ms", "baseline_ms")
+                      if k in new},
                      max_abs_err=max(r["max_abs_err"], new["max_abs_err"]),
                      **{f"slice_{k}": v for k, v in new.items()})
             if "library_ms" in new:
@@ -2681,6 +2844,10 @@ def phase_data_parallel(tmp: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--baseline", default=None, metavar="ROOT",
+                    help="a checkout of an earlier tree: its K8 and K11 (the SoA "
+                         "traversal, the two-launch scan) built from ROOT's csrc/ "
+                         "and timed in turns beside this tree's on the same inputs")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     full = set(phases) == set(PHASES)
@@ -2696,6 +2863,8 @@ def main(argv=None) -> int:
     dev_info = timed("device", phase_device)   # raises without CUDA, before any result
     if "build" in phases:
         timed("build", phase_build)
+        if args.baseline:
+            build_baseline(args.baseline)
     rows = timed("kernels", phase_kernels) if "kernels" in phases else []
     launches = {}
     paths = {}            # each further path's launches, by its key in the rows

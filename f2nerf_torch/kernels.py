@@ -48,10 +48,10 @@ _SIGNATURES = {
     "f2_hash3d_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     "f2_hash3d_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     "f2_ray_march_lockstep": [_vp] * 16 + [_i, _i, _i, _i, _f, _i, _vp],
-    "f2_traverse": [_vp] * 17 + [_i, _i, _i, _vp],
+    "f2_traverse": [_vp] * 13 + [_i, _i, _i, _i, _vp],
     "f2_ray_march_parallel": [_vp] * 18 + [_i, _i, _i, _f, _i, _vp],
     "f2_segment_reduce": [_vp, _vp, _vp, _ll, _i, _i, _vp],
-    "f2_segment_scan": [_vp] * 5 + [_ll, _i, _i, _vp],
+    "f2_segment_scan": [_vp] * 4 + [_ll, _i, _i, _vp],
 }
 
 

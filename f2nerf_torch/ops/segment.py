@@ -10,8 +10,8 @@ step on the card gives the same bits on every run:
     (``segment_reduce``), backward the gather of each ray's gradient to its
     samples (zeros on padding);
   * ``segment_cumsum`` (``SegmentCumsum``): the segmented prefix sum;
-    kernel K11 (``segment_scan``), backward K11 in reverse over the same
-    segments;
+    kernel K11 (``segment_scan``, one launch a call), backward K11 in
+    reverse over the same segments;
   * ``ray_gather`` (``RayGather``): ``x[ray_id]`` for x [n_rays, ...],
     zeros on padding; backward K10;
   * ``local_index``: K11 over ones.
@@ -114,7 +114,30 @@ def segment_reduce(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int) -> torch.
 
 segment_reduce.launches = 0
 
-_SCAN_WINDOW = 256        # csrc/segment.cu kWin: rows a warp scans
+SCAN_TILE_ROWS = 2048     # csrc/segment.cu kTileRows: rows a block of K11 scans
+SCAN_TILE_BYTES = 16      # a tile's published aggregate (and the counters' slot)
+_scan_states: dict = {}
+
+
+def scan_state_bytes(n: int) -> int:
+    """Bytes of K11's state for n rows: the ticket and done counters (one
+    16-byte slot), then one 16-byte aggregate a tile of SCAN_TILE_ROWS."""
+    return SCAN_TILE_BYTES * (1 + -(-n // SCAN_TILE_ROWS))
+
+
+def scan_state(device, stream: int, n: int) -> torch.Tensor:
+    """K11's state for n rows on (device, stream): a uint8 buffer, zeroed
+    once when allocated; every launch leaves it zero again (its last block
+    resets the counters and flags), so it is kept and reused, one a device
+    and stream (launches on one stream run in order). It grows to the next
+    power of two of bytes when a call needs more."""
+    key = (str(device), stream)
+    st = _scan_states.get(key)
+    need = scan_state_bytes(n)
+    if st is None or st.numel() < need:
+        st = torch.zeros((1 << (need - 1).bit_length(),), dtype=torch.uint8, device=device)
+        _scan_states[key] = st
+    return st
 
 
 def segment_scan(x: torch.Tensor, is_first: torch.Tensor, exclusive: bool = True,
@@ -122,8 +145,9 @@ def segment_scan(x: torch.Tensor, is_first: torch.Tensor, exclusive: bool = True
     """Segmented prefix sum of x [cap] (``segment_cumsum_plain``'s function:
     segments start at ``is_first`` [cap] bool, exclusive or inclusive,
     forward or reverse), summed in float64. CPU tensors take
-    ``segment_cumsum_plain``; CUDA tensors launch K11 (its two kernels: the
-    windows' tails, then each window's scan from its carry)."""
+    ``segment_cumsum_plain``; CUDA tensors launch K11 (one launch: a block a
+    tile of SCAN_TILE_ROWS rows, each tile's carry from the earlier tiles'
+    published aggregates in a fixed order)."""
     if x.device.type == "cpu":
         return segment_cumsum_plain(x, is_first, exclusive, reverse)
     _check_cuda("segment_scan", x, is_first, torch.bool)
@@ -135,13 +159,11 @@ def segment_scan(x: torch.Tensor, is_first: torch.Tensor, exclusive: bool = True
     out = torch.empty_like(x)
     if n == 0:
         return out
-    n_win = -(-n // _SCAN_WINDOW)
-    # each window's tail (f64), then whether a segment starts in it (u8)
-    scratch = torch.empty((9 * n_win,), dtype=torch.uint8, device=x.device)
+    stream = kernels.stream_ptr(x.device)
+    state = scan_state(x.device, stream, n)
     code = kernels.library().f2_segment_scan(
-        x.data_ptr(), is_first.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        scratch.data_ptr() + 8 * n_win, n, int(exclusive), int(reverse),
-        kernels.stream_ptr(x.device))
+        x.data_ptr(), is_first.data_ptr(), out.data_ptr(), state.data_ptr(), n,
+        int(exclusive), int(reverse), stream)
     kernels.check(code, "segment_scan")
     segment_scan.launches += 1
     return out

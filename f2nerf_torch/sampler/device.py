@@ -3,8 +3,9 @@
 
   * ``traverse`` — the rope traversal (FindRayOctreeIntersectionKernel,
     PersSampler.cu:53-152, redesigned): kernel K8 (csrc/traverse.cu, one
-    thread a ray) on the card, ``traverse_plain`` (a lockstep torch loop
-    over all rays, one host sync an iteration) on the CPU. Both keep the
+    thread a ray over the packed node records, the tree staged in shared
+    memory when it fits) on the card, ``traverse_plain`` (a lockstep torch
+    loop over all rays, one host sync an iteration) on the CPU. Both keep the
     JAX package's ulp-floored eps, the no-progress and skip-stall
     escalations and ``trunc`` exactly, and return the loop's iteration
     count as a 0-d device tensor.
@@ -23,7 +24,10 @@
 
 The tree lives on the device as a dataclass of fixed-capacity padded
 tensors (``DeviceTree``). Index tensors are int32 as in the JAX package
-and widened to int64 where torch indexes with them.
+and widened to int64 where torch indexes with them. ``node_rec`` packs
+each node's center, side, children, ropes and is_leaf into one 80-byte
+row for K8 (``pack_node_records``); it is built with the tree and never
+changes after (``trans_idx``, which culling rewrites, stays out of it).
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ class DeviceTree:
     is_leaf: torch.Tensor     # [N] bool (padding reads as a leaf)
     trans_idx: torch.Tensor   # [N] i32 (mutated by occupancy culling)
     rope: torch.Tensor        # [N, 6] i32 face neighbors (-1 = border)
+    node_rec: torch.Tensor    # [N, 20] i32 K8's node records (pack_node_records)
     weight_stats: torch.Tensor  # [N] i32
     alpha_stats: torch.Tensor   # [N] i32
     visit_cnt: torch.Tensor     # [N] i32
@@ -70,12 +75,33 @@ class DeviceTree:
     edge_dir0: torch.Tensor   # [E, 3]
     edge_dir1: torch.Tensor   # [E, 3]
     n_edges: int
+    n_nodes: int              # the host tree's nodes (rows [0, n_nodes) are real)
 
 
 def _pad(x: np.ndarray, n: int, fill=0):
     out = np.full((n,) + x.shape[1:], fill, x.dtype)
     out[: x.shape[0]] = x
     return out
+
+
+# node record columns (int32; center and side as their f32 bits): 0:3
+# center, 3 side, 4:12 children, 12:18 ropes, 18 is_leaf, 19 zero. Five
+# 16-byte vectors, so K8 fetches a node in one round of vector loads.
+NODE_REC_W = 20
+
+
+def pack_node_records(center: np.ndarray, side: np.ndarray, child: np.ndarray,
+                      rope: np.ndarray, is_leaf: np.ndarray) -> np.ndarray:
+    """K8's node records [N, NODE_REC_W] int32 from the padded node arrays
+    (the same rows as the JAX package's traversal pack, ``_pack_nodes``,
+    without trans_idx and the children's boxes)."""
+    rec = np.zeros((center.shape[0], NODE_REC_W), np.int32)
+    rec[:, 0:3] = np.ascontiguousarray(center, np.float32).view(np.int32)
+    rec[:, 3] = np.ascontiguousarray(side, np.float32).view(np.int32)
+    rec[:, 4:12] = child
+    rec[:, 12:18] = rope
+    rec[:, 18] = is_leaf
+    return rec
 
 
 def to_device_tree(tree: OctreeHost, max_nodes: int, max_trans: int,
@@ -89,13 +115,19 @@ def to_device_tree(tree: OctreeHost, max_nodes: int, max_trans: int,
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
 
+    center = _pad(tree.center, max_nodes)
+    side = _pad(tree.side, max_nodes)
+    child = _pad(tree.childs, max_nodes, -1)
+    is_leaf = _pad(tree.is_leaf.astype(np.int8), max_nodes, 1) > 0
+    rope = _pad(build_ropes(tree), max_nodes, -1)
     return DeviceTree(
-        center=t(_pad(tree.center, max_nodes)),
-        side=t(_pad(tree.side, max_nodes)),
-        child=t(_pad(tree.childs, max_nodes, -1)),
-        is_leaf=t(_pad(tree.is_leaf.astype(np.int8), max_nodes, 1) > 0),
+        center=t(center),
+        side=t(side),
+        child=t(child),
+        is_leaf=t(is_leaf),
         trans_idx=t(_pad(tree.trans_idx, max_nodes, -1)),
-        rope=t(_pad(build_ropes(tree), max_nodes, -1)),
+        rope=t(rope),
+        node_rec=t(pack_node_records(center, side, child, rope, is_leaf)),
         weight_stats=t(_pad(tree.weight_stats, max_nodes)),
         alpha_stats=t(_pad(tree.alpha_stats, max_nodes)),
         visit_cnt=t(_pad(tree.visit_cnt, max_nodes)),
@@ -108,6 +140,7 @@ def to_device_tree(tree: OctreeHost, max_nodes: int, max_trans: int,
         edge_dir0=t(_pad(tree.edge_dir0, max_edges)),
         edge_dir1=t(_pad(tree.edge_dir1, max_edges)),
         n_edges=int(tree.edge_t.shape[0]),
+        n_nodes=int(tree.n_nodes),
     )
 
 
@@ -322,6 +355,19 @@ def traverse_plain(tree: DeviceTree, rays_o: torch.Tensor, rays_d: torch.Tensor,
 traverse_plain.last_iters = None
 
 
+# csrc/traverse.cu: a node takes 84 bytes of shared memory (its record and
+# its trans_idx), and a block may hold 232,448 bytes; a tree of at most this
+# many nodes is staged there, a larger one read from global memory
+TRAVERSE_NODE_BYTES = 84
+TRAVERSE_SMEM_NODES = 232448 // TRAVERSE_NODE_BYTES
+
+
+def traverse_smem_nodes(tree: DeviceTree) -> int:
+    """The nodes K8 stages into shared memory for this tree: all of them
+    if they fit, else 0 (the tree is read from global memory)."""
+    return tree.n_nodes if tree.n_nodes <= TRAVERSE_SMEM_NODES else 0
+
+
 def traverse(tree: DeviceTree, rays_o: torch.Tensor, rays_d: torch.Tensor,
              near: torch.Tensor, far: torch.Tensor, max_hits: int,
              max_iters: int = 4096):
@@ -337,29 +383,27 @@ def traverse(tree: DeviceTree, rays_o: torch.Tensor, rays_d: torch.Tensor,
     ``trunc`` marks rays whose traversal was cut short (hit buffer full or
     max_iters reached). ``n_iters`` is the loop's iteration count (the
     most iterations any ray took), a 0-d device tensor: no caller has to
-    sync. CPU tensors take the plain version; CUDA tensors launch K8
-    (``traverse.last_iters``: each ray's iterations, [R] int32)."""
+    sync. CPU tensors take the plain version; CUDA tensors launch K8 over
+    ``tree.node_rec`` and ``tree.trans_idx`` (``traverse.last_iters``:
+    each ray's iterations, [R] int32)."""
     if rays_o.device.type == "cpu":
         return traverse_plain(tree, rays_o, rays_d, near, far, max_hits, max_iters)
     if rays_o.device.type != "cuda":
         raise ValueError(f"traverse: unsupported device {rays_o.device}")
     R, H = rays_o.shape[0], max_hits
-    if any(x.dtype != torch.float32 for x in (rays_o, rays_d, near, far, tree.center,
-                                               tree.side)):
-        raise ValueError("traverse: rays, near, far and the tree's center and side "
-                         "must be float32")
-    if any(x.dtype != torch.int32 for x in (tree.child, tree.trans_idx, tree.rope)) \
-            or tree.is_leaf.dtype != torch.bool:
-        raise ValueError("traverse: child, trans_idx and rope must be int32, "
-                         "is_leaf bool")
+    if any(x.dtype != torch.float32 for x in (rays_o, rays_d, near, far)):
+        raise ValueError("traverse: rays, near and far must be float32")
+    if tree.node_rec.dtype != torch.int32 or tree.trans_idx.dtype != torch.int32:
+        raise ValueError("traverse: node_rec and trans_idx must be int32")
     if tuple(rays_o.shape) != (R, 3) or tuple(rays_d.shape) != (R, 3) \
             or tuple(near.shape) != (R,) or tuple(far.shape) != (R,) \
-            or tree.child.shape[1:] != (8,) or tree.rope.shape[1:] != (6,) or H < 1:
+            or tree.node_rec.shape[1:] != (NODE_REC_W,) or H < 1 \
+            or not 0 < tree.n_nodes <= min(tree.node_rec.shape[0], tree.trans_idx.shape[0]):
         raise ValueError(f"traverse: shapes rays {tuple(rays_o.shape)}, near "
-                         f"{tuple(near.shape)}, far {tuple(far.shape)}, hit cap {H}")
+                         f"{tuple(near.shape)}, far {tuple(far.shape)}, hit cap {H}, "
+                         f"node_rec {tuple(tree.node_rec.shape)}, n_nodes {tree.n_nodes}")
     ins = [x.contiguous() for x in (rays_o, rays_d, near, far)]
-    nodes = (tree.center, tree.side, tree.child, tree.is_leaf, tree.trans_idx, tree.rope)
-    kernels.require_cuda("traverse", *ins, *nodes)
+    kernels.require_cuda("traverse", *ins, tree.node_rec, tree.trans_idx)
     dev = rays_o.device
     i32 = dict(dtype=torch.int32, device=dev)
     hit_idx = torch.empty((R, H), **i32)
@@ -370,10 +414,10 @@ def traverse(tree: DeviceTree, rays_o: torch.Tensor, rays_d: torch.Tensor,
     iters = torch.empty((R,), **i32)
     n_iters = torch.empty((), **i32)
     code = kernels.library().f2_traverse(
-        *(x.data_ptr() for x in nodes), *(x.data_ptr() for x in ins),
+        tree.node_rec.data_ptr(), tree.trans_idx.data_ptr(), *(x.data_ptr() for x in ins),
         *(x.data_ptr() for x in (hit_idx, hit_near, hit_far, n_hits, trunc, iters,
                                  n_iters)),
-        R, H, max_iters, kernels.stream_ptr(dev))
+        traverse_smem_nodes(tree), R, H, max_iters, kernels.stream_ptr(dev))
     kernels.check(code, "traverse")
     if R > 0:
         traverse.launches += 1

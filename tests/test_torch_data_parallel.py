@@ -49,7 +49,7 @@ from f2nerf_torch.parallel import data_parallel as tdp
 from f2nerf_torch.train import trainer as ttr
 from f2nerf_torch.utils.parity import STEP_TOL, step_agrees, step_errors
 from f2nerf_torch.utils.tree import named_leaves
-from tests.test_torch_train_step import OCC, jax_draws
+from test_torch_train_step import OCC, jax_draws
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFS = os.path.join(REPO, "confs")

@@ -18,8 +18,16 @@ Tolerances:
   * gathers' forward and local_index: exact;
   * on the card, K10 against index_add: |diff| <= 1e-5 of the ray's sum of
     |x| (both f32, other orders); K11 against the plain f64 cumsum: rtol
-    1e-6, atol 1e-6 (both sum in f64 and round once to f32, so they differ
-    by an f32 ulp at most); the same launch twice: the same bits.
+    1e-6, atol 1e-6 (chip_smoke.py's TOL_SCAN: both sum in f64 and round
+    once to f32, so they differ by an f32 ulp at most); the same launch
+    twice: the same bits, also 20 times over while another stream keeps
+    the card busy.
+
+K11 runs a block a tile of 2,048 rows in one launch; its state (two
+counters and a published aggregate a tile) is kept zeroed between calls,
+one buffer a device and stream (``scan_state``). On the card its cases
+include n = 1, exactly one tile, one tile and a row, no flag at all and
+100k+ padding rows.
 """
 
 import jax
@@ -227,6 +235,29 @@ def test_wrappers_refuse_other_devices():
         tseg.segment_scan(x, torch.zeros(8, dtype=torch.bool, device="meta"))
 
 
+def test_scan_state_sizes_and_reuse():
+    """K11's state: a 16-byte slot for the counters, then 16 bytes a tile
+    of SCAN_TILE_ROWS rows; allocated zeroed at a power of two of bytes,
+    reused for calls that fit, grown for one that does not, one buffer a
+    (device, stream)."""
+    tile = tseg.SCAN_TILE_ROWS
+    assert tile == 2048
+    assert [tseg.scan_state_bytes(n) for n in (1, tile, tile + 1, 262144, 393216)] == \
+        [32, 32, 48, 16 * 129, 16 * 193]
+    before = dict(tseg._scan_states)
+    try:
+        a = tseg.scan_state("cpu", 11, tile + 1)
+        assert a.dtype == torch.uint8 and a.numel() == 64 and not a.any()
+        assert tseg.scan_state("cpu", 11, 5) is a
+        b = tseg.scan_state("cpu", 11, 262144)
+        assert b is not a and b.numel() == 4096 >= tseg.scan_state_bytes(262144)
+        assert tseg.scan_state("cpu", 11, tile) is b
+        assert tseg.scan_state("cpu", 12, tile) is not b
+    finally:
+        tseg._scan_states.clear()
+        tseg._scan_states.update(before)
+
+
 # ----------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -301,6 +332,62 @@ def test_k11_long_unflagged_tail(cuda):
     x = np.random.RandomState(23).uniform(0.0, 1.0, rid.shape).astype(np.float32)
     _scan_on_card(cuda, rid, x, 64)
     _scan_on_card(cuda, np.full(70_001, 3, np.int32), x[:70_001].copy(), 3)
+
+
+def tile_edge_case(name: str):
+    """(ray_id, x, n_rays) at K11's edges: one row, exactly one tile, one
+    tile and a row, no flag at all, and 120k padding rows after the rays."""
+    rng = np.random.RandomState(26)
+    tile = tseg.SCAN_TILE_ROWS
+    if name == "no_flag":
+        rid = np.full(3 * tile + 17, 5)
+    elif name == "padding":
+        rid = np.concatenate([np.repeat(np.arange(100), rng.randint(0, 40, 100)),
+                              np.full(120_000, 100)])
+    else:
+        n = {"n1": 1, "one_tile": tile, "tile_plus_1": tile + 1}[name]
+        rid = np.sort(rng.randint(0, 5 if n == 1 else n // 7, n))
+    n_rays = int(rid.max()) if name in ("no_flag", "padding") else int(rid.max()) + 1
+    x = rng.uniform(0.0, 2.0, rid.shape).astype(np.float32)
+    return rid.astype(np.int32), x, n_rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["n1", "one_tile", "tile_plus_1", "no_flag", "padding"])
+def test_k11_tile_edges(cuda, name):
+    rid, x, n = tile_edge_case(name)
+    if name == "no_flag":
+        assert not tseg.first_flags_from_ray_id(T(rid), n).any()
+    _scan_on_card(cuda, rid, x, n)
+
+
+@pytest.mark.cuda
+def test_k11_repeats_while_another_stream_is_busy(cuda):
+    """20 launches at the step's shape while a second stream runs a long
+    kernel: the same bits every time (no order depends on timing), one
+    launch a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rid, n = step_case(27, per=64, cap=262144)
+    xd = T(np.random.RandomState(28).uniform(0.0, 1.0, rid.shape).astype(np.float32)).to(cuda)
+    tf = tseg.first_flags_from_ray_id(T(rid).to(cuda), n)
+    want = tseg.segment_scan(xd, tf)
+    side = torch.cuda.Stream()
+    outs = []
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)              # ~0.1 s of the side stream
+    for _ in range(20):
+        outs.append(tseg.segment_scan(xd, tf))
+    torch.cuda.synchronize()
+    for o in outs:
+        assert torch.equal(o.view(torch.int32), want.view(torch.int32))
+    torch.testing.assert_close(want, tseg.segment_cumsum_plain(xd, tf), rtol=1e-6, atol=1e-6)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tseg.segment_scan(xd, tf)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type != DeviceType.CPU]
+    assert len(on_card) == 1 and "segment_scan" in on_card[0], on_card
 
 
 @pytest.mark.cuda

@@ -11,13 +11,21 @@ properties that let K8 run a thread a ray and K9 a block a ray. The
 wrappers dispatch by device (CPU: the plain version; any other device but
 CUDA raises), and the Trainer's metrics carry ``trav_iters`` as an int.
 
+K8's node records (``DeviceTree.node_rec``) hold exactly the center,
+side, child, rope and is_leaf columns of the JAX package's traversal pack
+(``_pack_nodes``) of the same host tree; the Trainer keeps them through
+occupancy culling, rebuilds them after maintenance and on load, and
+never writes them to a checkpoint. Which trees K8 stages in shared memory
+follows its cap (``TRAVERSE_SMEM_NODES``).
+
 On the card (``cuda`` marker, skipped without one): K8 against
 ``traverse_plain`` on uniform rays, the subdivided tree, the JAX suite's
-brute-force, distant-origin and grazing cases, with hit_idx, n_hits,
-trunc, n_iters and each ray's iterations equal and hit_near / hit_far
-bitwise equal; K9 against ``ray_march_parallel_plain`` with scale_by_dis
-on and off, eval's all-ones jitter and the degenerate-hit tree, every
-output bitwise equal. Each wrapper launches its kernel once a call.
+brute-force, distant-origin and grazing cases, and trees just under and
+just over the shared-memory cap, with hit_idx, n_hits, trunc, n_iters and
+each ray's iterations equal and hit_near / hit_far bitwise equal; K9
+against ``ray_march_parallel_plain`` with scale_by_dis on and off, eval's
+all-ones jitter and the degenerate-hit tree, every output bitwise equal.
+Each wrapper launches its kernel once a call.
 """
 
 import copy
@@ -28,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from f2nerf_tpu.sampler import device as jdv
 from f2nerf_tpu.sampler import octree as joc
 from f2nerf_torch.sampler import device as tdv
 from f2nerf_torch.sampler import octree as toc
@@ -61,15 +70,58 @@ def rig_host():
 
 
 @pytest.fixture(scope="module")
-def hosts(rig_host):
-    """The rig's tree and the same tree after two brute-force
-    subdivisions (10,545 nodes, as tests/test_torch_march.py builds it),
-    each as the port's host tree with its capacities."""
+def jax_hosts(rig_host):
+    """The rig's JAX host tree and the same tree after two brute-force
+    subdivisions (10,545 nodes, as tests/test_torch_march.py builds it)."""
     sub = copy.deepcopy(rig_host)
     for _ in range(2):
         sub = joc._proc_octree_np(sub, True, True, True)
-    return {"rig": (octree_from_fields(rig_host), CAPS),
-            "subdivided": (octree_from_fields(sub), SUB_CAPS)}
+    return {"rig": rig_host, "subdivided": sub}
+
+
+@pytest.fixture(scope="module")
+def hosts(jax_hosts):
+    """The trees of ``jax_hosts`` as the port's host trees, each with its
+    capacities."""
+    return {"rig": (octree_from_fields(jax_hosts["rig"]), CAPS),
+            "subdivided": (octree_from_fields(jax_hosts["subdivided"]), SUB_CAPS)}
+
+
+def tree_near_cap(host, over: bool):
+    """A copy of the host tree split (the port's proc_octree, no
+    compaction) until its node count lies just under K8's shared-memory cap
+    (over=False) or just over it: every valid leaf split 8 ways while that
+    stays under the cap, then the first k valid leaves, marked as visited
+    (chip_smoke.py's case of the same name)."""
+    cap = tdv.TRAVERSE_SMEM_NODES
+    base = toc.proc_octree(host, False, False, False)
+
+    def valid_leaves(t):
+        return np.nonzero(t.is_leaf & (t.trans_idx >= 0))[0]
+    while base.n_nodes + 8 * len(valid_leaves(base)) <= cap:
+        base = toc.proc_octree(base, False, True, True)
+    k = (cap - base.n_nodes) // 8 + (1 if over else 0)
+    base.visit_cnt[valid_leaves(base)[:k]] = 5
+    return toc.proc_octree(base, False, True, False)
+
+
+def jax_pack(host, max_nodes):
+    """The JAX package's traversal pack of the same host tree
+    (``_pack_nodes``, with the JAX package's own ropes)."""
+    jh = joc.OctreeHost(**copy.deepcopy(vars(host)))
+    return jdv._pack_nodes(jh, jdv._pad(joc.build_ropes(jh), max_nodes, -1), max_nodes)
+
+
+def assert_records_match_pack(rec: torch.Tensor, pack: np.ndarray):
+    """Center and side bit for bit, children, ropes and is_leaf exactly;
+    the pad column zero."""
+    rec = rec.numpy()
+    assert rec.shape == (pack.shape[0], tdv.NODE_REC_W) and rec.dtype == np.int32
+    np.testing.assert_array_equal(rec[:, 0:4], np.ascontiguousarray(pack[:, 0:4]).view(np.int32))
+    np.testing.assert_array_equal(rec[:, 4:12], pack[:, 12:20].astype(np.int32))
+    np.testing.assert_array_equal(rec[:, 12:18], pack[:, 6:12].astype(np.int32))
+    np.testing.assert_array_equal(rec[:, 18], pack[:, 4].astype(np.int32))
+    assert not rec[:, 19].any()
 
 
 def rays(seed, n, spread=2.0):
@@ -222,6 +274,65 @@ def test_wrappers_refuse_other_devices(hosts):
                                SAMPLE_L, False, 16)
 
 
+# ------------------------------------------------------- CPU: K8's records
+
+@pytest.mark.parametrize("kind", ["rig", "subdivided"])
+def test_node_records_match_jax_pack(jax_hosts, hosts, kind):
+    host, caps = hosts[kind]
+    tree = tdv.to_device_tree(host, *caps)
+    assert tree.n_nodes == host.n_nodes
+    assert_records_match_pack(tree.node_rec, jax_pack(jax_hosts[kind], caps[0]))
+
+
+def test_shared_memory_cap_sides(hosts):
+    """The rig's tree is staged in shared memory whole, the subdivided one
+    is read from global memory; trees split to just under and just over
+    the cap fall on their sides."""
+    rig, sub = (tdv.to_device_tree(hosts[k][0], *hosts[k][1]) for k in ("rig", "subdivided"))
+    assert tdv.traverse_smem_nodes(rig) == rig.n_nodes > 0
+    assert sub.n_nodes > tdv.TRAVERSE_SMEM_NODES and tdv.traverse_smem_nodes(sub) == 0
+    under, over = (tree_near_cap(hosts["rig"][0], o) for o in (False, True))
+    assert tdv.TRAVERSE_SMEM_NODES - 8 < under.n_nodes <= tdv.TRAVERSE_SMEM_NODES
+    assert tdv.TRAVERSE_SMEM_NODES < over.n_nodes <= tdv.TRAVERSE_SMEM_NODES + 8
+    assert tdv.TRAVERSE_SMEM_NODES * tdv.TRAVERSE_NODE_BYTES <= 232448
+
+
+def test_trainer_keeps_node_records_current(tmp_path):
+    """The records ride unchanged through the steps' occupancy culling
+    (the same tensor), are rebuilt when maintenance changes the tree and
+    when a checkpoint is loaded, and are not in the checkpoint."""
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.config import compose
+    from f2nerf_torch.utils.synthetic import TINY_OVERRIDES, write_ball_dataset
+
+    cfg = compose(os.path.join(REPO, "confs"), "wanjinyou",
+                  list(TINY_OVERRIDES) + ["+train.data_parallel=off",
+                                          "pts_sampler.compact_freq=100",
+                                          "pts_sampler.sub_div_milestones=[2]"])
+    data = write_ball_dataset(str(tmp_path / "ball"))
+    tr = Trainer(cfg, str(tmp_path / "exp"), data, seed=2022, device="cpu")
+
+    def current(t):
+        assert t.tree.n_nodes == t.tree_host.n_nodes
+        assert_records_match_pack(t.tree.node_rec, jax_pack(t.tree_host, t.max_nodes))
+
+    current(tr)
+    rec, trans = tr.tree.node_rec, tr.tree.trans_idx
+    tr.train_one()                       # no maintenance: culling only
+    assert tr.tree.node_rec is rec and tr.tree.trans_idx is not trans
+    n0 = tr.tree.n_nodes
+    tr.train_one()                       # the milestone subdivides
+    assert tr.tree.n_nodes > n0 and tr.tree.node_rec is not rec
+    current(tr)
+    tr.save_checkpoint()
+    with np.load(os.path.join(tr.base_exp_dir, "checkpoints", "latest", "state.npz")) as z:
+        assert not [k for k in z.files if "rec" in k]
+    back = Trainer(cfg, str(tmp_path / "exp2"), data, seed=7, device="cpu")
+    back.load_checkpoint(os.path.join(tr.base_exp_dir, "checkpoints", "latest"))
+    current(back)
+    assert torch.equal(back.tree.node_rec, tr.tree.node_rec)
+
+
 # ------------------------------------------------------------ CPU: K9's plain
 
 @pytest.mark.parametrize("kind,scale_by_dis,ones", [
@@ -312,6 +423,16 @@ def k8_against_plain(host, caps, case, dev, max_hits=64, max_iters=4096):
 def test_k8_uniform_rays_on_card(cuda, hosts, kind, seed, n, max_hits):
     host, caps = hosts[kind]
     got = k8_against_plain(host, caps, rays(seed, n), cuda, max_hits)
+    assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [False, True])
+def test_k8_either_side_of_the_shared_memory_cap(cuda, hosts, over):
+    """Trees split to just under the cap (staged in shared memory) and just
+    over it (read from global memory)."""
+    host = tree_near_cap(hosts["rig"][0], over)
+    got = k8_against_plain(host, SUB_CAPS, rays(13, 2048), cuda)
     assert int(got[3].sum()) > 0
 
 
