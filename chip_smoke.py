@@ -3,7 +3,7 @@
     python3 chip_smoke.py                 # every phase; needs one CUDA card
     python3 chip_smoke.py --phases build,kernels   # a subset (no final line)
     python3 chip_smoke.py --phases device,build,kernels,slice,maintain \
-        --baseline DIR    # K8 and K11 of an earlier tree (a checkout in DIR)
+        --baseline DIR    # K9 and K10 of an earlier tree (a checkout in DIR)
                           # timed in turns beside this tree's, same inputs
 
 Phases:
@@ -27,13 +27,18 @@ Phases:
                on the tree split to just under and just over the node
                count K8 stages in shared memory, all equal to
                traverse_plain with the floats bit for bit; K9, the
-               parallel marcher, at the step's own hits, with scale_by_dis
-               flipped, eval's all-ones jitter and a degenerate warp, bit
-               for bit its plain version; K10 and K11, the segment ops,
-               at 2,048 uniform rays of 192 samples and at every call of
+               parallel marcher, at the step's own hits, with
+               scale_by_dis flipped, eval's all-ones jitter, a degenerate
+               warp and the step's rays at hit caps 16 and 40, bit for
+               bit its plain version; K10 and K11, the segment ops, and the offsets
+               launch that K10 reads, at 2,048 uniform rays of 192
+               samples (K10 at C = 1, 2, 6 and 16) and at every call of
                one step, forward and backward, each launch repeated bit
-               for bit, K10 beside torch.segment_reduce, K11 one device
-               launch a call (torch.profiler)). K7's and K8's
+               for bit, K10 beside torch.segment_reduce, K11 and the
+               offsets launch one device launch a call (torch.profiler);
+               with --baseline, the earlier tree's K9 and K10 in turns
+               on the same inputs, and its step's K10 and K11 calls).
+               K7's and K8's
                bounds also have a chain term (march_case, traverse_case):
                the longest ray's dependent operations at the card's max
                SM clock.
@@ -41,8 +46,9 @@ Phases:
                +train.fused_adam=true, 20 Trainer.train_one steps on the card;
                losses finite, grads finite, params moved, every kernel
                launched by the main path (launch counters reset just before),
-               the table-gradient scatter K3, the traversal K8 and the
-               marcher K9 exactly once a step, K10/K11 at least once;
+               the table-gradient scatter K3, the traversal K8, the
+               marcher K9 and the offsets launch exactly once a step, K10
+               five times and K11 three times a step;
                then one pipelined
                train_many chunk under torch.cuda.set_sync_debug_mode:
                the synchronizing calls a step by span, none allowed in
@@ -229,14 +235,14 @@ TRAV_NODE_BYTES = 80 + 4
 # K8's uniform case: rays from U[-1, 1]^3, uniform directions, hit cap 64
 TRAV_UNIFORM_RAYS = 2048
 CARD = {}              # what phase_device reads of the card (max SM clock)
-# --baseline ROOT: an earlier tree's K8 (reading the tree's SoA arrays) and
-# K11 (two launches a call), built from ROOT's csrc/ and timed beside this
-# tree's on the same inputs (build_baseline)
+# --baseline ROOT: an earlier tree's K9 (a block of 128 threads a ray) and
+# K10 (a search of ray_id in every call), built from ROOT's csrc/ and timed
+# beside this tree's on the same inputs (build_baseline)
 BASELINE = {}
 OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
                 "hash_encode_fwd", "hash_encode_bwd", "ray_march", "traverse",
-                "ray_march_parallel", "segment_reduce", "segment_scan")
+                "ray_march_parallel", "ray_offsets", "segment_reduce", "segment_scan")
 # K10/K11 tolerances against their plain versions: K10 sums f32 in another
 # order than index_add, so it is held to 1e-5 of each ray's sum of |x|; K11
 # and the plain version both sum in f64 and round once to f32 (an f32 ulp
@@ -249,7 +255,7 @@ SEG_RAYS, SEG_PER_RAY = 2048, 192
 NO_LIBRARY_SCAN = "none: no single PyTorch call computes a segmented scan"
 # the segment layer's functions, as the renderer, activations and trainer
 # modules call them (phase_profile's segment ranges)
-SEGMENT_FUNCS = ("segment_sum", "segment_cumsum", "local_index", "ray_gather",
+SEGMENT_FUNCS = ("segment_sum", "segment_cumsum", "local_index", "ray_offsets", "ray_gather",
                  "weight_var", "_image_rows")
 # the spans that must not synchronize the host on the card (sync_counts)
 NO_SYNC_SPANS = ("render.traverse", "render.march")
@@ -337,12 +343,13 @@ def wrappers():
     from f2nerf_torch.sampler import device as dv
     return (fa.fused_adam, hb.hash_block_fwd, hb.hash_block_bwd, ga.row_gather,
             he.hash_encode_fwd, he.hash_encode_bwd, dv.ray_march, dv.traverse,
-            dv.ray_march_parallel, sg.segment_reduce, sg.segment_scan)
+            dv.ray_march_parallel, sg.ray_offsets, sg.segment_reduce, sg.segment_scan)
 
 
 def seg_need(k: int) -> dict:
-    """K10 and K11 at least k times each (every render composites)."""
-    return {"segment_reduce": k, "segment_scan": k}
+    """K10, K11 and the offsets launch at least k times each (every render
+    composites)."""
+    return {"segment_reduce": k, "segment_scan": k, "ray_offsets": k}
 
 
 def reset_counts() -> None:
@@ -653,11 +660,11 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def build_baseline(root: str) -> None:
-    """--baseline ROOT: compile ROOT's f2nerf_torch/csrc/traverse.cu and
-    segment.cu (an earlier K8, which reads the tree's six SoA arrays, and
-    an earlier K11, two launches a call) into a library of their own under
-    ROOT, with this tree's nvcc flags, for ``baseline_traverse`` and
-    ``baseline_scan``."""
+    """--baseline ROOT: compile ROOT's f2nerf_torch/csrc/march_parallel.cu
+    and segment.cu (an earlier K9, a block of 128 threads a ray, and an
+    earlier K10, which searches ray_id in every call) into a library of
+    their own under ROOT, with this tree's nvcc flags, for
+    ``baseline_march_parallel`` and ``baseline_segment_reduce``."""
     import ctypes
     from f2nerf_torch import kernels
     src = os.path.join(root, "f2nerf_torch", "csrc")
@@ -665,48 +672,46 @@ def build_baseline(root: str) -> None:
     os.makedirs(os.path.dirname(so), exist_ok=True)
     t0 = time.perf_counter()
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
-                    os.path.join(src, "traverse.cu"), os.path.join(src, "segment.cu")],
+                    os.path.join(src, "march_parallel.cu"), os.path.join(src, "segment.cu")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(so)
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.f2_traverse.argtypes = [vp] * 17 + [i, i, i, vp]
-    lib.f2_segment_scan.argtypes = [vp] * 5 + [ll, i, i, vp]
-    lib.f2_traverse.restype = lib.f2_segment_scan.restype = ctypes.c_int
+    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.f2_ray_march_parallel.argtypes = [vp] * 18 + [i, i, i, f, i, vp]
+    lib.f2_segment_reduce.argtypes = [vp, vp, vp, ll, i, i, vp]
+    lib.f2_ray_march_parallel.restype = lib.f2_segment_reduce.restype = ctypes.c_int
     BASELINE.update(lib=lib, root=root)
-    log(f"[build] baseline K8/K11 from {src} in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] baseline K9/K10 from {src} in {time.perf_counter() - t0:.2f} s")
 
 
-def baseline_traverse(tree, rays_o, rays_d, near, far, max_hits: int,
-                      max_iters: int = 4096):
-    """The baseline's K8 on the same inputs: what ``traverse`` returns."""
+def baseline_march_parallel(tree, rays_o, rays_d, hit_idx, hit_near, hit_far, n_hits,
+                            jitter, fineness, sample_l: float, scale_by_dis: bool,
+                            max_s: int):
+    """The baseline's K9 on the same inputs: what ``ray_march_parallel``
+    returns."""
     from f2nerf_torch import kernels
-    R, H, dev = rays_o.shape[0], max_hits, rays_o.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    outs = (torch.empty((R, H), **i32), torch.empty((R, H), device=dev),
-            torch.empty((R, H), device=dev), torch.empty((R,), **i32),
-            torch.empty((R,), dtype=torch.bool, device=dev), torch.empty((R,), **i32),
-            torch.empty((), **i32))
-    ins = (tree.center, tree.side, tree.child, tree.is_leaf, tree.trans_idx, tree.rope,
-           *(x.contiguous() for x in (rays_o, rays_d, near, far)))
-    kernels.check(BASELINE["lib"].f2_traverse(
-        *(x.data_ptr() for x in ins + outs), R, H, max_iters, kernels.stream_ptr(dev)),
-        "baseline traverse")
-    return outs[:5] + outs[6:]
+    R, H = hit_idx.shape
+    dev = rays_o.device
+    outs = (torch.empty((R, max_s), device=dev), torch.empty((R, max_s), device=dev),
+            torch.empty((R, max_s), dtype=torch.int32, device=dev),
+            torch.empty((R,), dtype=torch.int32, device=dev), torch.empty((R,), device=dev))
+    ins = [x.contiguous() for x in (hit_idx, hit_near, hit_far, n_hits, rays_o, rays_d,
+                                    jitter, fineness)]
+    warp = (tree.trans_idx, tree.w2xz, tree.weight, tree.t_center, tree.t_dis)
+    kernels.check(BASELINE["lib"].f2_ray_march_parallel(
+        *(x.data_ptr() for x in (*ins, *warp, *outs)), R, H, max_s, float(sample_l),
+        int(scale_by_dis), kernels.stream_ptr(dev)), "baseline ray_march_parallel")
+    return outs
 
 
-def baseline_scan(x, is_first, exclusive: bool, reverse: bool):
-    """The baseline's K11 on the same inputs (its scratch: a tail and a
-    flag a window of 256 rows)."""
+def baseline_segment_reduce(x, ray_id, n_rays: int):
+    """The baseline's K10 on the same inputs (it searches ray_id itself)."""
     from f2nerf_torch import kernels
-    n = x.shape[0]
-    n_win = -(-n // 256)
-    x, is_first = x.contiguous(), is_first.contiguous()
-    out = torch.empty_like(x)
-    scratch = torch.empty((9 * n_win,), dtype=torch.uint8, device=x.device)
-    kernels.check(BASELINE["lib"].f2_segment_scan(
-        x.data_ptr(), is_first.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        scratch.data_ptr() + 8 * n_win, n, int(exclusive), int(reverse),
-        kernels.stream_ptr(x.device)), "baseline segment_scan")
+    x = x.contiguous()
+    out = torch.empty((n_rays,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
+    c = 1 if x.dim() == 1 else x.shape[1]
+    kernels.check(BASELINE["lib"].f2_segment_reduce(
+        x.data_ptr(), ray_id.data_ptr(), out.data_ptr(), x.shape[0], n_rays, c,
+        kernels.stream_ptr(x.device)), "baseline segment_reduce")
     return out
 
 
@@ -731,9 +736,7 @@ def traverse_case(args: tuple, label: str) -> dict:
     distinct leaves emitted read once, fewer rows than the traversal
     touches) over 3.35 TB/s, and the chain, the longest ray's iterations
     (counted by the plain version) at TRAV_CHAIN dependent operations,
-    CYCLES_PER_OP cycles each at the card's max SM clock. With --baseline,
-    the baseline's K8 runs on the same input too (held to the plain
-    version alike) and the two are timed in turns."""
+    CYCLES_PER_OP cycles each at the card's max SM clock."""
     from f2nerf_torch.sampler import device as dv
     tree = args[0]
     smem = dv.traverse_smem_nodes(tree)
@@ -749,19 +752,8 @@ def traverse_case(args: tuple, label: str) -> dict:
     R, H = want[0].shape
     n_hits, n_trunc, longest = int(want[3].sum()), int(want[4].sum()), int(iters.max())
     leaves = torch.unique(want[0][want[0] >= 0]).numel()
-    base = {}
-    if BASELINE:
-        old = baseline_traverse(*args)
-        torch.cuda.synchronize()
-        base["baseline_equal"] = all(bits_equal(g, w) for g, w in zip(old, want))
-        del old
     del got, want
-    if BASELINE:
-        t = cuda_time_turns({"kernel": lambda: dv.traverse(*args),
-                             "baseline": lambda: baseline_traverse(*args)})
-        ms, base["baseline_ms"] = t["kernel"], t["baseline"]
-    else:
-        ms = cuda_time(lambda: dv.traverse(*args))
+    ms = cuda_time(lambda: dv.traverse(*args))
     plain_ms = cuda_time(lambda: dv.traverse_plain(*args), reps=3)
     nbytes = R * (12 + 12 + 4 + 4) + leaves * TRAV_NODE_BYTES + R * H * 12 + R * 13 + 4
     terms = {"bytes": bound_ms(nbytes),
@@ -770,18 +762,16 @@ def traverse_case(args: tuple, label: str) -> dict:
     bound = terms[term]
     where = f"shared memory ({smem} nodes)" if smem else \
         f"global memory ({tree.n_nodes} nodes > {dv.TRAVERSE_SMEM_NODES})"
-    old = (f"; baseline K8 {base['baseline_ms']:.4f} ms in turns (equal to the plain "
-           f"version: {base['baseline_equal']})") if base else ""
     log(f"[kernels] K8 traverse {label}: tree in {where}; R={R}, H={H}, {n_hits} hits, "
         f"{n_trunc} truncated, {leaves} leaves; iterations: loop {longest}, mean a ray "
         f"{float(iters.float().mean()):.1f}; equal (floats bit for bit): {same}; "
         f"max abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound:.4f} ms by {term} (bytes {terms['bytes']:.4f}, chain {terms['chain']:.4f}; "
         f"{100 * bound / ms:.1f}% of it); {ms * 1e6 / max(longest, 1):.2f} ns an "
-        f"iteration of the longest ray; library call: none{old}")
+        f"iteration of the longest ray; library call: none")
     if not all(same.values()):
         raise AssertionError(f"traverse disagrees with traverse_plain ({label}): {same}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, **base,
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 nodes=tree.n_nodes, smem_nodes=smem,
                 bound_by="bytes" if term == "bytes" else "operations", bound_term=term,
                 bytes_ms=terms["bytes"], chain_ms=terms["chain"], longest_iters=longest,
@@ -796,7 +786,9 @@ def march_parallel_case(args: tuple, label: str) -> dict:
     bound is bytes: the valid hit entries and n_hits, the rays, the
     jitter of the slots filled, the fineness, the trans_idx of the
     distinct nodes and the warp rows of the distinct leaves read once;
-    the dense outputs, n_samples and first_oct written once."""
+    the dense outputs, n_samples and first_oct written once. With
+    --baseline, the baseline's K9 on the same input too (held to the plain
+    version alike), the two timed in turns."""
     from f2nerf_torch.sampler import device as dv
     tree, _, _, hit_idx, _, _, n_hits, _, _, _, scale_by_dis, max_s = args
     got = dv.ray_march_parallel(*args)
@@ -806,10 +798,21 @@ def march_parallel_case(args: tuple, label: str) -> dict:
     same = {n: bits_equal(g, w) for n, g, w in zip(names, got, want)}
     err = max((got[k] - want[k]).abs().max().item() for k in (0, 1, 4))
     n_s = int(want[3].sum())
-    del got, want
-    ms = cuda_time(lambda: dv.ray_march_parallel(*args))
-    plain_ms = cuda_time(lambda: dv.ray_march_parallel_plain(*args), reps=3)
     R, H = hit_idx.shape
+    extra = {}
+    fns = {"kernel": lambda: dv.ray_march_parallel(*args)}
+    if BASELINE:
+        old = baseline_march_parallel(*args)
+        torch.cuda.synchronize()
+        extra["baseline_equal"] = all(bits_equal(g, w) for g, w in zip(old, want))
+        fns["baseline"] = lambda: baseline_march_parallel(*args)
+        del old
+    del got, want
+    t = cuda_time_turns(fns) if len(fns) > 1 else {"kernel": cuda_time(fns["kernel"])}
+    ms = t["kernel"]
+    if BASELINE:
+        extra["baseline_ms"] = t["baseline"]
+    plain_ms = cuda_time(lambda: dv.ray_march_parallel_plain(*args), reps=3)
     valid = torch.arange(H, device=hit_idx.device)[None, :] < n_hits[:, None]
     nodes = torch.unique(hit_idx[valid].long())
     leaves = torch.unique(tree.trans_idx[nodes].clamp(min=0)).numel()
@@ -817,28 +820,36 @@ def march_parallel_case(args: tuple, label: str) -> dict:
     nbytes = (n_h * 12 + R * 4 + R * 24 + n_s * 4 + 4 + nodes.numel() * 4
               + leaves * (96 + 36 + 3 + 1) * 4 + R * max_s * 12 + R * 8)
     bound = bound_ms(nbytes)
+    geo = dv.ray_march_parallel_geometry(H)
     log(f"[kernels] K9 ray_march_parallel {label}: R={R}, H={H}, max_s={max_s}, "
-        f"scale_by_dis={scale_by_dis}, {n_h} hits, {n_s} samples, {leaves} leaves: "
+        f"scale_by_dis={scale_by_dis}, {n_h} hits, {n_s} samples, {leaves} leaves; "
+        f"{geo['ray_threads']} threads a ray, {geo['rays_per_block']} rays a block: "
         f"bit for bit {same}; max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f}% "
-        f"of it); library call: none")
+        f"of it); library call: none"
+        + (f"; baseline K9 {extra['baseline_ms']:.4f} ms in turns (equal to the plain "
+           f"version: {extra['baseline_equal']})" if BASELINE else ""))
     if not all(same.values()):
         raise AssertionError(f"ray_march_parallel disagrees with its plain version "
                              f"({label}): {same}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", samples=n_s, hits=n_h, R=R, H=H, max_s=max_s)
+                bound_by="bytes", samples=n_s, hits=n_h, R=R, H=H, max_s=max_s,
+                ray_threads=geo["ray_threads"], rays_per_block=geo["rays_per_block"], **extra)
 
 
-def segment_reduce_case(x, ray_id, n_rays: int, label: str) -> dict:
-    """K10 against segment_sum_plain (index_add) on one input: within
+def segment_reduce_case(x, ray_id, n_rays: int, offsets, label: str) -> dict:
+    """K10 against segment_sum_plain (index_add) on one input, with the
+    offsets given (``offsets``, from the offsets launch): within
     TOL_SEG_SUM_REL of each ray's sum of |x|, a repeated launch bit for bit;
     the median time of both and of the library call torch.segment_reduce
     (the rays' lengths and one more segment for the padding, counted
     before timing; unsafe=True skips its host-side checks). Bound: the
-    valid rows and their ids read once, [R, C] written."""
+    valid rows and the offsets read once, [R, C] written. With --baseline,
+    the baseline's K10 (which searches ray_id) on the same input too, the
+    two timed in turns."""
     from f2nerf_torch.ops import segment as sg
-    got = sg.segment_reduce(x, ray_id, n_rays)
-    again = sg.segment_reduce(x, ray_id, n_rays)
+    got = sg.segment_reduce(x, ray_id, n_rays, offsets)
+    again = sg.segment_reduce(x, ray_id, n_rays, offsets)
     want = sg.segment_sum_plain(x, ray_id, n_rays)
     scale = sg.segment_sum_plain(x.abs(), ray_id, n_rays)
     lengths = torch.bincount(ray_id.long(), minlength=n_rays + 1)
@@ -851,6 +862,12 @@ def segment_reduce_case(x, ray_id, n_rays: int, label: str) -> dict:
     except RuntimeError as e:          # the yardstick only; the port never calls it
         log(f"[kernels] torch.segment_reduce refused this input ({label}): {e}")
         library = None
+    base = {}
+    if BASELINE:
+        old = baseline_segment_reduce(x, ray_id, n_rays)
+        torch.cuda.synchronize()
+        base["baseline_max_abs_err"] = (old - want).abs().max().item() if old.numel() else 0.0
+        del old
     torch.cuda.synchronize()
     repeat = bits_equal(got, again)
     diff = (got - want).abs()
@@ -860,30 +877,74 @@ def segment_reduce_case(x, ray_id, n_rays: int, label: str) -> dict:
     c = 1 if x.dim() == 1 else x.shape[1]
     n_valid = int((ray_id < n_rays).sum())
     del got, again, want, scale, diff
-    ms = cuda_time(lambda: sg.segment_reduce(x, ray_id, n_rays))
+    if BASELINE:
+        t = cuda_time_turns({"kernel": lambda: sg.segment_reduce(x, ray_id, n_rays, offsets),
+                             "baseline": lambda: baseline_segment_reduce(x, ray_id, n_rays)})
+        ms, base["baseline_ms"] = t["kernel"], t["baseline"]
+    else:
+        ms = cuda_time(lambda: sg.segment_reduce(x, ray_id, n_rays, offsets))
     plain_ms = cuda_time(lambda: sg.segment_sum_plain(x, ray_id, n_rays))
     library_ms = cuda_time(library) if library else None
     lib_err = lib_err if library else None
-    bound = bound_ms(n_valid * (c + 1) * 4 + n_rays * c * 4)
-    log(f"[kernels] K10 segment_reduce {label}: x {tuple(x.shape)}, R={n_rays}, "
-        f"{n_valid} valid rows: max_abs_err {err:.3e}, largest error over the ray's "
-        f"sum of |x| {rel:.3e} (tol {TOL_SEG_SUM_REL:g}); repeated launch bit for bit: "
-        f"{repeat}; kernel {ms:.4f} ms, plain (index_add) {plain_ms:.4f} ms, "
-        f"torch.segment_reduce {library_ms} ms (max_abs_err {lib_err}); "
-        f"bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f}% of it)")
+    bound = bound_ms(n_valid * c * 4 + (n_rays + 1) * 4 + n_rays * c * 4)
+    ld = x.stride(0) if x.dim() == 2 and x.stride(-1) == 1 else c
+    vec = c % 4 == 0 and 32 % (c // 4) == 0 and ld % 4 == 0 and x.data_ptr() % 16 == 0
+    log(f"[kernels] K10 segment_reduce {label}: x {tuple(x.shape)} (row stride {ld}), "
+        f"R={n_rays}, {n_valid} valid rows, {'vector' if vec else 'scalar'} path: "
+        f"max_abs_err {err:.3e}, "
+        f"largest error over the ray's sum of |x| {rel:.3e} (tol {TOL_SEG_SUM_REL:g}); "
+        f"repeated launch bit for bit: {repeat}; kernel {ms:.4f} ms, plain (index_add) "
+        f"{plain_ms:.4f} ms, torch.segment_reduce {library_ms} ms (max_abs_err {lib_err}); "
+        f"bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f}% of it)"
+        + (f"; baseline K10 {base['baseline_ms']:.4f} ms in turns (max_abs_err "
+           f"{base['baseline_max_abs_err']:.3e})" if base else ""))
     if not (held and repeat):
         raise AssertionError(f"segment_reduce disagrees with its plain version or "
                              f"repeats differently ({label})")
     return dict(max_abs_err=err, max_rel_err=rel, repeat_bit_for_bit=repeat, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=lib_err,
-                bound_ms=bound, rows=x.shape[0], valid_rows=n_valid, R=n_rays, C=c)
+                bound_ms=bound, rows=x.shape[0], valid_rows=n_valid, R=n_rays, C=c,
+                row_stride=ld, path="vector" if vec else "scalar", **base)
+
+
+def ray_offsets_case(ray_id, n_rays: int, label: str) -> dict:
+    """The offsets launch against ray_offsets_plain on one input: offsets,
+    counts and local_index equal (torch.equal), a repeated launch equal;
+    the median time of both and, beside them, torch.searchsorted (the
+    offsets alone, no single PyTorch call gives all three). Bound: ray_id
+    read once, the three outputs written once. (One device launch a call:
+    segment_uniform_rows.)"""
+    from f2nerf_torch.ops import segment as sg
+    got = sg.ray_offsets(ray_id, n_rays)
+    again = sg.ray_offsets(ray_id, n_rays)
+    want = sg.ray_offsets_plain(ray_id, n_rays)
+    torch.cuda.synchronize()
+    names = ("offsets", "counts", "local_index")
+    same = {k: torch.equal(g, w) for k, g, w in zip(names, got, want)}
+    same["repeat"] = all(torch.equal(g, w) for g, w in zip(got, again))
+    err = max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+              for g, w in zip(got, want))
+    del got, again, want
+    keys = torch.arange(n_rays + 1, dtype=ray_id.dtype, device=ray_id.device)
+    ms = cuda_time(lambda: sg.ray_offsets(ray_id, n_rays))
+    plain_ms = cuda_time(lambda: sg.ray_offsets_plain(ray_id, n_rays))
+    search_ms = cuda_time(lambda: torch.searchsorted(ray_id, keys))
+    n = ray_id.shape[0]
+    bound = bound_ms(n * 4 + (n_rays + 1) * 4 + n_rays * 4 + n * 4)
+    log(f"[kernels] ray_offsets {label}: n={n}, R={n_rays}: equal {same}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.searchsorted "
+        f"(offsets alone) {search_ms:.4f} ms; bound {bound:.4f} ms by bytes "
+        f"({100 * bound / ms:.1f}% of it)")
+    if not all(same.values()):
+        raise AssertionError(f"ray_offsets disagrees with its plain version ({label}): {same}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                searchsorted_ms=search_ms, n=n, R=n_rays)
 
 
 def segment_scan_case(x, is_first, exclusive: bool, reverse: bool, label: str) -> dict:
     """K11 against segment_cumsum_plain on one input: rtol/atol TOL_SCAN, a
     repeated launch bit for bit; the median time of both. Bound: x and the
-    flags read once, the output written. With --baseline, the baseline's
-    K11 on the same input too, the two timed in turns."""
+    flags read once, the output written."""
     from f2nerf_torch.ops import segment as sg
     got = sg.segment_scan(x, is_first, exclusive, reverse)
     again = sg.segment_scan(x, is_first, exclusive, reverse)
@@ -895,80 +956,86 @@ def segment_scan_case(x, is_first, exclusive: bool, reverse: bool, label: str) -
     held = bool((diff <= TOL_SCAN + TOL_SCAN * want.abs()).all())
     n = x.shape[0]
     n_seg = int(is_first.sum())
-    base = {}
-    if BASELINE:
-        old = baseline_scan(x, is_first, exclusive, reverse)
-        torch.cuda.synchronize()
-        base["baseline_max_abs_err"] = (old - want).abs().max().item() if n else 0.0
-        del old
     del got, again, want, diff
-    if BASELINE:
-        t = cuda_time_turns({
-            "kernel": lambda: sg.segment_scan(x, is_first, exclusive, reverse),
-            "baseline": lambda: baseline_scan(x, is_first, exclusive, reverse)})
-        ms, base["baseline_ms"] = t["kernel"], t["baseline"]
-    else:
-        ms = cuda_time(lambda: sg.segment_scan(x, is_first, exclusive, reverse))
+    ms = cuda_time(lambda: sg.segment_scan(x, is_first, exclusive, reverse))
     plain_ms = cuda_time(lambda: sg.segment_cumsum_plain(x, is_first, exclusive, reverse))
     bound = bound_ms(n * (4 + 1 + 4))
-    old = (f"; baseline K11 {base['baseline_ms']:.4f} ms in turns (max_abs_err "
-           f"{base['baseline_max_abs_err']:.3e})") if base else ""
     log(f"[kernels] K11 segment_scan {label}: n={n}, {n_seg} flags, exclusive "
         f"{exclusive}, reverse {reverse}: max_abs_err {err:.3e} (rtol/atol {TOL_SCAN:g}); "
         f"repeated launch bit for bit: {repeat}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms by bytes "
-        f"({100 * bound / ms:.1f}% of it); library call: none{old}")
+        f"({100 * bound / ms:.1f}% of it); library call: none")
     if not (held and repeat):
         raise AssertionError(f"segment_scan disagrees with its plain version or "
                              f"repeats differently ({label})")
     return dict(max_abs_err=err, repeat_bit_for_bit=repeat, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, n=n, flags=n_seg, exclusive=exclusive, reverse=reverse,
-                **base)
+                bound_ms=bound, n=n, flags=n_seg, exclusive=exclusive, reverse=reverse)
 
 
 def segment_uniform_rows(gen) -> list[dict]:
-    """K10 (C = 1 and 6) and K11 (forward exclusive and its reverse) at
-    SEG_RAYS rays of SEG_PER_RAY samples, x from U[0, 1)."""
+    """K10 (C = 1, 2, 6 and 16, the offsets given), K11 (forward exclusive
+    and its reverse) and the offsets launch at SEG_RAYS rays of SEG_PER_RAY
+    samples, x from U[0, 1). K10's row keeps C = 6's numbers."""
     from f2nerf_torch.ops import segment as sg
     dev = torch.device(DEV)
     rid = torch.arange(SEG_RAYS, device=dev, dtype=torch.int32).repeat_interleave(SEG_PER_RAY)
     first = sg.first_flags_from_ray_id(rid, SEG_RAYS)
     shape = f"{SEG_RAYS} rays x {SEG_PER_RAY}"
+    r0 = ray_offsets_case(rid, SEG_RAYS, f"uniform {shape}")
+    offsets = sg.ray_offsets(rid, SEG_RAYS)[0]
     r10 = {}
-    for c in (1, 6):
+    for c in (1, 2, 6, 16):
         x = torch.rand((rid.shape[0], c), generator=gen, device=dev)
         r = segment_reduce_case(x[:, 0].contiguous() if c == 1 else x, rid, SEG_RAYS,
-                                f"uniform {shape}, C {c}")
+                                offsets, f"uniform {shape}, C {c}")
         r10.update({f"uniform_c{c}_{k}": v for k, v in r.items()})
     x = torch.rand(rid.shape, generator=gen, device=dev)
     r11 = {f"uniform_{d}_{k}": v for d, rev in (("forward", False), ("reverse", True))
            for k, v in segment_scan_case(x, first, True, rev, f"uniform {shape}").items()}
-    # one launch a call: what a forward and a reverse call put on the card
-    # (one profiler session: the profile phase's is the only other)
-    on_card = device_kernels(lambda: (sg.segment_scan(x, first, True, False),
+    # one launch a call: what an offsets call and a forward and a reverse
+    # scan put on the card (one profiler session: a later session in the
+    # process may see no device events; the profile phase's is the only
+    # other)
+    on_card = device_kernels(lambda: (sg.ray_offsets(rid, SEG_RAYS),
+                                      sg.segment_scan(x, first, True, False),
                                       sg.segment_scan(x, first, True, True)))
-    log(f"[kernels] K11 segment_scan: a forward and a reverse call put {on_card} on the card")
-    if len(on_card) != 2 or not all("segment_scan" in k for k in on_card):
-        raise AssertionError(f"segment_scan: expected one launch a call, got {on_card}")
-    r11["device_launches_a_call"] = len(on_card) / 2
+    log(f"[kernels] an offsets call and a forward and a reverse K11 call put {on_card} "
+        f"on the card")
+    if len(on_card) != 3 or "ray_offsets" not in on_card[0] \
+            or not all("segment_scan" in k for k in on_card[1:]):
+        raise AssertionError(f"ray_offsets / segment_scan: expected one launch a call, "
+                             f"got {on_card}")
+    r11["device_launches_a_call"] = 1
+    r0["device_launches_a_call"] = 1
     pick = ("max_abs_err", "ms", "plain_ms", "bound_ms")
-    scan_pick = pick + (("baseline_ms",) if BASELINE else ())
-    return [dict(name="segment_reduce", route="cuda", source="f2nerf_torch/csrc/segment.cu",
+    return [dict(name="ray_offsets", route="cuda", source="f2nerf_torch/csrc/segment.cu",
+                 replaces="f2nerf_tpu/ops/segment.py:65", bound_by="bytes", library_ms=None,
+                 library="none: no single PyTorch call gives the offsets, counts and "
+                         "local index (torch.searchsorted, the offsets alone, timed beside)",
+                 **{f"uniform_{k}": v for k, v in r0.items()}, **{k: r0[k] for k in pick}),
+            dict(name="segment_reduce", route="cuda", source="f2nerf_torch/csrc/segment.cu",
                  replaces="f2nerf_tpu/ops/segment.py:23", bound_by="bytes",
                  library="torch.segment_reduce", **r10,
-                 **{k: r10[f"uniform_c6_{k}"] for k in pick + ("library_ms",)}),
+                 **{k: r10[f"uniform_c6_{k}"] for k in pick + ("library_ms",)},
+                 **({"baseline_ms": r10["uniform_c6_baseline_ms"]} if BASELINE else {})),
             dict(name="segment_scan", route="cuda", source="f2nerf_torch/csrc/segment.cu",
                  replaces="f2nerf_tpu/ops/segment.py:38", bound_by="bytes",
                  library_ms=None, library=NO_LIBRARY_SCAN, **r11,
-                 **{k: r11[f"uniform_forward_{k}"] for k in scan_pick})]
+                 **{k: r11[f"uniform_forward_{k}"] for k in pick})]
 
 
 def segment_step_cases(calls: dict) -> dict:
-    """K10 and K11 at one step's own inputs (every call, spied): each call
-    checked and timed; a row's ms, plain_ms, bound_ms and library_ms become
-    the sums over the step's calls (the kernel's device time a step)."""
+    """K10, K11 and the offsets launch at one step's own inputs (every call,
+    spied): each call checked and timed; a row's ms, plain_ms, bound_ms and
+    library_ms become the sums over the step's calls (the kernel's device
+    time a step). With --baseline, ``parent_step_ms``: what the parent's
+    step spent in the same kernels, which had one more call each: K10 over
+    ones (the counts, now from the offsets launch; the baseline's K10) and
+    K11 over ones (local_index; the parent's K11 is this tree's)."""
+    from f2nerf_torch.ops import segment as sg
     out = {}
-    for name, fn in (("segment_reduce", lambda a: segment_reduce_case(
+    for name, fn in (("ray_offsets", lambda a: ray_offsets_case(*a, "step call")),
+                     ("segment_reduce", lambda a: segment_reduce_case(
             *a, f"step call, x {tuple(a[0].shape)}")),
                      ("segment_scan", lambda a: segment_scan_case(
             *a, f"step call{' (backward)' if a[3] else ''}"))):
@@ -986,6 +1053,24 @@ def segment_step_cases(calls: dict) -> dict:
             + (f", baseline {tot['baseline_ms']:.4f} ms" if "baseline_ms" in tot else "")
             + (f", torch.segment_reduce {tot['library_ms']} ms" if "library_ms" in tot
                else ""))
+    if BASELINE:
+        (rid, n_rays), = calls["ray_offsets"]
+        ones = torch.ones(rid.shape, dtype=torch.float32, device=rid.device)
+        t = cuda_time_turns({"baseline_counts": lambda: baseline_segment_reduce(
+            ones, rid, n_rays)})
+        r11 = segment_scan_case(ones, sg.first_flags_from_ray_id(rid, n_rays), True, False,
+                                "the parent's local_index call (ones)")
+        out["segment_reduce"]["parent_step_ms"] = (out["segment_reduce"]["baseline_ms"]
+                                                   + t["baseline_counts"])
+        out["segment_scan"]["parent_step_ms"] = out["segment_scan"]["ms"] + r11["ms"]
+        new = out["segment_reduce"]["ms"] + out["ray_offsets"]["ms"]
+        log(f"[kernels] a slice step's per-ray sums: K10 ({out['segment_reduce']['n_calls']} "
+            f"calls) + the offsets launch {new:.4f} ms, the parent's K10 (one more call, "
+            f"over ones: {t['baseline_counts']:.4f}) "
+            f"{out['segment_reduce']['parent_step_ms']:.4f} ms; K11 "
+            f"({out['segment_scan']['n_calls']} calls) {out['segment_scan']['ms']:.4f} ms, "
+            f"the parent's (one more, over ones: {r11['ms']:.4f}) "
+            f"{out['segment_scan']['parent_step_ms']:.4f} ms")
     return out
 
 
@@ -1117,16 +1202,24 @@ def degenerate_march_args() -> tuple:
             torch.ones((), device=dev), 1.0 / 16, False, 64)
 
 
-def march_parallel_extra_cases(step_args: tuple) -> dict:
+def march_parallel_extra_cases(step_args: tuple, trav_args: tuple) -> dict:
     """K9 beyond the step's inputs: the step's hits with scale_by_dis
-    flipped, with eval's all-ones jitter, and the degenerate-warp case."""
+    flipped, with eval's all-ones jitter, the degenerate-warp case, and the
+    step's rays traversed again at hit caps 16 (below a warp) and 40 (not a
+    multiple of 32)."""
+    from f2nerf_torch.sampler import device as dv
     a = list(step_args)
     flipped = tuple(a[:10] + [not a[10]] + a[11:])
     ones = tuple(a[:7] + [torch.ones_like(a[7])] + a[8:])
-    return {"flipped": march_parallel_case(flipped, f"step's hits, scale_by_dis {not a[10]}"),
-            "ones": march_parallel_case(ones, "step's hits, all-ones jitter (eval)"),
-            "degenerate": march_parallel_case(degenerate_march_args(),
-                                              "degenerate warp past n_hits")}
+    out = {"flipped": march_parallel_case(flipped, f"step's hits, scale_by_dis {not a[10]}"),
+           "ones": march_parallel_case(ones, "step's hits, all-ones jitter (eval)"),
+           "degenerate": march_parallel_case(degenerate_march_args(),
+                                             "degenerate warp past n_hits")}
+    for H in (16, 40):
+        hits = dv.traverse(*trav_args[:5], H)[:4]
+        out[f"h{H}"] = march_parallel_case(tuple(a[:3] + list(hits) + a[7:]),
+                                           f"step's rays at hit cap {H}")
+    return out
 
 
 def phase_kernels() -> list[dict]:
@@ -1266,16 +1359,18 @@ def phase_kernels() -> list[dict]:
 
 def capture_step_inputs(tr) -> dict:
     """One more slice step with K2's, K3's and K4's wrappers spied on (as
-    fields/hash_block.py calls them), K8's and K9's (as
-    render/renderer.py calls them) and K10's and K11's (as
+    fields/hash_block.py calls them), K8's, K9's and the offsets launch's
+    (as render/renderer.py calls them) and K10's and K11's (as
     ops/segment.py calls them): the arguments of every call, in order
     (``capture_calls``)."""
     from f2nerf_torch.fields import hash_block as hb
     from f2nerf_torch.ops import segment as sg
     from f2nerf_torch.sampler import device as dv
+    from f2nerf_torch.render import renderer
     return capture_calls(tr, {"hash_block_fwd": hb, "hash_block_bwd": hb, "row_gather": hb,
                               "traverse": dv, "ray_march_parallel": dv,
-                              "segment_reduce": sg, "segment_scan": sg})
+                              "segment_reduce": sg, "segment_scan": sg,
+                              "ray_offsets": renderer})
 
 
 def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
@@ -1305,7 +1400,7 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
     r8.update({f"{k}_{f}": v for k, r in traverse_extra_cases(tr, float(trav[3][0])).items()
                for f, v in r.items()})
     r9 = march_parallel_case(march, "slice step's own hits")
-    r9.update({f"{k}_{f}": v for k, r in march_parallel_extra_cases(march).items()
+    r9.update({f"{k}_{f}": v for k, r in march_parallel_extra_cases(march, trav).items()
                for f, v in r.items()})
     del trav, march
     rows.append(dict(name="traverse", route="cuda", source="f2nerf_torch/csrc/traverse.cu",
@@ -1319,7 +1414,7 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
                      library=NO_LIBRARY_MARCH_PARALLEL,
                      **{f"slice_{k}": v for k, v in r9.items()},
                      **{k: r9[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                           "bound_by")}))
+                                           "bound_by", "baseline_ms") if k in r9}))
     fwd = max(calls["hash_block_fwd"], key=lambda a: a[3].shape[0])
     r2 = encode_case(fwd, f"slice A at cap1 {fwd[3].shape[0]}")
     r3 = scatter_case(calls["hash_block_bwd"], f"slice B at cap2 {cap2} + edges")
@@ -1338,8 +1433,8 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
     for r in rows:
         new = at_slice.get(r["name"])
         if new is not None:
-            r.update({k: new[k] for k in ("ms", "plain_ms", "bound_ms", "baseline_ms")
-                      if k in new},
+            r.update({k: new[k] for k in ("ms", "plain_ms", "bound_ms", "baseline_ms",
+                                          "parent_step_ms") if k in new},
                      max_abs_err=max(r["max_abs_err"], new["max_abs_err"]),
                      **{f"slice_{k}": v for k, v in new.items()})
             if "library_ms" in new:
@@ -1411,18 +1506,23 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
     tr, launches, m, p0 = slice_steps(tmp)
     moved = max((v.detach() - p0[k]).abs().max().item()
                 for k, v in named_leaves(tr.params))
-    log(f"[slice] max |param change| {moved:.3e}; K10 / K11 launches a step "
-        f"{launches['segment_reduce'] / N_STEPS:g} / {launches['segment_scan'] / N_STEPS:g}")
+    log(f"[slice] max |param change| {moved:.3e}; K10 / offsets / K11 launches a step "
+        f"{launches['segment_reduce'] / N_STEPS:g} / {launches['ray_offsets'] / N_STEPS:g} / "
+        f"{launches['segment_scan'] / N_STEPS:g}")
     if not moved > 0:
         raise AssertionError("params did not move")
     # one table-gradient scatter a step: the grad pass's B and edge samples
-    # share one K3 launch; one traversal and one march a step; the segment
-    # ops (K10, K11) several times a step, forward and backward
+    # share one K3 launch; one traversal and one march a step; the offsets
+    # launch once a step (B's rays), K10 five times (the composite's sums,
+    # weight_var's two, the backwards of the appearance gather and of
+    # weight_var's mean gather), K11 three times (the prefilter's and the
+    # composite's scans, the composite's backward)
     check_counts("the slice", launches, {
-        "fused_adam": N_STEPS * len(p0), "hash_block_fwd": N_STEPS, **seg_need(N_STEPS)},
+        "fused_adam": N_STEPS * len(p0), "hash_block_fwd": N_STEPS},
         exact={"hash_block_bwd": N_STEPS, "row_gather": N_STEPS, "hash_encode_fwd": 0,
                "hash_encode_bwd": 0, "ray_march": 0, "traverse": N_STEPS,
-               "ray_march_parallel": N_STEPS})
+               "ray_march_parallel": N_STEPS, "ray_offsets": N_STEPS,
+               "segment_reduce": 5 * N_STEPS, "segment_scan": 3 * N_STEPS})
     sync_counts(tr)
     return launches, tr, (m["cap1"], m["cap2"])
 
@@ -1516,13 +1616,16 @@ class SegmentRanges:
                 def ranged(*a, _fn=fn, _name=name, **kw):
                     with torch.profiler.record_function("segment." + _name):
                         return _fn(*a, **kw)
-                self.saved.append((mod, name, fn))
+                ranged.launches = 0          # a wrapper counts through its global
+                self.saved.append((mod, name, fn, ranged))
                 setattr(mod, name, ranged)
         return self
 
     def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
+        for mod, name, fn, ranged in self.saved:
             setattr(mod, name, fn)
+            if hasattr(fn, "launches"):
+                fn.launches += ranged.launches
 
 
 def segment_device_ms(events) -> tuple[float, float]:
@@ -2845,9 +2948,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--baseline", default=None, metavar="ROOT",
-                    help="a checkout of an earlier tree: its K8 and K11 (the SoA "
-                         "traversal, the two-launch scan) built from ROOT's csrc/ "
-                         "and timed in turns beside this tree's on the same inputs")
+                    help="a checkout of an earlier tree: its K9 and K10 (a block of "
+                         "128 threads a ray; a search of ray_id in every call) built "
+                         "from ROOT's csrc/ and timed in turns beside this tree's on "
+                         "the same inputs")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     full = set(phases) == set(PHASES)

@@ -1,19 +1,52 @@
 // K10 and K11: the per-ray segment ops of the composite chain, each sum
 // taken in a fixed order (no atomics), so a step gives the same bits on
-// every run.
+// every run; and the offsets launch that both K10 and the renderer read.
 //
-// K10, segment_reduce: out[r, c] = sum of x[i, c] over the rows i with
-// ray_id[i] == r, for a ray-sorted flat buffer x [n, C] f32 (padding rows
-// carry ray_id == n_rays and are dropped). Replaces jax.ops.segment_sum
-// with indices_are_sorted=True (f2nerf_tpu/ops/segment.py:23), whose port
-// was an index_add (float atomics, in no fixed order). One warp a ray: the
-// warp finds its run [start_r, start_{r+1}) in the sorted ray_id itself
-// (half_lower_bound: the two ends at once, 17-ary, ~5 dependent loads), the
-// lanes stride the run (lane l sums rows start + l, start + l + 32, ... in
-// that order), then a fixed __shfl_xor_sync tree combines the 32 lanes. A
-// block's blockIdx.y picks a tile of up to 8 channels; each channel's order
-// is the same whatever C is, so the composite's stacked sums (C = 6) give
-// each channel the bits it would have alone.
+// ray_offsets: for a ray-sorted buffer ray_id [n] (padding rows carry
+// ray_id == n_rays), offsets [n_rays + 1] int32 (each ray's first row;
+// offsets[n_rays] the first padding row, n if none), counts [n_rays] f32
+// (end - start, exact) and local_index [n] int32 (each row's index in its
+// ray: the exclusive segmented scan of ones of f2nerf_tpu/ops/segment.py:65,
+// padding rows continuing the last segment's count, a buffer with no valid
+// row one segment from row 0). Replaces the step's K10 launch over ones and
+// its K11 launch over ones: all three outputs are integers, so they equal
+// those launches' values bit for bit. One cooperative launch (every block
+// resident), a thread a row over a grid-stride loop:
+//   1. where ray_id changes at row i (row 0 after a virtual -1, row n
+//      before a virtual n_rays), the thread writes offsets[q] = i for every
+//      ray q in (previous, current], so an empty ray gets start == end;
+//   2. a grid-wide barrier;
+//   3. counts[r] = offsets[r + 1] - offsets[r]; a valid row's local index
+//      is i - offsets[ray_id[i]], a padding row's i - offsets of the last
+//      ray that has rows (i when no ray has one).
+// Bound: bytes, ray_id read once and the three outputs written once; at the
+// slice's B buffer (262,144 rows) ~2.1 MB, ~0.6 us at 3.35 TB/s.
+//
+// K10, segment_reduce: out[r, c] = sum of x[i, c] over the rows of ray r,
+// [offsets[r], offsets[r + 1]), for a ray-sorted flat buffer x [n, C] f32.
+// Replaces jax.ops.segment_sum with indices_are_sorted=True
+// (f2nerf_tpu/ops/segment.py:23). One warp a ray, all C channels in one
+// pass; each ray's run comes from two loads of offsets (an earlier design
+// searched ray_id in every call and in every tile of 8 channels). Two
+// paths:
+//   - vector, where C = 4Q with Q dividing 32 (C = 4, 8, 16, ...) and the
+//     rows are 16-byte aligned: Q lanes a row, each lane a float4 quad of it, the
+//     warp's 32 / Q row groups striding the rows (lane l sums quad l % Q of
+//     rows start + l / Q, start + l / Q + 32 / Q, ... in that order), then a
+//     fixed __shfl_xor_sync tree over the lanes that hold one quad;
+//   - scalar, any other C (1, 2, 6 on the step): lane l sums rows start + l,
+//     start + l + 32, ... in that order, up to 8 channels at a time (a loop
+//     over tiles of 8 channels when C > 8), then the xor tree over all 32
+//     lanes.
+// The vector path issues kUnrollVec row steps' loads at a time, then adds
+// them in row order; the scalar path loads and adds a row a step (unrolling
+// it was no faster). The rows may be a column slice of a wider buffer (x's
+// row stride ld): the C = 16 backward's gradient is one, which a copy to
+// contiguous rows cost ~0.015 ms. A ray's rows are held to x's n rows, so
+// offsets of another buffer cannot send a warp past x's end.
+// Every order depends only on the positions and C, never on timing, so
+// every launch repeats bit for bit; a channel's bits may differ with C
+// (the two paths stride the rows differently).
 //
 // K11, segment_scan: the segmented prefix sum of JAX's segment_cumsum
 // (f2nerf_tpu/ops/segment.py:38-56): segments start at is_first, rows
@@ -55,22 +88,25 @@
 // Every order depends only on the positions and the flags, never on
 // timing, so every launch repeats bit for bit.
 //
-// Bound: bytes. K10 reads the valid rows once and writes [R, C]; K11 reads
-// x and the flags once and writes the output. At the slice's B buffer
-// (cap2 262,144) each is ~1-2 MB: under a microsecond at 3.35 TB/s. Both
-// are latency-bound: K10's search and strided loop, K11's loads, scans and
-// look-back rounds in one block's life.
+// Bound: bytes. K10 reads the valid rows and the offsets once and writes
+// [R, C]; K11 reads x and the flags once and writes the output. At the slice's B buffer
+// (cap2 262,144) each is ~1-2 MB, K10's C = 16 backward ~10 MB: a few
+// microseconds at most at 3.35 TB/s.
 //
-// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): K10 0.0078 /
-// 0.0088 ms at 2,048 uniform rays of 192 rows, C = 1 / 6 (12% / 38% of
-// the bound), 0.0074-0.0082 ms a call at the slice step (C = 16: 0.031).
-// K11: ~0.012 ms a call at the step's 262,144 rows and at the uniform
-// 393,216, against ~0.020 and ~0.015 for the two-launch design in the same
-// call; a one-element torch add takes ~0.005 ms timed the same way, and
-// the look-back ~0.0015 ms of K11's (scripts/sweep_k8_k11.py).
+// Measured (chip_smoke.py --baseline, the earlier K10 in turns on the same
+// inputs; NVIDIA H100 80GB HBM3, 700 W): at the slice step K10 0.0063-0.0070
+// ms a call (the earlier, searching K10 0.0075-0.0082; the C = 16 backward,
+// 16 columns of a 32-wide gradient read in place, 0.0070 against 0.0307
+// with its copy), the offsets launch 0.0091; a launch that reads the
+// offsets and no row takes 0.0050, as a one-element torch add does
+// (scripts/sweep_kernels.py). K11: ~0.012 ms a call at the step's 262,144
+// rows and at the uniform 393,216, against ~0.020 and ~0.015 for the
+// two-launch design in the same call; the look-back ~0.0015 ms of K11's
+// (scripts/sweep_kernels.py).
 
 // No fast math and no contraction: the adds are __fadd_rn / __dadd_rn.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,71 +114,118 @@ namespace {
 
 constexpr int kWarps = 8;                 // warps a block
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 8;                  // K10: channels a block sums
+constexpr int kTile = 8;                  // K10's scalar path: channels a pass
+constexpr int kUnrollVec = 4;             // K10's vector path: row steps loaded
+                                          // before their adds (scripts/sweep_kernels.py)
 constexpr int kChunks = 8;                // K11: chunks of 32 rows a warp
 constexpr int kWarpRows = kChunks * 32;   // K11: rows a warp
 constexpr int kTileRows = kWarps * kWarpRows;   // K11: rows a block (a tile)
 constexpr unsigned kFull = 0xffffffffu;
 
-// First index in [0, n) with a[i] >= key (n if none), the two halves of
-// the warp each searching their own key (lanes 0-15 and 16-31): each round
-// a half probes 16 positions spread over its interval and keeps the gap
-// between the last probe below the key and the first at or above it (a is
-// sorted, so the probes below the key are a prefix of the half's lanes).
-// Every lane of the warp calls it.
-__device__ __forceinline__ long long half_lower_bound(const int* __restrict__ a,
-                                                      long long n, int key, int lane) {
-  const int h = lane & 15;
-  const int shift = lane & 16;
-  long long lo = 0, hi = n;
-  while (__any_sync(kFull, hi > lo)) {
-    const long long len = hi - lo;
-    const long long p = lo + len * (h + 1) / 17;        // in [lo, hi) when len > 0
-    const bool ge = len > 0 && __ldg(a + p) >= key;
-    const unsigned below = (~__ballot_sync(kFull, ge) >> shift) & 0xffffu;
-    const int k = __popc(below);
-    const long long p_prev = __shfl_sync(kFull, p, k > 0 ? k - 1 : 0, 16);
-    const long long p_next = __shfl_sync(kFull, p, k < 16 ? k : 15, 16);
-    if (len > 0) {
-      if (k > 0) lo = p_prev + 1;
-      if (k < 16) hi = p_next;
+// ray_offsets, steps 1-3 (see the header). A cooperative launch: the grid
+// is at most what the card holds at once, so the barrier is reached by
+// every block.
+__global__ void __launch_bounds__(kThreads)
+ray_offsets_kernel(const int* __restrict__ ray_id, int* offsets, float* __restrict__ counts,
+                   int* __restrict__ local, long long n, int n_rays) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long i0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+  for (long long i = i0; i <= n; i += stride) {
+    const int prev = i == 0 ? -1 : min(__ldg(ray_id + i - 1), n_rays);
+    const int cur = i == n ? n_rays : min(__ldg(ray_id + i), n_rays);
+    for (int q = prev + 1; q <= cur; ++q) offsets[q] = (int)i;
+  }
+  cooperative_groups::this_grid().sync();
+  const int first_pad = offsets[n_rays];
+  const int last_start = first_pad > 0 ? offsets[min(ray_id[first_pad - 1], n_rays - 1)] : 0;
+  for (long long i = i0; i < n || i < n_rays; i += stride) {
+    if (i < n_rays) counts[i] = (float)(offsets[i + 1] - offsets[i]);
+    if (i < n) {
+      const int r = __ldg(ray_id + i);
+      local[i] = (int)(i - (r < n_rays ? offsets[r] : last_start));
     }
   }
-  return lo;
 }
 
+// Ray r's rows [s, e) from the offsets, held to x's rows [0, n).
+__device__ __forceinline__ void ray_rows(const int* __restrict__ offsets, int r, long long n,
+                                         long long& s, long long& e) {
+  e = min((long long)__ldg(offsets + r + 1), n);
+  s = max(0LL, min((long long)__ldg(offsets + r), e));
+}
+
+// K10's vector path: Q lanes a row (C = 4Q, Q dividing 32), each lane one
+// float4 quad; the 32 / Q row groups stride the rows.
 __global__ void __launch_bounds__(kThreads)
-segment_reduce_kernel(const float* __restrict__ x, const int* __restrict__ ray_id,
-                      float* __restrict__ out, long long n, int n_rays, int C) {
+segment_reduce_vec_kernel(const float4* __restrict__ x, long long ld4, long long n,
+                          const int* __restrict__ offsets, float4* __restrict__ out, int n_rays,
+                          int Q) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= n_rays) return;                                // the whole warp
-  const int c0 = blockIdx.y * kTile;
-  const int cn = min(kTile, C - c0);
-  const long long b = half_lower_bound(ray_id, n, lane < 16 ? r : r + 1, lane);
-  const long long s = __shfl_sync(kFull, b, 0);
-  const long long e = __shfl_sync(kFull, b, 16);
-  float acc[kTile];
+  const int G = 32 / Q;                                   // rows a step
+  const int q = lane % Q;
+  long long s, e;
+  ray_rows(offsets, r, n, s, e);
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (long long i = s + lane / Q; i < e; i += (long long)G * kUnrollVec) {
+    float4 v[kUnrollVec];
 #pragma unroll
-  for (int c = 0; c < kTile; ++c) acc[c] = 0.0f;
-  for (long long i = s + lane; i < e; i += 32) {
-    const float* row = x + i * C + c0;
+    for (int u = 0; u < kUnrollVec; ++u)
+      if (i + u * G < e) v[u] = __ldg(x + (i + u * G) * ld4 + q);
 #pragma unroll
-    for (int c = 0; c < kTile; ++c)
-      if (c < cn) acc[c] = __fadd_rn(acc[c], __ldg(row + c));
-  }
-#pragma unroll
-  for (int c = 0; c < kTile; ++c) {
-    if (c < cn) {                                          // cn is the warp's
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[c] = __fadd_rn(acc[c], __shfl_xor_sync(kFull, acc[c], off));
+    for (int u = 0; u < kUnrollVec; ++u) {
+      if (i + u * G < e) {
+        acc.x = __fadd_rn(acc.x, v[u].x);
+        acc.y = __fadd_rn(acc.y, v[u].y);
+        acc.z = __fadd_rn(acc.z, v[u].z);
+        acc.w = __fadd_rn(acc.w, v[u].w);
+      }
     }
   }
-  if (lane == 0) {
+  for (int off = 16; off >= Q; off >>= 1) {               // Q is the warp's
+    acc.x = __fadd_rn(acc.x, __shfl_xor_sync(kFull, acc.x, off));
+    acc.y = __fadd_rn(acc.y, __shfl_xor_sync(kFull, acc.y, off));
+    acc.z = __fadd_rn(acc.z, __shfl_xor_sync(kFull, acc.z, off));
+    acc.w = __fadd_rn(acc.w, __shfl_xor_sync(kFull, acc.w, off));
+  }
+  if (lane < Q) out[(long long)r * Q + lane] = acc;
+}
+
+// K10's scalar path: a lane a row, up to kTile channels at a time.
+__global__ void __launch_bounds__(kThreads)
+segment_reduce_kernel(const float* __restrict__ x, long long ld, long long n,
+                      const int* __restrict__ offsets, float* __restrict__ out, int n_rays,
+                      int C) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= n_rays) return;                                // the whole warp
+  long long s, e;
+  ray_rows(offsets, r, n, s, e);
+  for (int c0 = 0; c0 < C; c0 += kTile) {
+    const int cn = min(kTile, C - c0);
+    float acc[kTile];
 #pragma unroll
-    for (int c = 0; c < kTile; ++c)
-      if (c < cn) out[(long long)r * C + c0 + c] = acc[c];
+    for (int c = 0; c < kTile; ++c) acc[c] = 0.0f;
+    for (long long i = s + lane; i < e; i += 32) {
+      const float* row = x + i * ld + c0;
+#pragma unroll
+      for (int c = 0; c < kTile; ++c)
+        if (c < cn) acc[c] = __fadd_rn(acc[c], __ldg(row + c));
+    }
+#pragma unroll
+    for (int c = 0; c < kTile; ++c) {
+      if (c < cn) {                                        // cn is the warp's
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          acc[c] = __fadd_rn(acc[c], __shfl_xor_sync(kFull, acc[c], off));
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < kTile; ++c)
+        if (c < cn) out[(long long)r * C + c0 + c] = acc[c];
+    }
   }
 }
 
@@ -327,13 +410,60 @@ segment_scan_kernel(const float* __restrict__ x, const unsigned char* __restrict
 
 }  // namespace
 
-extern "C" int f2_segment_reduce(const void* x, const void* ray_id, void* out, long long n,
-                                 int n_rays, int c, void* stream) {
+// offsets [n_rays + 1] int32, counts [n_rays] f32, local [n] int32, n >= 1
+// (the caller fills an empty buffer's offsets): all written by the kernel.
+// The grid is at most what the card holds at once (read once a device and
+// process), at most a thread a row.
+extern "C" int f2_ray_offsets(const void* ray_id, void* offsets, void* counts, void* local,
+                              long long n, int n_rays, void* stream) {
+  if (n <= 0 || n_rays < 0) return (int)cudaErrorInvalidValue;
+  static int resident[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ray_offsets_kernel, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (sms * per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
+  }
+  const int resident_blocks = resident[dev];
+  const long long span = n + 1 > n_rays ? n + 1 : (long long)n_rays;   // threads of work
+  const long long want = (span + kThreads - 1) / kThreads;
+  const unsigned grid = (unsigned)(want < resident_blocks ? want : resident_blocks);
+  const int* rid = (const int*)ray_id;
+  int* off = (int*)offsets;
+  float* cnt = (float*)counts;
+  int* loc = (int*)local;
+  void* args[] = {&rid, &off, &cnt, &loc, &n, &n_rays};
+  e = cudaLaunchCooperativeKernel((const void*)ray_offsets_kernel, dim3(grid), dim3(kThreads),
+                                  args, 0, (cudaStream_t)stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// x: n rows of c floats, ld floats apart (ld >= c; a column slice of a
+// wider buffer is read in place); out [n_rays, c] contiguous. offsets:
+// ray_offsets' [n_rays + 1] (each ray's rows, in order; rows at or past n
+// are not read). The vector path where c = 4Q with Q dividing 32, ld a
+// multiple of 4 and x and out 16-byte aligned.
+extern "C" int f2_segment_reduce(const void* x, long long ld, long long n, const void* offsets,
+                                 void* out, int n_rays, int c, void* stream) {
   if (n_rays <= 0 || c <= 0) return 0;
-  const dim3 grid((unsigned)((n_rays + kWarps - 1) / kWarps),
-                  (unsigned)((c + kTile - 1) / kTile));
-  segment_reduce_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)ray_id, (float*)out, n, n_rays, c);
+  if (ld < c || n < 0) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((n_rays + kWarps - 1) / kWarps);
+  const int q = c / 4;
+  if (c % 4 == 0 && q <= 32 && 32 % q == 0 && ld % 4 == 0 && ((uintptr_t)x & 15) == 0 &&
+      ((uintptr_t)out & 15) == 0) {
+    segment_reduce_vec_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float4*)x, ld / 4, n, (const int*)offsets, (float4*)out, n_rays, q);
+  } else {
+    segment_reduce_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, ld, n, (const int*)offsets, (float*)out, n_rays, c);
+  }
   return (int)cudaGetLastError();
 }
 

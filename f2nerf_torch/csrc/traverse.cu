@@ -77,7 +77,7 @@
 // (chip_smoke.py TRAV_CHAIN), at >= 4 cycles each; the loads on that path
 // are not counted, so this stays a lower bound. The bytes (rays in, hit
 // rows out, the touched tree rows once) take microseconds.
-// Measured (chip_smoke.py --baseline, scripts/sweep_k8_k11.py; NVIDIA
+// Measured (chip_smoke.py --baseline, scripts/sweep_kernels.py; NVIDIA
 // H100 80GB HBM3, 700 W): ~0.06 ms at the slice step's 2,048 rays (58
 // iterations on the 945-node tree) against ~0.09 for the SoA design in the
 // same call; ~0.33 ms against ~0.53 at 768 rays on the 223,817-node tree.

@@ -49,8 +49,9 @@ _SIGNATURES = {
     "f2_hash3d_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     "f2_ray_march_lockstep": [_vp] * 16 + [_i, _i, _i, _i, _f, _i, _vp],
     "f2_traverse": [_vp] * 13 + [_i, _i, _i, _i, _vp],
-    "f2_ray_march_parallel": [_vp] * 18 + [_i, _i, _i, _f, _i, _vp],
-    "f2_segment_reduce": [_vp, _vp, _vp, _ll, _i, _i, _vp],
+    "f2_ray_march_parallel": [_vp] * 18 + [_i, _i, _i, _f, _i, _i, _i, _vp],
+    "f2_ray_offsets": [_vp] * 4 + [_ll, _i, _vp],
+    "f2_segment_reduce": [_vp, _ll, _ll, _vp, _vp, _i, _i, _vp],
     "f2_segment_scan": [_vp] * 4 + [_ll, _i, _i, _vp],
 }
 

@@ -65,11 +65,14 @@ def gradient_scaling(x: torch.Tensor, a_norm: torch.Tensor,
 
 
 def weight_var(weights: torch.Tensor, ray_id: torch.Tensor,
-               i_local: torch.Tensor, n_rays: int) -> torch.Tensor:
-    """mean = sum w*(i/16) / (1e-6 + sum w);  var = sum w*(i/16 - mean)^2."""
+               i_local: torch.Tensor, n_rays: int,
+               offsets: torch.Tensor | None = None) -> torch.Tensor:
+    """mean = sum w*(i/16) / (1e-6 + sum w);  var = sum w*(i/16 - mean)^2.
+    ``offsets``: ``ray_offsets(ray_id, n_rays)[0]`` for the per-ray sums
+    (the renderer's result carries them; computed when None)."""
     pos = i_local.to(torch.float32) / _WEIGHT_VAR_SCALE
-    sums = segment_sum(torch.stack([weights, weights * pos], dim=1), ray_id, n_rays)
+    sums = segment_sum(torch.stack([weights, weights * pos], dim=1), ray_id, n_rays, offsets)
     mean = sums[:, 1] / (sums[:, 0] + 1e-6)
-    bias = pos - ray_gather(mean, ray_id, n_rays)
+    bias = pos - ray_gather(mean, ray_id, n_rays, offsets)
     bias = torch.where(ray_id < n_rays, bias, torch.zeros_like(bias))
-    return segment_sum(weights * bias * bias, ray_id, n_rays)
+    return segment_sum(weights * bias * bias, ray_id, n_rays, offsets)

@@ -14,15 +14,21 @@ step on the card gives the same bits on every run:
     reverse over the same segments;
   * ``ray_gather`` (``RayGather``): ``x[ray_id]`` for x [n_rays, ...],
     zeros on padding; backward K10;
-  * ``local_index``: K11 over ones.
+  * ``local_index``: each sample's index in its ray (``ray_offsets``);
+  * ``ray_offsets``: each ray's first row, its count and each row's local
+    index, one launch a buffer. K10 reads the offsets instead of searching
+    ``ray_id``: ``segment_sum``, ``ray_gather`` and ``segment_reduce`` take
+    them as an optional last argument (computed when not given), and the
+    renderer computes them once for its B buffer.
 
-K10 and K11 are in csrc/segment.cu. A wrapper given CPU tensors runs its
-plain version (``segment_sum_plain``: an index_add;
+K10, K11 and the offsets launch are in csrc/segment.cu. A wrapper given
+CPU tensors runs its plain version (``segment_sum_plain``: an index_add;
 ``segment_cumsum_plain``: a float64 global cumsum minus each segment's
-base, found with cummax); given CUDA tensors it launches its kernel or
-raises. Both scans accumulate in float64: a global f32 cumsum minus each
-segment's base would lose precision over a 393k-sample buffer, which is
-why the JAX package scans (value, flag) pairs instead.
+base, found with cummax; ``ray_offsets_plain``: a searchsorted); given
+CUDA tensors it launches its kernel or raises. Both scans accumulate in
+float64: a global f32 cumsum minus each segment's base would lose
+precision over a 393k-sample buffer, which is why the JAX package scans
+(value, flag) pairs instead.
 """
 
 from __future__ import annotations
@@ -75,6 +81,15 @@ def local_index_plain(ray_id: torch.Tensor, n_rays: int) -> torch.Tensor:
     return (idx - _segment_start(is_first)).to(torch.int32)
 
 
+def ray_offsets_plain(ray_id: torch.Tensor, n_rays: int):
+    """Plain version of ``ray_offsets``: a searchsorted over the sorted
+    ray_id, the differences of the offsets, and ``local_index_plain``."""
+    keys = torch.arange(n_rays + 1, dtype=ray_id.dtype, device=ray_id.device)
+    offsets = torch.searchsorted(ray_id, keys).to(torch.int32)
+    counts = (offsets[1:] - offsets[:-1]).to(torch.float32)
+    return offsets, counts, local_index_plain(ray_id, n_rays)
+
+
 # ------------------------------------------------------------------ kernels
 
 def _check_cuda(name: str, x: torch.Tensor, other: torch.Tensor, other_dtype) -> None:
@@ -87,25 +102,87 @@ def _check_cuda(name: str, x: torch.Tensor, other: torch.Tensor, other_dtype) ->
                          f"{tuple(other.shape)}")
 
 
-def segment_reduce(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int) -> torch.Tensor:
+def check_offsets(name: str, offsets, ray_id: torch.Tensor, n_rays: int) -> None:
+    """``offsets`` as ``ray_offsets`` gives them for (ray_id, n_rays): int32
+    [n_rays + 1] on ray_id's device."""
+    if not torch.is_tensor(offsets) or offsets.dtype != torch.int32 \
+            or tuple(offsets.shape) != (n_rays + 1,) or offsets.device != ray_id.device:
+        got = (f"{offsets.dtype} {tuple(offsets.shape)} on {offsets.device}"
+               if torch.is_tensor(offsets) else type(offsets).__name__)
+        raise ValueError(f"{name}: offsets must be int32 [{n_rays + 1}] on "
+                         f"{ray_id.device}, got {got}")
+
+
+def ray_offsets(ray_id: torch.Tensor, n_rays: int):
+    """Each ray's rows in a ray-sorted buffer (int32 ray_id [n], padding
+    rows == n_rays): offsets [n_rays + 1] int32 (each ray's first row,
+    offsets[n_rays] the first padding row, n if none), counts [n_rays] f32
+    (its rows) and local_index [n] int32 (``local_index``'s values: padding
+    rows continue the last ray's count). CPU tensors take
+    ``ray_offsets_plain``; CUDA tensors launch one cooperative kernel, a
+    thread a row (csrc/segment.cu)."""
+    if ray_id.device.type == "cpu":
+        return ray_offsets_plain(ray_id, n_rays)
+    if ray_id.device.type != "cuda":
+        raise ValueError(f"ray_offsets: unsupported device {ray_id.device}")
+    if ray_id.dtype != torch.int32 or ray_id.dim() != 1 or n_rays < 0:
+        raise ValueError(f"ray_offsets: expected int32 ray_id [n] and n_rays >= 0, got "
+                         f"{ray_id.dtype} {tuple(ray_id.shape)}, n_rays {n_rays}")
+    ray_id = ray_id.contiguous()
+    kernels.require_cuda("ray_offsets", ray_id)
+    n = ray_id.shape[0]
+    i32 = dict(dtype=torch.int32, device=ray_id.device)
+    if n == 0:
+        return (torch.zeros((n_rays + 1,), **i32),
+                torch.zeros((n_rays,), dtype=torch.float32, device=ray_id.device),
+                torch.empty((0,), **i32))
+    offsets = torch.empty((n_rays + 1,), **i32)
+    counts = torch.empty((n_rays,), dtype=torch.float32, device=ray_id.device)
+    local = torch.empty((n,), **i32)
+    code = kernels.library().f2_ray_offsets(
+        ray_id.data_ptr(), offsets.data_ptr(), counts.data_ptr(), local.data_ptr(), n,
+        n_rays, kernels.stream_ptr(ray_id.device))
+    kernels.check(code, "ray_offsets")
+    ray_offsets.launches += 1
+    return offsets, counts, local
+
+
+ray_offsets.launches = 0
+
+
+def segment_reduce(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int,
+                   offsets: torch.Tensor | None = None) -> torch.Tensor:
     """Per-ray sums of x [cap] or [cap, c] over a ray-sorted buffer (int32
-    ray_id, padding rows dropped): [n_rays] or [n_rays, c]. CPU tensors take
-    ``segment_sum_plain``; CUDA tensors launch K10, one warp a ray, the
-    lanes striding the ray's rows and then a fixed xor tree, so every
-    channel's sum has the same order on every run."""
+    ray_id, padding rows dropped): [n_rays] or [n_rays, c]. ``offsets``:
+    ``ray_offsets``' first output for this ray_id (computed when None). CPU
+    tensors take ``segment_sum_plain``; CUDA tensors launch K10, one warp a
+    ray over its rows [offsets[r], offsets[r + 1]) (held to x's rows: offsets
+    of another buffer never read past x's end), all channels in one
+    pass (float4 quads where c is 4, 8, 16 or 32), then a fixed xor tree,
+    so every channel's sum has the same order on every run."""
+    if offsets is not None:
+        check_offsets("segment_reduce", offsets, ray_id, n_rays)
     if x.device.type == "cpu":
         return segment_sum_plain(x, ray_id, n_rays)
     _check_cuda("segment_reduce", x, ray_id, torch.int32)
     if x.dim() not in (1, 2):
         raise ValueError(f"segment_reduce: x must be [cap] or [cap, c], got {tuple(x.shape)}")
-    x, ray_id = x.contiguous(), ray_id.contiguous()
-    kernels.require_cuda("segment_reduce", x, ray_id)
-    out = torch.empty((n_rays,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
     c = 1 if x.dim() == 1 else x.shape[1]
+    # rows of c unit-stride floats are read in place (a column slice of a
+    # wider buffer, as the appearance gather's gradient is); others copied
+    if x.stride(-1) != 1 or (x.dim() == 2 and x.shape[0] > 1 and x.stride(0) < c):
+        x = x.contiguous()
+    ld = c if x.dim() == 1 or x.shape[0] <= 1 else x.stride(0)
+    if offsets is None:
+        offsets = ray_offsets(ray_id, n_rays)[0]
+    kernels.require_cuda("segment_reduce", offsets)
+    if x.device != offsets.device:
+        raise ValueError(f"segment_reduce: x on {x.device}, offsets on {offsets.device}")
+    out = torch.empty((n_rays,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
     if n_rays == 0 or c == 0:
         return out
     code = kernels.library().f2_segment_reduce(
-        x.data_ptr(), ray_id.data_ptr(), out.data_ptr(), x.shape[0], n_rays, c,
+        x.data_ptr(), ld, x.shape[0], offsets.data_ptr(), out.data_ptr(), n_rays, c,
         kernels.stream_ptr(x.device))
     kernels.check(code, "segment_reduce")
     segment_reduce.launches += 1
@@ -185,14 +262,14 @@ class SegmentSum(torch.autograd.Function):
     samples, zeros on padding."""
 
     @staticmethod
-    def forward(ctx, x, ray_id, n_rays):
+    def forward(ctx, x, ray_id, n_rays, offsets=None):
         ctx.save_for_backward(ray_id)
-        return segment_reduce(x, ray_id, n_rays)
+        return segment_reduce(x, ray_id, n_rays, offsets)
 
     @staticmethod
     def backward(ctx, g):
         (ray_id,) = ctx.saved_tensors
-        return _gather_rows(g, ray_id), None, None
+        return _gather_rows(g, ray_id), None, None, None
 
 
 class SegmentCumsum(torch.autograd.Function):
@@ -216,21 +293,23 @@ class RayGather(torch.autograd.Function):
     K10 (each ray's rows summed in a fixed order)."""
 
     @staticmethod
-    def forward(ctx, x, ray_id, n_rays):
-        ctx.save_for_backward(ray_id)
+    def forward(ctx, x, ray_id, n_rays, offsets=None):
+        ctx.save_for_backward(ray_id, offsets)
         ctx.n_rays = n_rays
         return _gather_rows(x, ray_id)
 
     @staticmethod
     def backward(ctx, g):
-        (ray_id,) = ctx.saved_tensors
-        return segment_reduce(g, ray_id, ctx.n_rays), None, None
+        ray_id, offsets = ctx.saved_tensors
+        return segment_reduce(g, ray_id, ctx.n_rays, offsets), None, None, None
 
 
-def segment_sum(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int) -> torch.Tensor:
+def segment_sum(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int,
+                offsets: torch.Tensor | None = None) -> torch.Tensor:
     """Per-ray sum. x: [cap] or [cap, c]; returns [n_rays] or [n_rays, c].
-    Padding samples (ray_id == n_rays) are dropped."""
-    return SegmentSum.apply(x, ray_id, n_rays)
+    Padding samples (ray_id == n_rays) are dropped. ``offsets``:
+    ``ray_offsets(ray_id, n_rays)[0]``, computed on the card when None."""
+    return SegmentSum.apply(x, ray_id, n_rays, offsets)
 
 
 def segment_cumsum(x: torch.Tensor, is_first: torch.Tensor,
@@ -240,9 +319,13 @@ def segment_cumsum(x: torch.Tensor, is_first: torch.Tensor,
     return SegmentCumsum.apply(x, is_first, exclusive)
 
 
-def ray_gather(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int) -> torch.Tensor:
-    """Each sample's row of the per-ray x [n_rays, ...]; zeros on padding."""
-    return RayGather.apply(x, ray_id, n_rays)
+def ray_gather(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int,
+               offsets: torch.Tensor | None = None) -> torch.Tensor:
+    """Each sample's row of the per-ray x [n_rays, ...]; zeros on padding.
+    ``offsets`` as ``segment_sum`` takes them (its backward's K10)."""
+    if offsets is not None:
+        check_offsets("ray_gather", offsets, ray_id, n_rays)
+    return RayGather.apply(x, ray_id, n_rays, offsets)
 
 
 def segment_max(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int) -> torch.Tensor:
@@ -262,9 +345,8 @@ def first_flags_from_ray_id(ray_id: torch.Tensor, n_rays: int) -> torch.Tensor:
 
 
 def local_index(ray_id: torch.Tensor, n_rays: int) -> torch.Tensor:
-    """Index of each sample within its ray (0-based), int32: the exclusive
-    segmented scan of ones (K11 on the card). Padding rows continue the
-    last ray's count, as in the JAX package."""
-    ones = torch.ones(ray_id.shape, dtype=torch.float32, device=ray_id.device)
-    return segment_scan(ones, first_flags_from_ray_id(ray_id, n_rays), True,
-                        False).to(torch.int32)
+    """Index of each sample within its ray (0-based), int32: JAX's
+    exclusive segmented scan of ones, ``ray_offsets``' third output (the
+    offsets launch on the card). Padding rows continue the last ray's
+    count, as in the JAX package."""
+    return ray_offsets(ray_id, n_rays)[2]

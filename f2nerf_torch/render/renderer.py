@@ -44,7 +44,7 @@ from ..fields.hash_encoding import hash_encode
 from ..fields.mlp import mlp_apply
 from ..fields.sh import sh_encode
 from ..ops.activations import density_activation, gradient_scaling
-from ..ops.segment import (first_flags_from_ray_id, local_index, ray_gather,
+from ..ops.segment import (first_flags_from_ray_id, ray_gather, ray_offsets,
                            segment_cumsum, segment_sum)
 from ..sampler import device as dv
 from ..utils.spans import Spans
@@ -321,17 +321,18 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
     sigma = torch.where(ok_b[:, None], sigma, torch.zeros_like(sigma))
     shading_feat = torch.cat([torch.ones_like(scene_feat[:, :1]),
                               scene_feat[:, 1:]], dim=-1)
+    # B's rays once: each ray's rows (every K10 of the step reads them), its
+    # count and each sample's index in it
+    offsets_b, counts_b, i_local = ray_offsets(rid_b, R)
     if st.train and st.use_app_emb:
         # each ray's image row, then to its samples: both backwards sum in a
         # fixed order (an index_select's would be an index_add of atomics)
         shading_feat = shading_feat + ray_gather(
-            _image_rows(params["app_emb"], emb_idx), rid_b, R)
+            _image_rows(params["app_emb"], emb_idx), rid_b, R, offsets_b)
 
     colors_s = _shader_query(params, shading_feat, b["dirs"], st)
 
-    i_local = local_index(rid_b, R)
-    counts_b = segment_sum(torch.ones_like(rid_b, dtype=torch.float32), rid_b, R)
-    count_of = torch.clamp(ray_gather(counts_b, rid_b, R), min=1.0)
+    count_of = torch.clamp(ray_gather(counts_b, rid_b, R, offsets_b), min=1.0)
     a_norm = (i_local.to(torch.float32) + 0.5) / count_of
     sigma = gradient_scaling(sigma, a_norm, grad_progress)
     colors_s = gradient_scaling(colors_s, a_norm, grad_progress)
@@ -356,10 +357,11 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
     else:
         bg = torch.full((R, 3), 0.5, **f32)
 
-    # the four per-ray sums in one K10 launch (each channel summed as alone)
+    # the four per-ray sums in one K10 launch
     sums = segment_sum(torch.cat([sec[:, None], weights[:, None] * colors_s,
                                   (weights / sampled_t)[:, None],
-                                  (weights * sampled_t)[:, None]], dim=1), rid_b, R)
+                                  (weights * sampled_t)[:, None]], dim=1), rid_b, R,
+                       offsets_b)
     last_trans = torch.exp(-sums[:, 0])
     colors = sums[:, 1:4] + last_trans[:, None] * bg
     disparity = sums[:, 4]
@@ -388,6 +390,7 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
         weights=weights,
         ray_id=rid_b,
         i_local=i_local,
+        ray_offsets=offsets_b,
         last_trans=last_trans,
         stats=dict(
             n_sampled=n_ok_a,

@@ -10,8 +10,8 @@
     escalations and ``trunc`` exactly, and return the loop's iteration
     count as a 0-d device tensor.
   * ``ray_march_parallel`` — entry-point warp Jacobian per (ray, hit),
-    jittered-grid samples per hit: kernel K9 (csrc/march_parallel.cu, a
-    block a ray) on the card, ``ray_march_parallel_plain`` on the CPU,
+    jittered-grid samples per hit: kernel K9 (csrc/march_parallel.cu,
+    threads a ray sized to the hit cap) on the card, ``ray_march_parallel_plain`` on the CPU,
     where the JAX slot->hit indicator sum over [R, H, S] becomes
     ``searchsorted`` on the per-ray hit ends plus a gather (exactly the
     same values: one hit contributes to each slot).
@@ -508,6 +508,30 @@ def ray_march_parallel_plain(tree: DeviceTree, rays_o: torch.Tensor,
     return out_t, out_dt, out_node, n_samples.to(torch.int32), first_oct
 
 
+# K9's launch geometry (csrc/march_parallel.cu): at most MARCH_RAY_THREADS
+# threads a ray and MARCH_BLOCK_THREADS a block; MARCH_RAYS_PER_BLOCK rays a
+# block where the threads a ray leave room (the fastest of 1, 2 and 4 at the
+# slice's hit cap of 64, by a hair over 2: scripts/sweep_kernels.py)
+MARCH_RAY_THREADS = 128
+MARCH_BLOCK_THREADS = 256
+MARCH_RAYS_PER_BLOCK = 4
+
+
+def ray_march_parallel_geometry(H: int) -> dict:
+    """K9's launch for a hit cap H: a thread a hit in whole warps, at most
+    MARCH_RAY_THREADS threads a ray (``ray_threads``), each taking
+    ``hits_per_thread`` consecutive hits; ``rays_per_block`` rays a block
+    (MARCH_RAYS_PER_BLOCK, cut to what MARCH_BLOCK_THREADS holds);
+    ``smem_bytes``, the block's dynamic shared memory (near, step, dt, node
+    and end of every hit of its rays)."""
+    if H < 1:
+        raise ValueError(f"ray_march_parallel_geometry: hit cap {H} < 1")
+    ray_threads = min(MARCH_RAY_THREADS, 32 * -(-H // 32))
+    k = min(MARCH_RAYS_PER_BLOCK, MARCH_BLOCK_THREADS // ray_threads)
+    return dict(ray_threads=ray_threads, hits_per_thread=-(-H // ray_threads),
+                rays_per_block=k, block_threads=k * ray_threads, smem_bytes=k * H * 5 * 4)
+
+
 def ray_march_parallel(tree: DeviceTree, rays_o: torch.Tensor,
                        rays_d: torch.Tensor, hit_idx, hit_near, hit_far,
                        n_hits, jitter: torch.Tensor, fineness,
@@ -522,7 +546,8 @@ def ray_march_parallel(tree: DeviceTree, rays_o: torch.Tensor,
     tensor (read on the device: no sync). Returns dense buffers out_t
     [R, max_s], out_dt [R, max_s] (warp-space dt), out_node [R, max_s]
     i32, n_samples [R] i32, first_oct_dis [R]. CPU tensors take the plain
-    version; CUDA tensors launch K9."""
+    version; CUDA tensors launch K9 (``ray_march_parallel_geometry``:
+    threads a ray sized to H, MARCH_RAYS_PER_BLOCK rays a block)."""
     if rays_o.device.type == "cpu":
         return ray_march_parallel_plain(tree, rays_o, rays_d, hit_idx, hit_near,
                                         hit_far, n_hits, jitter, fineness, sample_l,
@@ -554,6 +579,10 @@ def ray_march_parallel(tree: DeviceTree, rays_o: torch.Tensor,
                                     rays_d, jitter, fineness)]
     warp = (tree.trans_idx, tree.w2xz, tree.weight, tree.t_center, tree.t_dis)
     kernels.require_cuda("ray_march_parallel", *ins, *warp)
+    if tree.w2xz.data_ptr() % 16 or tree.weight.data_ptr() % 16:
+        raise ValueError("ray_march_parallel: w2xz and weight must be 16-byte aligned "
+                         "(K9 reads their rows as float4)")
+    geo = ray_march_parallel_geometry(H)
     out_t = torch.empty((R, max_s), dtype=torch.float32, device=dev)
     out_dt = torch.empty((R, max_s), dtype=torch.float32, device=dev)
     out_node = torch.empty((R, max_s), dtype=torch.int32, device=dev)
@@ -563,7 +592,8 @@ def ray_march_parallel(tree: DeviceTree, rays_o: torch.Tensor,
         code = kernels.library().f2_ray_march_parallel(
             *(x.data_ptr() for x in ins), *(x.data_ptr() for x in warp),
             *(x.data_ptr() for x in (out_t, out_dt, out_node, n_out, first_oct)),
-            R, H, max_s, float(sample_l), int(scale_by_dis), kernels.stream_ptr(dev))
+            R, H, max_s, float(sample_l), int(scale_by_dis), geo["ray_threads"],
+            geo["rays_per_block"], kernels.stream_ptr(dev))
         kernels.check(code, "ray_march_parallel")
         ray_march_parallel.launches += 1
     return out_t, out_dt, out_node, n_out, first_oct

@@ -301,7 +301,8 @@ def compute_losses(result: dict, gt: torch.Tensor, n_rays: int,
     ef = result["edge_feats"]
     tv_loss = torch.mean((ef[:, 0, :] - ef[:, 1, :]) ** 2) if ef is not None \
         else torch.zeros((), device=pred.device)
-    var = weight_var(result["weights"], result["ray_id"], result["i_local"], n_rays)
+    var = weight_var(result["weights"], result["ray_id"], result["i_local"], n_rays,
+                     result["ray_offsets"])
     var_loss = torch.mean(torch.sqrt(var + 1e-2))
     loss = (color_loss
             + var_loss * runtime["var_loss_weight"]

@@ -1,8 +1,8 @@
 """The port's segment ops (f2nerf_torch/ops/segment.py) through their
 autograd Functions, against the JAX package's (f2nerf_tpu/ops/segment.py,
 run on the CPU), forward and backward; and, on the card, kernels K10
-(``segment_reduce``) and K11 (``segment_scan``) against their plain
-versions.
+(``segment_reduce``) and K11 (``segment_scan``) and the offsets launch
+(``ray_offsets``) against their plain versions.
 
 Inputs come from numpy seeds: ray-sorted ids with empty rays and trailing
 padding (id == n_rays), a buffer that is all padding, a single 512-sample
@@ -15,13 +15,16 @@ Tolerances:
     (JAX's associative scan adds in f32, the port in f64: JAX's rounding
     grows with the running sums, ~400 over the 512-sample ray); the
     reverse scan against float64 numpy suffix sums: rtol 1e-6, atol 1e-6;
-  * gathers' forward and local_index: exact;
+  * gathers' forward, local_index and the offsets launch's three outputs
+    (integers): exact; the sums with the offsets given equal the same calls
+    without them, bit for bit;
   * on the card, K10 against index_add: |diff| <= 1e-5 of the ray's sum of
-    |x| (both f32, other orders); K11 against the plain f64 cumsum: rtol
-    1e-6, atol 1e-6 (chip_smoke.py's TOL_SCAN: both sum in f64 and round
-    once to f32, so they differ by an f32 ulp at most); the same launch
-    twice: the same bits, also 20 times over while another stream keeps
-    the card busy.
+    |x| (both f32, other orders), at C = 1, 2, 6, 8, 16 and 17 (the vector
+    path where C is 8 or 16, the scalar one otherwise); K11 against the
+    plain f64 cumsum: rtol 1e-6, atol 1e-6 (chip_smoke.py's TOL_SCAN: both
+    sum in f64 and round once to f32, so they differ by an f32 ulp at
+    most); the same launch twice: the same bits, also 20 times over while
+    another stream keeps the card busy.
 
 K11 runs a block a tile of 2,048 rows in one launch; its state (two
 counters and a published aggregate a tile) is kept zeroed between calls,
@@ -168,6 +171,61 @@ def test_local_index_matches_jax_and_plain(case):
     np.testing.assert_array_equal(got.numpy(), tseg.local_index_plain(T(rid), n).numpy())
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_ray_offsets_plain_matches_jax(case):
+    """``ray_offsets``' plain version: counts equal JAX's segment_sum of
+    ones, local_index JAX's local_index, and each ray's rows are
+    [offsets[r], offsets[r + 1]) (offsets[n_rays] the first padding row)."""
+    rid, _, n = make_case(case, seed=15)
+    offsets, counts, li = tseg.ray_offsets(T(rid), n)
+    assert (offsets.dtype, counts.dtype, li.dtype) == (torch.int32, torch.float32, torch.int32)
+    ones = jnp.ones(rid.shape, jnp.float32)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.asarray(jseg.segment_sum(ones, jnp.asarray(rid), n)))
+    np.testing.assert_array_equal(li.numpy(), np.asarray(jseg.local_index(jnp.asarray(rid), n)))
+    np.testing.assert_array_equal(offsets.numpy(), np.searchsorted(rid, np.arange(n + 1)))
+
+
+def test_ray_offsets_plain_of_an_empty_buffer():
+    offsets, counts, li = tseg.ray_offsets(torch.zeros(0, dtype=torch.int32), 3)
+    assert offsets.tolist() == [0, 0, 0, 0] and counts.tolist() == [0.0] * 3
+    assert li.shape == (0,)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_offsets_given_equal_offsets_computed(case):
+    """segment_sum, ray_gather and weight_var with the offsets given: the
+    same values and gradients as the same calls without them."""
+    rid, x, n = make_case(case, seed=16, c=6)
+    offsets, _, li = tseg.ray_offsets(T(rid), n)
+    per_ray = np.random.RandomState(17).randn(n, 3).astype(np.float32)
+    w = np.abs(x[:, 0])
+    out = []
+    for off in (None, offsets):
+        xt, pt, wt = (T(v).requires_grad_(True) for v in (x, per_ray, w))
+        s = tseg.segment_sum(xt, T(rid), n, off)
+        gat = tseg.ray_gather(pt, T(rid), n, off)
+        var = tact.weight_var(wt, T(rid), li, n, off)
+        ((s * s).sum() + (gat * gat).sum() + var.sum()).backward()
+        out.append([v.detach() for v in (s, gat, var, xt.grad, pt.grad, wt.grad)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_wrappers_refuse_bad_offsets():
+    """Offsets of the wrong length, type or kind raise, on every route."""
+    rid, x, n = make_case("ragged", seed=18, c=2)
+    good = tseg.ray_offsets(T(rid), n)[0]
+    for bad in (good[:-1], good.long(), good.float(), good.tolist(),
+                torch.zeros(n + 1, dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError, match="offsets must be int32"):
+            tseg.segment_reduce(T(x), T(rid), n, bad)
+        with pytest.raises(ValueError, match="offsets must be int32"):
+            tseg.segment_sum(T(x), T(rid), n, bad)
+        with pytest.raises(ValueError, match="offsets must be int32"):
+            tseg.ray_gather(T(x[:n]), T(rid), n, bad)
+
+
 # --------------------------------------------------------- callers vs JAX
 
 @pytest.mark.parametrize("case", CASES)
@@ -235,6 +293,13 @@ def test_wrappers_refuse_other_devices():
         tseg.segment_scan(x, torch.zeros(8, dtype=torch.bool, device="meta"))
 
 
+def test_ray_offsets_refuses_other_devices():
+    before = tseg.ray_offsets.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        tseg.ray_offsets(torch.zeros(8, dtype=torch.int32, device="meta"), 1)
+    assert tseg.ray_offsets.launches == before
+
+
 def test_scan_state_sizes_and_reuse():
     """K11's state: a 16-byte slot for the counters, then 16 bytes a tile
     of SCAN_TILE_ROWS rows; allocated zeroed at a power of two of bytes,
@@ -277,14 +342,31 @@ def step_case(seed: int, n_rays: int = 2048, per: int = 192, cap: int = 393216):
 
 
 def _reduce_on_card(cuda, rid, x, n):
+    """K10 within 1e-5 of each ray's sum of |x| of index_add, the same bits
+    on a second launch and with the offsets given (one offsets launch, one
+    K10 launch a call)."""
     xd, rd = T(x).to(cuda), T(rid).to(cuda)
+    offsets = tseg.ray_offsets(rd, n)[0]
+    before = (tseg.segment_reduce.launches, tseg.ray_offsets.launches)
     got = tseg.segment_reduce(xd, rd, n)
-    again = tseg.segment_reduce(xd, rd, n)
+    again = tseg.segment_reduce(xd, rd, n, offsets)
+    assert (tseg.segment_reduce.launches - before[0],
+            tseg.ray_offsets.launches - before[1]) == (2, 1)
     want = tseg.segment_sum_plain(xd, rd, n)
     scale = tseg.segment_sum_plain(xd.abs(), rd, n)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def _offsets_on_card(cuda, rid, n):
+    """The offsets launch equal to its plain version (all three outputs)."""
+    rd = T(rid).to(cuda)
+    got = tseg.ray_offsets(rd, n)
+    want = tseg.ray_offsets_plain(rd, n)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def _scan_on_card(cuda, rid, x, n):
@@ -301,11 +383,70 @@ def _scan_on_card(cuda, rid, x, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [0, 1, 6, 16])
+@pytest.mark.parametrize("c", [0, 1, 2, 6, 8, 16, 17])
 def test_k10_matches_plain_at_the_step_shape(cuda, c):
     rid, n = step_case(c)
     x = np.random.RandomState(c).uniform(-1, 2, rid.shape + ((c,) if c else ())).astype(np.float32)
     _reduce_on_card(cuda, rid, x, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["unaligned", "slice_of_32", "slice_of_41"])
+def test_k10_rows_of_a_wider_buffer(cuda, layout):
+    """x [n, 16] read in place: starting one float into its buffer (not
+    16-byte aligned: the scalar path), the first 16 columns of an [n, 32]
+    buffer (the vector path with a row stride of 32, as the appearance
+    gather's gradient is) and of an [n, 41] buffer (the scalar path)."""
+    rid, n = step_case(29, n_rays=256, per=50, cap=30000)
+    rows = rid.shape[0]
+    width = {"unaligned": 16, "slice_of_32": 32, "slice_of_41": 41}[layout]
+    flat = np.random.RandomState(29).uniform(-1, 2, rows * width + 1).astype(np.float32)
+    buf = T(flat).to(cuda)
+    if layout == "unaligned":
+        xd = buf[1:].view(-1, 16)
+        assert xd.data_ptr() % 16 != 0
+    else:
+        xd = buf[:-1].view(rows, width)[:, :16]
+        assert not xd.is_contiguous() and xd.stride(0) == width
+    rd = T(rid).to(cuda)
+    got = tseg.segment_reduce(xd, rd, n)
+    want = tseg.segment_sum_plain(xd, rd, n)
+    scale = tseg.segment_sum_plain(xd.abs(), rd, n)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+    if layout == "slice_of_32":      # the vector path either way: the same order
+        assert torch.equal(got.view(torch.int32),
+                           tseg.segment_reduce(xd.contiguous(), rd, n).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 16])
+def test_k10_holds_offsets_to_the_rows_of_x(cuda, c):
+    """Offsets of a longer buffer (the last entries past x's 10 rows, one
+    before row 0): K10 sums only x's own rows of each ray, on both paths."""
+    x = np.random.RandomState(41).uniform(-1, 2, (10, c)).astype(np.float32)
+    offsets = np.array([-3, 3, 6, 12, 20], np.int32)
+    rid = np.array([0, 0, 0, 1, 1, 1, 2, 2, 2, 2], np.int32)
+    got = tseg.segment_reduce(T(x).to(cuda), T(rid).to(cuda), 4, T(offsets).to(cuda)).cpu()
+    want = tseg.segment_sum_plain(T(x), T(rid), 4)
+    scale = tseg.segment_sum_plain(T(np.abs(x)), T(rid), 4)
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["step", "no_rows", "empty_buffer", *CASES])
+def test_ray_offsets_on_card(cuda, case):
+    """The offsets launch at the step's shape, the edge cases, rays with no
+    rows (n_rays 0 and a buffer of padding) and an empty buffer."""
+    if case == "step":
+        rid, n = step_case(30, per=64, cap=262144)
+    elif case == "no_rows":
+        rid, n = np.zeros(5000, np.int32), 0
+    elif case == "empty_buffer":
+        rid, n = np.zeros(0, np.int32), 7
+    else:
+        rid, _, n = make_case(case, seed=31)
+    _offsets_on_card(cuda, rid, n)
 
 
 @pytest.mark.cuda

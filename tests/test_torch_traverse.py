@@ -7,7 +7,8 @@ iterations), on the rig's tree and on a subdivided one, with the hit cap
 and the iteration cut reached; the batch's ``n_iters`` is the largest
 per-ray count, a 0-d int32 tensor; a batch through
 ``ray_march_parallel_plain`` equals its rays marched alone. These are the
-properties that let K8 run a thread a ray and K9 a block a ray. The
+properties that let K8 run a thread a ray and K9 a group of threads a
+ray, several rays a block. The
 wrappers dispatch by device (CPU: the plain version; any other device but
 CUDA raises), and the Trainer's metrics carry ``trav_iters`` as an int.
 
@@ -24,8 +25,11 @@ brute-force, distant-origin and grazing cases, and trees just under and
 just over the shared-memory cap, with hit_idx, n_hits, trunc, n_iters and
 each ray's iterations equal and hit_near / hit_far bitwise equal; K9
 against ``ray_march_parallel_plain`` with scale_by_dis on and off, eval's
-all-ones jitter and the degenerate-hit tree, every output bitwise equal.
-Each wrapper launches its kernel once a call.
+all-ones jitter, the degenerate-hit tree and hit caps 8, 20, 40, 64, 96
+and 256 with 1, 2 or 4 rays a block (a batch also equal to its rays
+alone), every output bitwise equal. Each wrapper launches its kernel once
+a call. On the CPU, K9's launch geometry (``ray_march_parallel_geometry``)
+at hit caps 16, 64, 96 and 256.
 """
 
 import copy
@@ -361,6 +365,21 @@ def test_march_parallel_batch_equals_rays_alone(hosts, kind, scale_by_dis, ones)
             assert torch.equal(whole[k][r], alone[k][0]), (r, k)
 
 
+@pytest.mark.parametrize("H,want", [
+    (16, (32, 1, 4, 128, 1280)), (64, (64, 1, 4, 256, 5120)),
+    (96, (96, 1, 2, 192, 3840)), (256, (128, 2, 2, 256, 10240))])
+def test_march_parallel_geometry(H, want):
+    """K9's launch: a thread a hit in whole warps (at most 128 a ray, two
+    hits a thread at H 256), MARCH_RAYS_PER_BLOCK rays a block where 256
+    threads hold them, and 20 bytes of shared memory a hit of the block."""
+    assert tdv.MARCH_RAYS_PER_BLOCK == 4
+    geo = tdv.ray_march_parallel_geometry(H)
+    assert tuple(geo[k] for k in ("ray_threads", "hits_per_thread", "rays_per_block",
+                                  "block_threads", "smem_bytes")) == want
+    with pytest.raises(ValueError):
+        tdv.ray_march_parallel_geometry(0)
+
+
 def test_trainer_reports_trav_iters_as_an_int(tmp_path):
     """The traversal's count rides in the step's one f32 metric row and
     comes back from the drain as an int, the loop's count of that step."""
@@ -446,10 +465,11 @@ def test_k8_brute_force_distant_and_grazing_on_card(cuda, rig_host, hosts):
     k8_against_plain(host, caps, rays(4, 256), cuda, max_iters=9)  # the cut
 
 
-def k9_against_plain(host, caps, case, dev, jit, fineness, scale_by_dis, max_s):
+def k9_against_plain(host, caps, case, dev, jit, fineness, scale_by_dis, max_s,
+                     max_hits=64):
     tree = tdv.to_device_tree(host, *caps, device=dev)
     o, d = (T(x).to(dev) for x in case[:2])
-    hits = tdv.traverse(tree, o, d, *(T(x).to(dev) for x in case[2:]), 64)[:4]
+    hits = tdv.traverse(tree, o, d, *(T(x).to(dev) for x in case[2:]), max_hits)[:4]
     args = (tree, o, d, *hits, T(jit).to(dev), torch.tensor(fineness, device=dev),
             SAMPLE_L, scale_by_dis, max_s)
     before = tdv.ray_march_parallel.launches
@@ -459,7 +479,7 @@ def k9_against_plain(host, caps, case, dev, jit, fineness, scale_by_dis, max_s):
     assert tdv.ray_march_parallel.launches == before + 1
     for k, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype and torch.equal(bits(g), bits(w)), k
-    return got
+    return got, args
 
 
 @pytest.mark.cuda
@@ -470,13 +490,34 @@ def test_k9_on_card(cuda, hosts, kind, scale_by_dis, ones, max_s):
     host, caps = hosts[kind]
     n = 1024
     jit = np.ones((n, max_s), np.float32) if ones else jitter_of(n, max_s)
-    got = k9_against_plain(host, caps, rays(12, n), cuda, jit, 16.0, scale_by_dis, max_s)
+    got = k9_against_plain(host, caps, rays(12, n), cuda, jit, 16.0, scale_by_dis, max_s)[0]
     assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,H", [
+    ("rig", 8), ("rig", 20), ("rig", 40), ("rig", 64), ("rig", 96), ("subdivided", 256)])
+def test_k9_hit_caps_on_card(cuda, hosts, kind, H):
+    """K9 at hit caps below 32, not a multiple of 32, 64 (the slice's) and
+    256 (two hits a thread); four rays a block up to H 64, two at H 96 and
+    256: bit for bit the plain version, and a batch row for row each of its
+    rays alone."""
+    host, caps = hosts[kind]
+    n, max_s = 600, 512
+    got, args = k9_against_plain(host, caps, rays(14, n), cuda, jitter_of(n, max_s), 16.0,
+                                 True, max_s, H)
+    assert int(got[3].sum()) > 0
+    tree, rest = args[0], args[1:9]
+    for r in (0, 1, 2, n // 2, n - 1):
+        alone = tdv.ray_march_parallel(tree, *(a[r:r + 1] for a in rest[:7]), rest[7],
+                                       *args[9:])
+        for k in range(5):
+            assert torch.equal(bits(alone[k][0]), bits(got[k][r])), (r, k)
 
 
 @pytest.mark.cuda
 def test_k9_degenerate_hits_on_card(cuda):
     host, case = degenerate_host()
     got = k9_against_plain(host, (8, 8, 8), case, cuda, np.ones((1, 64), np.float32),
-                           1.0, False, 64)
+                           1.0, False, 64)[0]
     assert int(got[3][0]) > 0 and bool(torch.isfinite(got[0]).all())
