@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py                 # every phase; needs one CUDA card
     python3 chip_smoke.py --phases build,kernels   # a subset (no final line)
-    python3 chip_smoke.py --phases device,build,kernels,slice,maintain \
-        --baseline DIR    # K9 and K10 of an earlier tree (a checkout in DIR)
-                          # timed in turns beside this tree's, same inputs
+    python3 chip_smoke.py --phases device,build,kernels,slice,profile \
+        --baseline DIR    # a slice step's launches and steps/s of an earlier
+                          # tree (a checkout in DIR) beside this tree's, in turns
 
 Phases:
   1. device  — refuse to run without CUDA; print the card, its power limit
@@ -36,8 +36,15 @@ Phases:
                one step, forward and backward, each launch repeated bit
                for bit, K10 beside torch.segment_reduce, K11 and the
                offsets launch one device launch a call (torch.profiler);
-               with --baseline, the earlier tree's K9 and K10 in turns
-               on the same inputs, and its step's K10 and K11 calls).
+               K12 (the A compaction with its warp, and the edge
+               samples' warp), K13 (the keep-set compaction A -> B) and
+               K14 (the occupancy votes and their fold) at the step's own
+               inputs and at their edge cases (a uniform slice shape,
+               overflow past the capacity, nothing kept, the degenerate
+               warp's inf and NaN, NaN, +-inf and -0.0 weights), every
+               output bit for bit its plain version, each launch
+               repeated bit for bit, the votes beside one scatter_reduce
+               amax).
                K7's and K8's
                bounds also have a chain term (march_case, traverse_case):
                the longest ray's dependent operations at the card's max
@@ -47,12 +54,13 @@ Phases:
                losses finite, grads finite, params moved, every kernel
                launched by the main path (launch counters reset just before),
                the table-gradient scatter K3, the traversal K8, the
-               marcher K9 and the offsets launch exactly once a step, K10
-               five times and K11 three times a step;
+               marcher K9, the offsets launch, K12's two entry points, K13
+               and K14's two exactly once a step, K10 five times and K11
+               three times a step;
                then one pipelined
                train_many chunk under torch.cuda.set_sync_debug_mode:
                the synchronizing calls a step by span, none allowed in
-               render.traverse and render.march (sync_counts).
+               the render's spans or the occupancy fold (sync_counts).
   5. parity  — one step from one saved state with one set of draws on the
                card (kernels) and on the CPU (plain versions), compared.
   6. maintain — octree maintenance on the card: (a) the slice's config with
@@ -117,17 +125,25 @@ Phases:
                per-span host/device time, the device busy share (device
                events only, beside the earlier count that took a kernel
                launched through an aten op twice), the segment layer's
-               device time and the top kernels
+               device time, the top kernels and a step's launches (device
+               activities, outermost aten ops)
                (--phases device,build,kernels,slice,profile); with the
-               variants phase, also over 3 more steps of its config (a).
+               variants phase, also over 3 more steps of its config (a);
+               with --baseline ROOT, the launches phase of ROOT's package
+               and of this tree's, one process each, in turns (ROOT,
+               this, this, ROOT: launch_turns).
+  launches   — not run by default: LAUNCH_TURN_STEPS synced slice steps
+               timed, then the profile phase's counts, as one JSON line
+               (--phases device,build,launches [--package-root ROOT]).
   atomics    — not run by default: one slice step twice from one state,
                torch's deterministic algorithms off, every aten op's
                inputs and outputs fingerprinted: the ops whose output
                depends on the order of their float sums, with where they
                ran, and each gradient leaf bit for bit (phase_atomics).
-  Without the slice phase, profile and atomics build the slice's trainer
-  and take its 20 steps uncounted (--phases device,build,profile,atomics),
-  so the same script can time a parent tree's package.
+  Without the slice phase, profile, atomics and launches build the slice's
+  trainer and take its 20 steps uncounted (--phases
+  device,build,profile,atomics), so the same script can time a parent
+  tree's package (--package-root).
 
 The last lines are the kernels JSON, the card line, and the result JSON.
 Any failed phase raises, and the script exits non-zero without a result.
@@ -235,14 +251,17 @@ TRAV_NODE_BYTES = 80 + 4
 # K8's uniform case: rays from U[-1, 1]^3, uniform directions, hit cap 64
 TRAV_UNIFORM_RAYS = 2048
 CARD = {}              # what phase_device reads of the card (max SM clock)
-# --baseline ROOT: an earlier tree's K9 (a block of 128 threads a ray) and
-# K10 (a search of ray_id in every call), built from ROOT's csrc/ and timed
-# beside this tree's on the same inputs (build_baseline)
-BASELINE = {}
+# --baseline ROOT with the profile phase: a slice step's launches and the
+# slice's steps/s of ROOT's package and of this tree's, one process each, in
+# turns (launch_turns): ROOT, this, this, ROOT; each process times
+# LAUNCH_TURN_STEPS synced steps after the slice's steps
+LAUNCH_TURN_STEPS = 40
 OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
                 "hash_encode_fwd", "hash_encode_bwd", "ray_march", "traverse",
-                "ray_march_parallel", "ray_offsets", "segment_reduce", "segment_scan")
+                "ray_march_parallel", "ray_offsets", "segment_reduce", "segment_scan",
+                "compact_a_warp", "sample_edges", "compact_keep", "compute_occupancy_adders",
+                "apply_occupancy_adders")
 # K10/K11 tolerances against their plain versions: K10 sums f32 in another
 # order than index_add, so it is held to 1e-5 of each ray's sum of |x|; K11
 # and the plain version both sum in f64 and round once to f32 (an f32 ulp
@@ -257,8 +276,11 @@ NO_LIBRARY_SCAN = "none: no single PyTorch call computes a segmented scan"
 # modules call them (phase_profile's segment ranges)
 SEGMENT_FUNCS = ("segment_sum", "segment_cumsum", "local_index", "ray_offsets", "ray_gather",
                  "weight_var", "_image_rows")
-# the spans that must not synchronize the host on the card (sync_counts)
-NO_SYNC_SPANS = ("render.traverse", "render.march")
+# the spans that must not synchronize the host on the card (sync_counts):
+# every span of the render and the occupancy fold
+NO_SYNC_SPANS = ("render.traverse", "render.march", "render.compact_a_warp",
+                 "render.prefilter", "render.compact_b", "render.field_shader",
+                 "render.composite", "step.occupancy_fold")
 # the maintain phase: (a) a compressed maintenance schedule, (c) real scale
 MAINT_STEPS = 50
 MAINT_OVERRIDES = ["pts_sampler.compact_freq=10", "pts_sampler.sub_div_milestones=[20,40]"]
@@ -276,6 +298,11 @@ NO_LIBRARY = "none: no single PyTorch call computes the hashed trilinear " \
 NO_LIBRARY_MARCH = "none: no PyTorch call marches rays through their hit lists"
 NO_LIBRARY_TRAVERSE = "none: no PyTorch call traverses an octree"
 NO_LIBRARY_MARCH_PARALLEL = "none: no PyTorch call marches a jittered grid"
+NO_LIBRARY_WARP = "none: no PyTorch call warps points through per-leaf projections"
+NO_LIBRARY_KEEP = ("none: no single PyTorch call compacts kept rows into a padded buffer "
+                   "(torch.nonzero_static, the indices alone, timed beside)")
+NO_LIBRARY_FOLD = "none: no single PyTorch call folds the votes into the counters"
+LIBRARY_VOTES = "torch.Tensor.scatter_reduce amax (one of the votes' three node scatters)"
 
 
 def log(*a):
@@ -341,15 +368,30 @@ def wrappers():
     from f2nerf_torch.ops import gather as ga
     from f2nerf_torch.ops import segment as sg
     from f2nerf_torch.sampler import device as dv
+    from f2nerf_torch.render import renderer as rd
     return (fa.fused_adam, hb.hash_block_fwd, hb.hash_block_bwd, ga.row_gather,
             he.hash_encode_fwd, he.hash_encode_bwd, dv.ray_march, dv.traverse,
-            dv.ray_march_parallel, sg.ray_offsets, sg.segment_reduce, sg.segment_scan)
+            dv.ray_march_parallel, sg.ray_offsets, sg.segment_reduce, sg.segment_scan,
+            rd.compact_a_warp, dv.sample_edges, rd.compact_keep, dv.compute_occupancy_adders,
+            dv.apply_occupancy_adders)
 
 
 def seg_need(k: int) -> dict:
     """K10, K11 and the offsets launch at least k times each (every render
     composites)."""
     return {"segment_reduce": k, "segment_scan": k, "ray_offsets": k}
+
+
+def warp_need(k: int, train: bool = True, two_pass: bool = True) -> dict:
+    """K12's A side at least k times (every render), K13 where the render
+    has a prefilter (two passes), K12's edge samples and K14's votes and
+    fold where it trains."""
+    need = {"compact_a_warp": k}
+    if two_pass:
+        need["compact_keep"] = k
+    if train:
+        need.update(sample_edges=k, compute_occupancy_adders=k, apply_occupancy_adders=k)
+    return need
 
 
 def reset_counts() -> None:
@@ -659,62 +701,6 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def build_baseline(root: str) -> None:
-    """--baseline ROOT: compile ROOT's f2nerf_torch/csrc/march_parallel.cu
-    and segment.cu (an earlier K9, a block of 128 threads a ray, and an
-    earlier K10, which searches ray_id in every call) into a library of
-    their own under ROOT, with this tree's nvcc flags, for
-    ``baseline_march_parallel`` and ``baseline_segment_reduce``."""
-    import ctypes
-    from f2nerf_torch import kernels
-    src = os.path.join(root, "f2nerf_torch", "csrc")
-    so = os.path.join(root, "f2nerf_torch", "_build", "libf2baseline.so")
-    os.makedirs(os.path.dirname(so), exist_ok=True)
-    t0 = time.perf_counter()
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
-                    os.path.join(src, "march_parallel.cu"), os.path.join(src, "segment.cu")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(so)
-    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.f2_ray_march_parallel.argtypes = [vp] * 18 + [i, i, i, f, i, vp]
-    lib.f2_segment_reduce.argtypes = [vp, vp, vp, ll, i, i, vp]
-    lib.f2_ray_march_parallel.restype = lib.f2_segment_reduce.restype = ctypes.c_int
-    BASELINE.update(lib=lib, root=root)
-    log(f"[build] baseline K9/K10 from {src} in {time.perf_counter() - t0:.2f} s")
-
-
-def baseline_march_parallel(tree, rays_o, rays_d, hit_idx, hit_near, hit_far, n_hits,
-                            jitter, fineness, sample_l: float, scale_by_dis: bool,
-                            max_s: int):
-    """The baseline's K9 on the same inputs: what ``ray_march_parallel``
-    returns."""
-    from f2nerf_torch import kernels
-    R, H = hit_idx.shape
-    dev = rays_o.device
-    outs = (torch.empty((R, max_s), device=dev), torch.empty((R, max_s), device=dev),
-            torch.empty((R, max_s), dtype=torch.int32, device=dev),
-            torch.empty((R,), dtype=torch.int32, device=dev), torch.empty((R,), device=dev))
-    ins = [x.contiguous() for x in (hit_idx, hit_near, hit_far, n_hits, rays_o, rays_d,
-                                    jitter, fineness)]
-    warp = (tree.trans_idx, tree.w2xz, tree.weight, tree.t_center, tree.t_dis)
-    kernels.check(BASELINE["lib"].f2_ray_march_parallel(
-        *(x.data_ptr() for x in (*ins, *warp, *outs)), R, H, max_s, float(sample_l),
-        int(scale_by_dis), kernels.stream_ptr(dev)), "baseline ray_march_parallel")
-    return outs
-
-
-def baseline_segment_reduce(x, ray_id, n_rays: int):
-    """The baseline's K10 on the same inputs (it searches ray_id itself)."""
-    from f2nerf_torch import kernels
-    x = x.contiguous()
-    out = torch.empty((n_rays,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
-    c = 1 if x.dim() == 1 else x.shape[1]
-    kernels.check(BASELINE["lib"].f2_segment_reduce(
-        x.data_ptr(), ray_id.data_ptr(), out.data_ptr(), x.shape[0], n_rays, c,
-        kernels.stream_ptr(x.device)), "baseline segment_reduce")
-    return out
-
-
 def device_kernels(fn) -> list:
     """The names of the device activities (kernels, memsets) that one call
     of fn puts on the card, in order (torch.profiler)."""
@@ -786,9 +772,7 @@ def march_parallel_case(args: tuple, label: str) -> dict:
     bound is bytes: the valid hit entries and n_hits, the rays, the
     jitter of the slots filled, the fineness, the trans_idx of the
     distinct nodes and the warp rows of the distinct leaves read once;
-    the dense outputs, n_samples and first_oct written once. With
-    --baseline, the baseline's K9 on the same input too (held to the plain
-    version alike), the two timed in turns."""
+    the dense outputs, n_samples and first_oct written once."""
     from f2nerf_torch.sampler import device as dv
     tree, _, _, hit_idx, _, _, n_hits, _, _, _, scale_by_dis, max_s = args
     got = dv.ray_march_parallel(*args)
@@ -799,19 +783,8 @@ def march_parallel_case(args: tuple, label: str) -> dict:
     err = max((got[k] - want[k]).abs().max().item() for k in (0, 1, 4))
     n_s = int(want[3].sum())
     R, H = hit_idx.shape
-    extra = {}
-    fns = {"kernel": lambda: dv.ray_march_parallel(*args)}
-    if BASELINE:
-        old = baseline_march_parallel(*args)
-        torch.cuda.synchronize()
-        extra["baseline_equal"] = all(bits_equal(g, w) for g, w in zip(old, want))
-        fns["baseline"] = lambda: baseline_march_parallel(*args)
-        del old
     del got, want
-    t = cuda_time_turns(fns) if len(fns) > 1 else {"kernel": cuda_time(fns["kernel"])}
-    ms = t["kernel"]
-    if BASELINE:
-        extra["baseline_ms"] = t["baseline"]
+    ms = cuda_time(lambda: dv.ray_march_parallel(*args))
     plain_ms = cuda_time(lambda: dv.ray_march_parallel_plain(*args), reps=3)
     valid = torch.arange(H, device=hit_idx.device)[None, :] < n_hits[:, None]
     nodes = torch.unique(hit_idx[valid].long())
@@ -826,15 +799,13 @@ def march_parallel_case(args: tuple, label: str) -> dict:
         f"{geo['ray_threads']} threads a ray, {geo['rays_per_block']} rays a block: "
         f"bit for bit {same}; max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f}% "
-        f"of it); library call: none"
-        + (f"; baseline K9 {extra['baseline_ms']:.4f} ms in turns (equal to the plain "
-           f"version: {extra['baseline_equal']})" if BASELINE else ""))
+        f"of it); library call: none")
     if not all(same.values()):
         raise AssertionError(f"ray_march_parallel disagrees with its plain version "
                              f"({label}): {same}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", samples=n_s, hits=n_h, R=R, H=H, max_s=max_s,
-                ray_threads=geo["ray_threads"], rays_per_block=geo["rays_per_block"], **extra)
+                ray_threads=geo["ray_threads"], rays_per_block=geo["rays_per_block"])
 
 
 def segment_reduce_case(x, ray_id, n_rays: int, offsets, label: str) -> dict:
@@ -844,9 +815,7 @@ def segment_reduce_case(x, ray_id, n_rays: int, offsets, label: str) -> dict:
     the median time of both and of the library call torch.segment_reduce
     (the rays' lengths and one more segment for the padding, counted
     before timing; unsafe=True skips its host-side checks). Bound: the
-    valid rows and the offsets read once, [R, C] written. With --baseline,
-    the baseline's K10 (which searches ray_id) on the same input too, the
-    two timed in turns."""
+    valid rows and the offsets read once, [R, C] written."""
     from f2nerf_torch.ops import segment as sg
     got = sg.segment_reduce(x, ray_id, n_rays, offsets)
     again = sg.segment_reduce(x, ray_id, n_rays, offsets)
@@ -862,12 +831,6 @@ def segment_reduce_case(x, ray_id, n_rays: int, offsets, label: str) -> dict:
     except RuntimeError as e:          # the yardstick only; the port never calls it
         log(f"[kernels] torch.segment_reduce refused this input ({label}): {e}")
         library = None
-    base = {}
-    if BASELINE:
-        old = baseline_segment_reduce(x, ray_id, n_rays)
-        torch.cuda.synchronize()
-        base["baseline_max_abs_err"] = (old - want).abs().max().item() if old.numel() else 0.0
-        del old
     torch.cuda.synchronize()
     repeat = bits_equal(got, again)
     diff = (got - want).abs()
@@ -877,12 +840,7 @@ def segment_reduce_case(x, ray_id, n_rays: int, offsets, label: str) -> dict:
     c = 1 if x.dim() == 1 else x.shape[1]
     n_valid = int((ray_id < n_rays).sum())
     del got, again, want, scale, diff
-    if BASELINE:
-        t = cuda_time_turns({"kernel": lambda: sg.segment_reduce(x, ray_id, n_rays, offsets),
-                             "baseline": lambda: baseline_segment_reduce(x, ray_id, n_rays)})
-        ms, base["baseline_ms"] = t["kernel"], t["baseline"]
-    else:
-        ms = cuda_time(lambda: sg.segment_reduce(x, ray_id, n_rays, offsets))
+    ms = cuda_time(lambda: sg.segment_reduce(x, ray_id, n_rays, offsets))
     plain_ms = cuda_time(lambda: sg.segment_sum_plain(x, ray_id, n_rays))
     library_ms = cuda_time(library) if library else None
     lib_err = lib_err if library else None
@@ -895,16 +853,14 @@ def segment_reduce_case(x, ray_id, n_rays: int, offsets, label: str) -> dict:
         f"largest error over the ray's sum of |x| {rel:.3e} (tol {TOL_SEG_SUM_REL:g}); "
         f"repeated launch bit for bit: {repeat}; kernel {ms:.4f} ms, plain (index_add) "
         f"{plain_ms:.4f} ms, torch.segment_reduce {library_ms} ms (max_abs_err {lib_err}); "
-        f"bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f}% of it)"
-        + (f"; baseline K10 {base['baseline_ms']:.4f} ms in turns (max_abs_err "
-           f"{base['baseline_max_abs_err']:.3e})" if base else ""))
+        f"bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f}% of it)")
     if not (held and repeat):
         raise AssertionError(f"segment_reduce disagrees with its plain version or "
                              f"repeats differently ({label})")
     return dict(max_abs_err=err, max_rel_err=rel, repeat_bit_for_bit=repeat, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=lib_err,
                 bound_ms=bound, rows=x.shape[0], valid_rows=n_valid, R=n_rays, C=c,
-                row_stride=ld, path="vector" if vec else "scalar", **base)
+                row_stride=ld, path="vector" if vec else "scalar")
 
 
 def ray_offsets_case(ray_id, n_rays: int, label: str) -> dict:
@@ -1016,8 +972,7 @@ def segment_uniform_rows(gen) -> list[dict]:
             dict(name="segment_reduce", route="cuda", source="f2nerf_torch/csrc/segment.cu",
                  replaces="f2nerf_tpu/ops/segment.py:23", bound_by="bytes",
                  library="torch.segment_reduce", **r10,
-                 **{k: r10[f"uniform_c6_{k}"] for k in pick + ("library_ms",)},
-                 **({"baseline_ms": r10["uniform_c6_baseline_ms"]} if BASELINE else {})),
+                 **{k: r10[f"uniform_c6_{k}"] for k in pick + ("library_ms",)}),
             dict(name="segment_scan", route="cuda", source="f2nerf_torch/csrc/segment.cu",
                  replaces="f2nerf_tpu/ops/segment.py:38", bound_by="bytes",
                  library_ms=None, library=NO_LIBRARY_SCAN, **r11,
@@ -1028,11 +983,7 @@ def segment_step_cases(calls: dict) -> dict:
     """K10, K11 and the offsets launch at one step's own inputs (every call,
     spied): each call checked and timed; a row's ms, plain_ms, bound_ms and
     library_ms become the sums over the step's calls (the kernel's device
-    time a step). With --baseline, ``parent_step_ms``: what the parent's
-    step spent in the same kernels, which had one more call each: K10 over
-    ones (the counts, now from the offsets launch; the baseline's K10) and
-    K11 over ones (local_index; the parent's K11 is this tree's)."""
-    from f2nerf_torch.ops import segment as sg
+    time a step)."""
     out = {}
     for name, fn in (("ray_offsets", lambda a: ray_offsets_case(*a, "step call")),
                      ("segment_reduce", lambda a: segment_reduce_case(
@@ -1040,8 +991,7 @@ def segment_step_cases(calls: dict) -> dict:
                      ("segment_scan", lambda a: segment_scan_case(
             *a, f"step call{' (backward)' if a[3] else ''}"))):
         rs = [fn(a) for a in calls[name]]
-        tot = {k: sum(r[k] for r in rs) for k in ("ms", "plain_ms", "bound_ms", "baseline_ms")
-               if k in rs[0]}
+        tot = {k: sum(r[k] for r in rs) for k in ("ms", "plain_ms", "bound_ms")}
         if name == "segment_reduce":
             lib = [r["library_ms"] for r in rs]
             tot["library_ms"] = None if None in lib else sum(lib)
@@ -1050,28 +1000,334 @@ def segment_step_cases(calls: dict) -> dict:
         log(f"[kernels] {name} at one slice step's {len(rs)} calls: kernel "
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
             f"{tot['bound_ms']:.4f} ms a step"
-            + (f", baseline {tot['baseline_ms']:.4f} ms" if "baseline_ms" in tot else "")
             + (f", torch.segment_reduce {tot['library_ms']} ms" if "library_ms" in tot
                else ""))
-    if BASELINE:
-        (rid, n_rays), = calls["ray_offsets"]
-        ones = torch.ones(rid.shape, dtype=torch.float32, device=rid.device)
-        t = cuda_time_turns({"baseline_counts": lambda: baseline_segment_reduce(
-            ones, rid, n_rays)})
-        r11 = segment_scan_case(ones, sg.first_flags_from_ray_id(rid, n_rays), True, False,
-                                "the parent's local_index call (ones)")
-        out["segment_reduce"]["parent_step_ms"] = (out["segment_reduce"]["baseline_ms"]
-                                                   + t["baseline_counts"])
-        out["segment_scan"]["parent_step_ms"] = out["segment_scan"]["ms"] + r11["ms"]
-        new = out["segment_reduce"]["ms"] + out["ray_offsets"]["ms"]
-        log(f"[kernels] a slice step's per-ray sums: K10 ({out['segment_reduce']['n_calls']} "
-            f"calls) + the offsets launch {new:.4f} ms, the parent's K10 (one more call, "
-            f"over ones: {t['baseline_counts']:.4f}) "
-            f"{out['segment_reduce']['parent_step_ms']:.4f} ms; K11 "
-            f"({out['segment_scan']['n_calls']} calls) {out['segment_scan']['ms']:.4f} ms, "
-            f"the parent's (one more, over ones: {r11['ms']:.4f}) "
-            f"{out['segment_scan']['parent_step_ms']:.4f} ms")
     return out
+
+
+# ---------------------------------------------- K12, K13, K14 (exact kernels)
+
+def out_leaves(x, name: str = "") -> list:
+    """The tensors of a kernel's output (nested tuples and dicts), named."""
+    if torch.is_tensor(x):
+        return [(name, x)]
+    if isinstance(x, dict):
+        return [leaf for k in sorted(x) for leaf in out_leaves(x[k], f"{name}.{k}")]
+    return [leaf for i, v in enumerate(x) for leaf in out_leaves(v, f"{name}[{i}]")]
+
+
+def exact_case(tag: str, label: str, kernel, plain, nbytes: float, library=None,
+               library_name: str = "library call: none") -> dict:
+    """A kernel against its plain version on one input (each a function of
+    no argument): every output bit for bit (floats as their int32 bits, so
+    a NaN must be the same NaN) and a repeated launch bit for bit; the
+    median time of the kernel, of the plain version and of ``library``
+    (one PyTorch call for the function or its main part), and the bound,
+    nbytes over 3.35 TB/s."""
+    got, again, want = out_leaves(kernel()), out_leaves(kernel()), out_leaves(plain())
+    torch.cuda.synchronize()
+    same = {n: bits_equal(g, w) for (n, g), (_, w) in zip(got, want)}
+    repeat = all(bits_equal(g, a) for (_, g), (_, a) in zip(got, again))
+    err = 0.0
+    for (_, g), (_, w) in zip(got, want):
+        g, w = g.double(), w.double()
+        fin = torch.isfinite(g) & torch.isfinite(w)
+        if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+            err = float("inf")
+        elif bool(fin.any()):
+            err = max(err, (g - w)[fin].abs().max().item())
+    del got, again, want
+    ms = cuda_time(kernel)
+    plain_ms = cuda_time(plain, reps=5)
+    library_ms = cuda_time(library) if library is not None else None
+    bound = bound_ms(nbytes)
+    ok = all(same.values())
+    log(f"[kernels] {tag} {label}: bit for bit {ok if ok else same}; repeated launch bit "
+        f"for bit: {repeat}; max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {library_name}"
+        + (f" {library_ms:.4f} ms" if library_ms is not None else "")
+        + f"; bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f}% of it)")
+    if not (ok and repeat):
+        raise AssertionError(f"{tag} disagrees with its plain version or repeats "
+                             f"differently ({label}): {same}, repeat {repeat}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, bound_by="bytes", bytes=nbytes, repeat_bit_for_bit=repeat)
+
+
+def compact_a_case(args: tuple, label: str) -> dict:
+    """K12's compact_a_warp on (tree, n_s, out_t, out_dt, out_node, rays_o,
+    rays_d, cap). Bound: n_s, the used slots' t, dt and node, the rays, the
+    distinct nodes' trans_idx and the distinct leaves' warp rows read once,
+    45 bytes a slot written."""
+    from f2nerf_torch.render import renderer as rd
+    tree, n_s, out_t = args[:3]
+    cap = args[-1]
+    R, max_s = out_t.shape
+    total = int(n_s.long().sum())
+    a, _, ok = rd.compact_a_warp_plain(*args)
+    nodes = torch.unique(a["node"][ok]).numel()
+    leaves = torch.unique(a["trans"][ok]).numel()
+    del a, ok
+    nbytes = R * 4 + min(total, cap) * 12 + R * 24 + nodes * 4 + leaves * 132 * 4 + cap * 45
+    r = exact_case("K12 compact_a_warp", f"{label}: R={R}, max_s={max_s}, cap={cap}, "
+                   f"{total} samples, {leaves} leaves", lambda: rd.compact_a_warp(*args),
+                   lambda: rd.compact_a_warp_plain(*args), nbytes)
+    return dict(r, R=R, max_s=max_s, cap=cap, samples=total, leaves=leaves)
+
+
+def edges_case(args: tuple, label: str) -> dict:
+    """K12's sample_edges on (tree, edge_idx, coord). Bound: the picks and
+    coordinates, the distinct edges' rows and their leaves' warp rows read
+    once, 32 bytes a sample written."""
+    from f2nerf_torch.sampler import device as dv
+    tree, e, _ = args
+    n = e.shape[0]
+    edges = torch.unique(e.long())
+    leaves = torch.unique(tree.edge_t[edges].reshape(-1)).numel()
+    nbytes = n * 12 + edges.numel() * 44 + leaves * 132 * 4 + n * 32
+    r = exact_case("K12 sample_edges", f"{label}: n={n}, {edges.numel()} edges",
+                   lambda: dv.sample_edges(*args), lambda: dv.sample_edges_plain(*args), nbytes)
+    return dict(r, n=n)
+
+
+def keep_case(args: tuple, label: str) -> dict:
+    """K13 on (keep, cap, fields, rid_src, n_rays). Bound: the flags and
+    the kept rows (44 bytes) read once, 53 bytes a slot written. Beside
+    it, torch.nonzero_static (B's indices alone) where the card's torch
+    has it on CUDA."""
+    from f2nerf_torch.render import renderer as rd
+    keep, cap = args[:2]
+    n, kept = keep.shape[0], int(keep.sum())
+    r = exact_case("K13 compact_keep", f"{label}: n={n}, cap={cap}, {kept} kept",
+                   lambda: rd.compact_keep(*args), lambda: rd.compact_keep_plain(*args),
+                   n + min(kept, cap) * 44 + cap * 53)
+    try:
+        nz = cuda_time(lambda: torch.nonzero_static(keep, size=cap, fill_value=n))
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        log(f"[kernels] torch.nonzero_static refused this input: {e}")
+        nz = None
+    return dict(r, n=n, cap=cap, kept=kept, nonzero_static_ms=nz)
+
+
+def votes_case(args: tuple, label: str) -> dict:
+    """K14's votes on (tree, node, rid, w, a, n_rays). Bound: node and rid
+    of every row and w and a of the valid rows read once, the four [N]
+    votes written. Library: one scatter_reduce amax of the weight votes
+    into [N + 1] (its inputs made before timing)."""
+    from f2nerf_torch.sampler import device as dv
+    tree, node, rid, w, a, n_rays = args
+    n, N = node.shape[0], tree.trans_idx.shape[0]
+    valid = (rid < n_rays) & (node >= 0)
+    n_valid = int(valid.sum())
+    nid = torch.where(valid, node, torch.full_like(node, N)).long()
+    src = torch.where(valid & (w > 0.01), 512, -1).to(torch.int32)
+    base = torch.full((N + 1,), -1, dtype=torch.int32, device=node.device)
+    r = exact_case("K14 votes", f"{label}: n={n}, {n_valid} valid rows, R={n_rays}, N={N}",
+                   lambda: dv.compute_occupancy_adders(*args),
+                   lambda: dv.compute_occupancy_adders_plain(*args),
+                   n * 8 + n_valid * 8 + N * 16,
+                   lambda: base.scatter_reduce(0, nid, src, "amax", include_self=True),
+                   "scatter_reduce amax")
+    return dict(r, n=n, valid=n_valid, N=N)
+
+
+def fold_case(args: tuple, label: str) -> dict:
+    """K14's fold on (tree, votes). Bound: the four votes and the four
+    counters read once, four counters written: 48 bytes a node."""
+    from f2nerf_torch.sampler import device as dv
+    tree, occ = args
+    N = tree.trans_idx.shape[0]
+
+    def stats(t):
+        return {k: getattr(t, k) for k in OCC_FIELDS}
+    r = exact_case("K14 fold", f"{label}: N={N}", lambda: stats(dv.apply_occupancy_adders(*args)),
+                   lambda: stats(dv.apply_occupancy_adders_plain(*args)), N * 48)
+    return dict(r, N=N)
+
+
+def dense_uniform_args(tr, gen, R: int = 2048, max_s: int = 512, cap: int = 393216) -> tuple:
+    """compact_a_warp's input at the slice's shape on the trainer's tree:
+    n_s uniform in [0, 384) (mean 192: the total near cap), every 97th ray
+    empty, each sample at a valid leaf or, a tenth of them, at a node whose
+    leaf row is -1; t within the root; uniform rays."""
+    dev = torch.device(DEV)
+    ti = tr.tree.trans_idx
+    leaves, dead = torch.nonzero(ti >= 0).flatten(), torch.nonzero(ti < 0).flatten()
+    n_s = torch.randint(0, 384, (R,), generator=gen, device=dev, dtype=torch.int32)
+    n_s[::97] = 0
+    live = torch.arange(max_s, device=dev)[None, :] < n_s[:, None]
+
+    def pick(pool):
+        return pool[torch.randint(0, pool.numel(), (R, max_s), generator=gen, device=dev)]
+    node = torch.where(torch.rand((R, max_s), generator=gen, device=dev) < 0.1,
+                       pick(dead), pick(leaves)).to(torch.int32)
+    zero = torch.zeros((R, max_s), device=dev)
+    side = float(tr.tree_host.side[0])
+    out_t = torch.where(live, torch.rand((R, max_s), generator=gen, device=dev) * side, zero)
+    out_dt = torch.where(live, torch.rand((R, max_s), generator=gen, device=dev) * 0.01, zero)
+    out_node = torch.where(live, node, torch.full_like(node, -1))
+    o, d = uniform_rays(gen, R)
+    return (tr.tree, n_s, out_t, out_dt, out_node, o, d, cap)
+
+
+def degenerate_warp_args() -> tuple:
+    """K12 on a one-leaf tree whose warp divides by zero: projection 0 is
+    x / z, the others x / 1, and every axis is projection 0; rays and edge
+    samples at z = 0 warp to +-inf (x != 0) and NaN (x = 0). Returns
+    (compact_a_warp's args, with empty rays and padding; sample_edges'
+    args)."""
+    from f2nerf_torch.sampler import device as dv
+    from f2nerf_torch.sampler.octree import OctreeHost
+    w2xz = np.zeros((1, 12, 2, 4), np.float32)
+    w2xz[0, :, 0, :3] = [1.0, 0.0, 0.0]
+    w2xz[0, 0, 1, :3] = [0.0, 0.0, 1.0]
+    w2xz[0, 1:, 1, 3] = 1.0
+    weight = np.zeros((1, 3, 12), np.float32)
+    weight[0, :, 0] = 1.0
+    f32 = np.float32
+    host = OctreeHost(
+        center=np.zeros((1, 3), f32), side=np.array([2.0], f32),
+        parent=np.array([-1], np.int32), childs=np.full((1, 8), -1, np.int32),
+        is_leaf=np.array([True]), trans_idx=np.array([0], np.int32),
+        weight_stats=np.full(1, 1000, np.int32), alpha_stats=np.full(1, 1000, np.int32),
+        visit_cnt=np.zeros(1, np.int32), w2xz=w2xz, weight=weight,
+        t_center=np.zeros((1, 3), f32), t_dis=np.array([1.0], f32),
+        edge_t=np.zeros((1, 2), np.int32), edge_center=np.zeros((1, 3), f32),
+        edge_dir0=np.array([[1.0, 0.0, 0.0]], f32), edge_dir1=np.array([[0.0, 1.0, 0.0]], f32),
+        side_len=2.0)
+    tree = dv.to_device_tree(host, 8, 8, 8, device=DEV)
+    dev = torch.device(DEV)
+    R, max_s = 6, 8
+    n_s = torch.tensor([3, 0, 8, 1, 2, 0], dtype=torch.int32, device=dev)
+    out_t = torch.zeros((R, max_s), device=dev)
+    out_t[2, 1:] = torch.linspace(0.1, 0.7, 7, device=dev)
+    o = torch.tensor([[0.0, 0.0, 0.0], [0.3, 0.0, 0.0], [0.2, 0.1, 0.0], [0.0, 0.5, 0.0],
+                      [-0.4, 0.0, 0.0], [0.1, 0.1, 0.1]], device=dev)
+    d = torch.tensor([[1.0, 0.0, 0.0]] * R, device=dev)
+    a_args = (tree, n_s, out_t, torch.full((R, max_s), 0.01, device=dev),
+              torch.zeros((R, max_s), dtype=torch.int32, device=dev), o, d, 32)
+    coord = torch.rand((64, 2), generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev) * 2.0 - 1.0
+    coord[0] = 0.0
+    return a_args, (tree, torch.zeros((64,), dtype=torch.int32, device=dev), coord)
+
+
+def keep_uniform_args(gen, n: int = 393216, cap: int = 262144, R: int = 2048) -> tuple:
+    """K13's input at the slice's uniform shape: A's fields over n rows
+    (R rays of U[0, 2 n / R) rows each, sorted, padding past the last),
+    each row kept with probability one half."""
+    from f2nerf_torch.render import renderer as rd
+    dev = torch.device(DEV)
+    counts = torch.randint(0, 2 * n // R, (R,), generator=gen, device=dev)
+    rid = torch.repeat_interleave(torch.arange(R, device=dev), counts)[:n]
+    rid = torch.cat([rid, torch.full((n - rid.numel(),), R, device=dev)]).to(torch.int32)
+    fields = {k: (torch.rand((n,) if c == 1 else (n, c), generator=gen, device=dev) if
+                  dt == torch.float32 else
+                  torch.randint(0, 1 << 16, (n,), generator=gen, device=dev, dtype=dt))
+              for k, dt, c in rd.KEEP_FIELDS}
+    keep = (torch.rand((n,), generator=gen, device=dev) < 0.5) & (rid < R)
+    return keep, cap, fields, rid, R
+
+
+def votes_uniform_args(tr, seed: int, special: bool, R: int = 2048, per: int = 192,
+                       cap: int = 393216) -> tuple:
+    """The votes' input at the slice's shape on the trainer's tree: ray r
+    has U[0, 2 per) rows (a tenth of the rays none), in runs of 1-8 rows
+    at one of 4,096 of the tree's leaves (so a node comes back within a ray
+    and across rays), a twentieth of the rows at node -1, padding to cap;
+    weights U[0, 0.05), alphas U[0, 0.1). ``special``: of each, 1% NaN, 1%
+    +inf, 1% -inf and 3% -0.0, and 16 rays all -0.0."""
+    rng = np.random.RandomState(seed)
+    counts = rng.randint(0, 2 * per, R)
+    counts[rng.rand(R) < 0.1] = 0
+    rid = np.repeat(np.arange(R), counts)[:cap]
+    n = len(rid)
+    leaves = np.nonzero(tr.tree_host.trans_idx >= 0)[0]
+    pool = rng.choice(leaves, 4096)
+    node = np.repeat(rng.choice(pool, n), rng.randint(1, 9, n))[:n]
+    node[rng.rand(n) < 0.05] = -1
+    rid = np.concatenate([rid, np.full(cap - n, R)]).astype(np.int32)
+    node = np.concatenate([node, np.full(cap - n, -1)]).astype(np.int32)
+    w = rng.uniform(0, 0.05, cap).astype(np.float32)
+    a = rng.uniform(0, 0.1, cap).astype(np.float32)
+    if special:
+        for x in (w, a):
+            u = rng.rand(cap)
+            x[u < 0.01] = np.nan
+            x[(u >= 0.01) & (u < 0.02)] = np.inf
+            x[(u >= 0.02) & (u < 0.03)] = -np.inf
+            x[(u >= 0.03) & (u < 0.06)] = -0.0
+            x[np.isin(rid, rng.choice(R, 16))] = -0.0
+    return (tr.tree, *(torch.from_numpy(x).to(DEV) for x in (node, rid, w, a)), R)
+
+
+def warp_compact_occupancy_rows(calls: dict, tr) -> list[dict]:
+    """K12 (compact_a_warp, sample_edges), K13 (compact_keep) and K14 (the
+    votes and the fold), each at one slice step's own inputs (spied; the
+    row's ms, plain_ms, bound_ms and library_ms) and beside them:
+      compact_a_warp — uniform at the slice's shape (``dense_uniform_args``:
+          empty rays, nodes whose leaf row is -1), the step's inputs at half
+          the total's capacity (overflow), the degenerate warp;
+      sample_edges — the degenerate warp's edge samples;
+      compact_keep — uniform at the slice's shape (``keep_uniform_args``),
+          the step's flags at half the kept rows' capacity (overflow) and
+          with nothing kept;
+      votes — uniform at the slice's shape with finite weights and with
+          NaN, +-inf and -0.0 weights (``votes_uniform_args``);
+      fold — the uniform votes folded into the step's tree."""
+    from f2nerf_torch.sampler import device as dv
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    (a_args,), (e_args,), (k_args,) = (calls["compact_a_warp"], calls["sample_edges"],
+                                       calls["compact_keep"])
+    (v_args,), (f_args,) = calls["compute_occupancy_adders"], calls["apply_occupancy_adders"]
+    deg_a, deg_e = degenerate_warp_args()
+    total = int(a_args[1].long().sum())
+    kept = int(k_args[0].sum())
+    cases = {
+        "compact_a_warp": {
+            "step": compact_a_case(a_args, "step's own inputs"),
+            "uniform": compact_a_case(dense_uniform_args(tr, gen), "uniform"),
+            "overflow": compact_a_case(a_args[:-1] + (max(1, total // 2),),
+                                       "step's inputs, cap half the total"),
+            "degenerate": compact_a_case(deg_a, "degenerate warp")},
+        "sample_edges": {
+            "step": edges_case(e_args, "step's own draws"),
+            "degenerate": edges_case(deg_e, "degenerate warp")},
+        "compact_keep": {
+            "step": keep_case(k_args, "step's own flags"),
+            "uniform": keep_case(keep_uniform_args(gen), "uniform"),
+            "overflow": keep_case((k_args[0], max(1, kept // 2)) + k_args[2:],
+                                  "step's flags, cap half the kept rows"),
+            "none_kept": keep_case((torch.zeros_like(k_args[0]),) + k_args[1:],
+                                   "nothing kept")}}
+    uni = votes_uniform_args(tr, 14, False)
+    cases["compute_occupancy_adders"] = {
+        "step": votes_case(v_args, "step's own buffer"),
+        "uniform": votes_case(uni, "uniform"),
+        "special": votes_case(votes_uniform_args(tr, 15, True), "NaN, +-inf and -0.0 weights")}
+    cases["apply_occupancy_adders"] = {
+        "step": fold_case(f_args, "step's own votes"),
+        "uniform": fold_case((f_args[0], dv.compute_occupancy_adders(*uni)), "uniform votes")}
+    meta = {"compact_a_warp": ("f2nerf_torch/csrc/warp.cu", "f2nerf_tpu/render/renderer.py:96",
+                               NO_LIBRARY_WARP),
+            "sample_edges": ("f2nerf_torch/csrc/warp.cu", "f2nerf_tpu/sampler/device.py:649",
+                             NO_LIBRARY_WARP),
+            "compact_keep": ("f2nerf_torch/csrc/compact.cu", "f2nerf_tpu/render/renderer.py:72",
+                             NO_LIBRARY_KEEP),
+            "compute_occupancy_adders": ("f2nerf_torch/csrc/occupancy.cu",
+                                         "f2nerf_tpu/sampler/device.py:667", LIBRARY_VOTES),
+            "apply_occupancy_adders": ("f2nerf_torch/csrc/occupancy.cu",
+                                       "f2nerf_tpu/sampler/device.py:719", NO_LIBRARY_FOLD)}
+    rows = []
+    for name, cs in cases.items():
+        source, replaces, library = meta[name]
+        step = cs["step"]
+        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                         library=library, bound_by="bytes",
+                         **{k: step[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                         max_abs_err=max(r["max_abs_err"] for r in cs.values()),
+                         **{f"{c}_{k}": v for c, r in cs.items() for k, v in r.items()}))
+    return rows
 
 
 def uniform_rays(gen, R: int, lo: float = -1.0, hi: float = 1.0):
@@ -1359,10 +1615,10 @@ def phase_kernels() -> list[dict]:
 
 def capture_step_inputs(tr) -> dict:
     """One more slice step with K2's, K3's and K4's wrappers spied on (as
-    fields/hash_block.py calls them), K8's, K9's and the offsets launch's
-    (as render/renderer.py calls them) and K10's and K11's (as
-    ops/segment.py calls them): the arguments of every call, in order
-    (``capture_calls``)."""
+    fields/hash_block.py calls them), K8's, K9's, the offsets launch's,
+    K12's, K13's and K14's (as render/renderer.py and train/trainer.py call
+    them) and K10's and K11's (as ops/segment.py calls them): the arguments
+    of every call, in order (``capture_calls``)."""
     from f2nerf_torch.fields import hash_block as hb
     from f2nerf_torch.ops import segment as sg
     from f2nerf_torch.sampler import device as dv
@@ -1370,7 +1626,9 @@ def capture_step_inputs(tr) -> dict:
     return capture_calls(tr, {"hash_block_fwd": hb, "hash_block_bwd": hb, "row_gather": hb,
                               "traverse": dv, "ray_march_parallel": dv,
                               "segment_reduce": sg, "segment_scan": sg,
-                              "ray_offsets": renderer})
+                              "ray_offsets": renderer, "compact_a_warp": renderer,
+                              "compact_keep": renderer, "sample_edges": dv,
+                              "compute_occupancy_adders": dv, "apply_occupancy_adders": dv})
 
 
 def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
@@ -1392,7 +1650,9 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
           ``march_parallel_extra_cases`` under their names);
       K10/K11: every call of that step, forward and backward
           (``segment_step_cases``: the rows' times become the sums over
-          the step's calls; the uniform case keeps its under ``uniform_``)."""
+          the step's calls; the uniform case keeps its under ``uniform_``);
+      K12/K13/K14: that step's call of each entry point (new rows; also
+          their edge cases, ``warp_compact_occupancy_rows``)."""
     dev = torch.device("cuda")
     calls = capture_step_inputs(tr)
     (trav,), (march,) = calls["traverse"], calls["ray_march_parallel"]
@@ -1407,14 +1667,14 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
                      replaces="f2nerf_tpu/sampler/device.py:231", library_ms=None,
                      library=NO_LIBRARY_TRAVERSE, **{f"slice_{k}": v for k, v in r8.items()},
                      **{k: r8[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                           "bound_by", "baseline_ms") if k in r8}))
+                                           "bound_by")}))
     rows.append(dict(name="ray_march_parallel", route="cuda",
                      source="f2nerf_torch/csrc/march_parallel.cu",
                      replaces="f2nerf_tpu/sampler/device.py:547", library_ms=None,
                      library=NO_LIBRARY_MARCH_PARALLEL,
                      **{f"slice_{k}": v for k, v in r9.items()},
                      **{k: r9[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                           "bound_by", "baseline_ms") if k in r9}))
+                                           "bound_by")}))
     fwd = max(calls["hash_block_fwd"], key=lambda a: a[3].shape[0])
     r2 = encode_case(fwd, f"slice A at cap1 {fwd[3].shape[0]}")
     r3 = scatter_case(calls["hash_block_bwd"], f"slice B at cap2 {cap2} + edges")
@@ -1422,6 +1682,7 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
     r4 = gather_check(cache, idx, f"slice's own inputs (cap1 {cache.shape[0]}, "
                                   f"cap2 {idx.shape[0]})")
     seg = segment_step_cases(calls)
+    rows += warp_compact_occupancy_rows(calls, tr)
     del calls, fwd, cache, idx
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1433,8 +1694,7 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
     for r in rows:
         new = at_slice.get(r["name"])
         if new is not None:
-            r.update({k: new[k] for k in ("ms", "plain_ms", "bound_ms", "baseline_ms",
-                                          "parent_step_ms") if k in new},
+            r.update({k: new[k] for k in ("ms", "plain_ms", "bound_ms")},
                      max_abs_err=max(r["max_abs_err"], new["max_abs_err"]),
                      **{f"slice_{k}": v for k, v in new.items()})
             if "library_ms" in new:
@@ -1508,7 +1768,11 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
                 for k, v in named_leaves(tr.params))
     log(f"[slice] max |param change| {moved:.3e}; K10 / offsets / K11 launches a step "
         f"{launches['segment_reduce'] / N_STEPS:g} / {launches['ray_offsets'] / N_STEPS:g} / "
-        f"{launches['segment_scan'] / N_STEPS:g}")
+        f"{launches['segment_scan'] / N_STEPS:g}; K12 (A, edges) / K13 / K14 (votes, fold) "
+        f"{launches['compact_a_warp'] / N_STEPS:g}, {launches['sample_edges'] / N_STEPS:g} / "
+        f"{launches['compact_keep'] / N_STEPS:g} / "
+        f"{launches['compute_occupancy_adders'] / N_STEPS:g}, "
+        f"{launches['apply_occupancy_adders'] / N_STEPS:g}")
     if not moved > 0:
         raise AssertionError("params did not move")
     # one table-gradient scatter a step: the grad pass's B and edge samples
@@ -1516,13 +1780,15 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
     # launch once a step (B's rays), K10 five times (the composite's sums,
     # weight_var's two, the backwards of the appearance gather and of
     # weight_var's mean gather), K11 three times (the prefilter's and the
-    # composite's scans, the composite's backward)
+    # composite's scans, the composite's backward); K12's A side and edge
+    # samples, K13 and K14's votes and fold once each
     check_counts("the slice", launches, {
         "fused_adam": N_STEPS * len(p0), "hash_block_fwd": N_STEPS},
         exact={"hash_block_bwd": N_STEPS, "row_gather": N_STEPS, "hash_encode_fwd": 0,
                "hash_encode_bwd": 0, "ray_march": 0, "traverse": N_STEPS,
                "ray_march_parallel": N_STEPS, "ray_offsets": N_STEPS,
-               "segment_reduce": 5 * N_STEPS, "segment_scan": 3 * N_STEPS})
+               "segment_reduce": 5 * N_STEPS, "segment_scan": 3 * N_STEPS,
+               **{k: N_STEPS for k in warp_need(1)}})
     sync_counts(tr)
     return launches, tr, (m["cap1"], m["cap2"])
 
@@ -1577,9 +1843,9 @@ class SpanSyncCounter:
 def sync_counts(tr, k: int = 10) -> dict:
     """One pipelined ``train_many(k)`` chunk under
     ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing calls a
-    step, by span, printed; any in NO_SYNC_SPANS (the traversal and the
-    march, K8 and K9) fails. The rest (the compactions, scans and votes,
-    still plain torch) is printed, not held."""
+    step, by span, printed; any in NO_SYNC_SPANS (every span of the render
+    and the occupancy fold) fails. The rest (outside those spans) is
+    printed, not held."""
     torch.cuda.synchronize()
     it0 = tr.iter_step
     with SpanSyncCounter() as sc:
@@ -1667,11 +1933,26 @@ def segment_device_ms(events) -> tuple[float, float]:
     return fwd / 1e3, bwd / 1e3
 
 
-def phase_profile(tr, n_steps: int = 3, where: str = "profile") -> None:
+def outermost_aten(e) -> bool:
+    """An aten op that no other aten op called: one op the host dispatched."""
+    if not e.name.startswith("aten::"):
+        return False
+    p = e.cpu_parent
+    while p is not None:
+        if p.name.startswith("aten::"):
+            return False
+        p = p.cpu_parent
+    return True
+
+
+def phase_profile(tr, n_steps: int = 3, where: str = "profile") -> dict:
     """torch.profiler over n_steps more steps: host and device time of each
     step span (f2nerf_torch/utils/spans.py), the device busy share, the
-    segment layer's device time (``segment_device_ms``) and the kernels
-    that take the most device time. Device busy counts device-type events
+    segment layer's device time (``segment_device_ms``), the kernels
+    that take the most device time and a step's launches: the device
+    activities (kernels, copies and sets, the hand-written kernels among
+    them: what the card runs) and the outermost aten ops (what the host
+    dispatches). Device busy counts device-type events
     only (the kernels, copies and sets): torch gives each CPU op the time
     of the kernels it launched, so the earlier count, over every non-span
     entry, counted a kernel launched through an aten op twice; it is
@@ -1718,6 +1999,59 @@ def phase_profile(tr, n_steps: int = 3, where: str = "profile") -> None:
     for e in kernels[:16]:
         log(f"[{where}] kernel {e.key[:70]:70s} {dev(e, True) / 1e3 / n_steps:8.3f} ms/step"
             f"  launches {e.count // n_steps}")
+    events = prof.events()
+    out = dict(wall_ms=wall_ms / n_steps, busy_ms=busy_ms / n_steps,
+               busy_share=busy_ms / wall_ms,
+               device_launches=sum(e.device_type != DeviceType.CPU for e in events) / n_steps,
+               aten_ops=sum(e.device_type == DeviceType.CPU and outermost_aten(e)
+                            for e in events) / n_steps)
+    log(f"[{where}] launches a step: {out['device_launches']:.1f} device activities "
+        f"(kernels, copies, sets), {out['aten_ops']:.1f} outermost aten ops")
+    return out
+
+
+def phase_launches(tr) -> dict:
+    """A step's launches and the slice's rate, as ``launch_turns`` reads
+    them from a process of its own: LAUNCH_TURN_STEPS synced steps timed
+    after the slice's steps, then ``phase_profile``'s counts. Prints one
+    line ``[launches] {json}``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LAUNCH_TURN_STEPS):
+        tr.train_one()
+    torch.cuda.synchronize()
+    out = dict(steps_per_s=LAUNCH_TURN_STEPS / (time.perf_counter() - t0),
+               **phase_profile(tr))
+    print("[launches] " + json.dumps(out), flush=True)
+    return out
+
+
+def launch_turns(root: str) -> dict:
+    """--baseline ROOT: ``phase_launches`` of ROOT's package and of this
+    tree's, one process each (this script with --package-root ROOT, then
+    without), in turns ROOT, this, this, ROOT: a step's launches and the
+    slice's steps/s of each."""
+    runs = {"baseline": [], "this tree": []}
+    for who in ("baseline", "this tree", "this tree", "baseline"):
+        cmd = [sys.executable, os.path.abspath(__file__), "--phases", "device,build,launches"]
+        if who == "baseline":
+            cmd += ["--package-root", os.path.abspath(root)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[launches] ")]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"the launches turn of {who} failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs[who].append(json.loads(lines[-1][len("[launches] "):]))
+        log(f"[profile] turn {who}: {runs[who][-1]}")
+    out = {who: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+           for who, rs in runs.items()}
+    log(f"[profile] in turns (baseline {root}, this, this, baseline): device launches a step "
+        f"{out['baseline']['device_launches']:.1f} -> {out['this tree']['device_launches']:.1f}"
+        f" ({out['baseline']['device_launches'] - out['this tree']['device_launches']:.1f} "
+        f"fewer); outermost aten ops a step {out['baseline']['aten_ops']:.1f} -> "
+        f"{out['this tree']['aten_ops']:.1f}; steps/s {out['baseline']['steps_per_s']:.3f} -> "
+        f"{out['this tree']['steps_per_s']:.3f} (each the median of two turns; all: {runs})")
+    return out
 
 
 class OpRecorder:
@@ -2056,7 +2390,8 @@ def phase_maintain(tmp: str, rows: list[dict]) -> dict:
         raise AssertionError(f"milestones left: {tr.tree_host.milestones}")
     check_counts("the maintain phase (a)", launches, {
         "fused_adam": MAINT_STEPS * n_leaves, "hash_block_fwd": MAINT_STEPS,
-        "row_gather": MAINT_STEPS, **seg_need(MAINT_STEPS)}, exact={"hash_block_bwd": MAINT_STEPS,
+        "row_gather": MAINT_STEPS, **seg_need(MAINT_STEPS), **warp_need(MAINT_STEPS)},
+        exact={"hash_block_bwd": MAINT_STEPS,
                                            "traverse": MAINT_STEPS,
                                            "ray_march_parallel": MAINT_STEPS})
 
@@ -2092,7 +2427,7 @@ def phase_maintain(tmp: str, rows: list[dict]) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {real}")
     n = 1 + REAL_SCALE_STEPS
     check_counts("the maintain phase (c)", real, {
-        "fused_adam": n * n_leaves, "hash_block_fwd": n, "row_gather": n},
+        "fused_adam": n * n_leaves, "hash_block_fwd": n, "row_gather": n, **warp_need(n)},
         exact={"hash_block_bwd": n, "traverse": n, "ray_march_parallel": n})
     from f2nerf_torch.sampler import device as dv
     calls = capture_calls(tr, {"traverse": dv, "ray_march_parallel": dv})
@@ -2167,7 +2502,8 @@ def phase_runner(tmp: str):
         check_counts("mode=train", train_counts, {
             "fused_adam": RUNNER_ITERS * n_leaves, "hash_block_fwd": RUNNER_ITERS,
             "row_gather": RUNNER_ITERS, "traverse": RUNNER_ITERS,
-            "ray_march_parallel": RUNNER_ITERS, **seg_need(RUNNER_ITERS)},
+            "ray_march_parallel": RUNNER_ITERS, **seg_need(RUNNER_ITERS),
+            **warp_need(RUNNER_ITERS)},
             exact={"hash_block_bwd": RUNNER_ITERS})
         exp, test_set = runner.base_exp_dir, [int(i) for i in tr.dataset.test_set]
         del runner, tr
@@ -2183,8 +2519,10 @@ def phase_runner(tmp: str):
         # eval renders single-pass: one K2, K8 and K9 launch per chunk, no
         # cached gather
         check_counts("mode=render_path", eval_counts, {
-            "hash_block_fwd": 3, "traverse": 3, "ray_march_parallel": 3, **seg_need(3)})
-        if eval_counts["row_gather"] or eval_counts["fused_adam"]:
+            "hash_block_fwd": 3, "traverse": 3, "ray_march_parallel": 3, **seg_need(3),
+            **warp_need(3, train=False, two_pass=False)})
+        if eval_counts["row_gather"] or eval_counts["fused_adam"] \
+                or eval_counts["compute_occupancy_adders"] or eval_counts["sample_edges"]:
             raise AssertionError(f"render_path launched training kernels: {eval_counts}")
     finally:
         os.chdir(cwd)
@@ -2376,7 +2714,8 @@ def phase_bench(tmp: str) -> dict:
                 **seg_need(iters)},
                 exact={"hash_block_bwd": iters, "row_gather": iters,
                        "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0,
-                       "traverse": iters, "ray_march_parallel": iters})
+                       "traverse": iters, "ray_march_parallel": iters,
+                       **{k: iters for k in warp_need(1)}})
         log(f"[bench] turn {turn}: {'pipelined chunks' if pipelined else 'synced single steps'}"
             f", iterations {it0}-{tr.iter_step}: {iters / secs:.3f} steps/s, "
             f"{iters * n_rays / secs:.1f} rays/s"
@@ -2610,6 +2949,7 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
         f"GiB; launches {launches}")
     check_counts("variants (a)", launches, {"fused_adam": VAR_STEPS * n_leaves,
                                             **seg_need(VAR_STEPS)}, exact={
+        **{k: VAR_STEPS for k in warp_need(1)},
         "hash_encode_fwd": 2 * VAR_STEPS, "hash_encode_bwd": VAR_STEPS,
         "ray_march": VAR_STEPS, "hash_block_fwd": 0, "hash_block_bwd": 0,
         "row_gather": 0, "traverse": VAR_STEPS, "ray_march_parallel": 0})
@@ -2670,7 +3010,8 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     if not np.isfinite(colors).all():
         raise AssertionError("(a): non-finite colours in render_image")
     check_counts("variants (a) render_image", ev, {"hash_encode_fwd": 1, "ray_march": 1,
-                                                   "traverse": 1, **seg_need(1)},
+                                                   "traverse": 1, **seg_need(1),
+                                                   **warp_need(1, train=False, two_pass=False)},
                  exact={"hash_block_fwd": 0, "hash_encode_bwd": 0, "ray_march_parallel": 0})
     eval_image_parity(tr, "variants (a) eval parity")
     two_pass_eval_parity(tr, "variants (d)", {"hash_encode_fwd": 2, "ray_march": 1,
@@ -2691,6 +3032,7 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     if not all(m["single_pass"] and m["cap1"] == m["cap2"] for m in ms):
         raise AssertionError("(b): a step ran two passes")
     check_counts("variants (b)", sp, seg_need(SINGLE_PASS_STEPS), exact={
+        **{k: SINGLE_PASS_STEPS for k in warp_need(1, two_pass=False)}, "compact_keep": 0,
         "hash_block_fwd": SINGLE_PASS_STEPS, "hash_block_bwd": SINGLE_PASS_STEPS,
         "row_gather": 0, "hash_encode_fwd": 0, "ray_march": 0,
         "traverse": SINGLE_PASS_STEPS, "ray_march_parallel": SINGLE_PASS_STEPS})
@@ -2940,7 +3282,8 @@ def phase_data_parallel(tmp: str) -> dict:
             **seg_need(DP_ITERS)},
             exact={"hash_block_bwd": DP_ITERS, "row_gather": DP_ITERS,
                    "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0,
-                   "traverse": DP_ITERS, "ray_march_parallel": DP_ITERS})
+                   "traverse": DP_ITERS, "ray_march_parallel": DP_ITERS,
+                   **{k: DP_ITERS for k in warp_need(1)}})
     return ranks[0]["launches"]
 
 
@@ -2948,11 +3291,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--baseline", default=None, metavar="ROOT",
-                    help="a checkout of an earlier tree: its K9 and K10 (a block of "
-                         "128 threads a ray; a search of ray_id in every call) built "
-                         "from ROOT's csrc/ and timed in turns beside this tree's on "
-                         "the same inputs")
+                    help="a checkout of an earlier tree: with the profile phase, its "
+                         "slice step's launches and steps/s beside this tree's, one "
+                         "process each, in turns (ROOT, this, this, ROOT)")
+    ap.add_argument("--package-root", default=None, metavar="ROOT",
+                    help="import f2nerf_torch from ROOT (how --baseline runs an "
+                         "earlier tree's launches phase)")
     args = ap.parse_args(argv)
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
     phases = args.phases.split(",")
     full = set(phases) == set(PHASES)
     walls = {}
@@ -2967,8 +3314,6 @@ def main(argv=None) -> int:
     dev_info = timed("device", phase_device)   # raises without CUDA, before any result
     if "build" in phases:
         timed("build", phase_build)
-        if args.baseline:
-            build_baseline(args.baseline)
     rows = timed("kernels", phase_kernels) if "kernels" in phases else []
     launches = {}
     paths = {}            # each further path's launches, by its key in the rows
@@ -2980,16 +3325,20 @@ def main(argv=None) -> int:
                       cap1, cap2, launches)
             if "profile" in phases:
                 timed("profile", phase_profile, tr)
+                if args.baseline:
+                    timed("launch_turns", launch_turns, args.baseline)
             if "parity" in phases:
                 timed("parity", step_parity, tr, 64, "parity")
             if "atomics" in phases:
                 timed("atomics", phase_atomics, tr)
             del tr
             torch.cuda.empty_cache()
-        elif {"profile", "atomics"} & set(phases):
+        elif {"profile", "atomics", "launches"} & set(phases):
             # the slice's steps without the launch counts: this script may
             # be timing an older tree's package
             tr = timed("steps", slice_steps, tmp, False)[0]
+            if "launches" in phases:
+                timed("launches", phase_launches, tr)
             if "profile" in phases:
                 timed("profile", phase_profile, tr)
             if "atomics" in phases:

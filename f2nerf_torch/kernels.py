@@ -29,10 +29,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# no --use_fast_math: K2/K3's, K5/K6's and K7-K9's arithmetic must round
-# exactly like the plain versions (see csrc/hash_block.cu, hash3d.cu,
-# ray_march.cu, traverse.cu, march_parallel.cu), and K10/K11 add in a
-# fixed order (csrc/segment.cu)
+# no --use_fast_math: K2/K3's, K5/K6's, K7-K9's and K12's arithmetic must
+# round exactly like the plain versions (see csrc/hash_block.cu, hash3d.cu,
+# ray_march.cu, traverse.cu, march_parallel.cu, warp.cu), and K10/K11 add
+# in a fixed order (csrc/segment.cu)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -53,6 +53,12 @@ _SIGNATURES = {
     "f2_ray_offsets": [_vp] * 4 + [_ll, _i, _vp],
     "f2_segment_reduce": [_vp, _ll, _ll, _vp, _vp, _i, _i, _vp],
     "f2_segment_scan": [_vp] * 4 + [_ll, _i, _i, _vp],
+    "f2_compact_a_warp": [_vp] * 17 + [_ll, _i, _i, _i, _vp],
+    "f2_sample_edges": [_vp] * 10 + [_i, _i, _i, _vp],
+    "f2_compact_keep": [_vp] * 18 + [_ll, _ll, _i, _vp],
+    "f2_compact_keep_max_blocks": [],
+    "f2_occupancy_votes": [_vp] * 8 + [_ll, _i, _i, _vp],
+    "f2_occupancy_fold": [_vp] * 12 + [_i, _vp],
 }
 
 

@@ -3,10 +3,12 @@ of ``f2nerf_tpu/render/renderer.py``; reference Renderer::Render,
 Renderer.cpp:52-213).
 
   1. octree traversal + parallel ray marching into dense per-ray buffers,
-     compacted to a flat capacity-CAP1 buffer A;
+     compacted to a flat capacity-CAP1 buffer A with each sample warped
+     (``compact_a_warp``, kernel K12 on the card);
   2. no-grad density prefilter: keep samples with transmittance > 1e-4,
-     compacted to CAP2 (buffer B); the raw A encodings are kept so B's
-     encodings are a gather of them (cached-B);
+     compacted to CAP2 (buffer B; ``compact_keep``, kernel K13 on the
+     card); the raw A encodings are kept so B's encodings are a gather of
+     them (cached-B);
   3. occupancy votes from the prefilter weights/alphas (training);
   4. grad pass: the field on B (+ 8192x2 TV edge samples in training),
      SH shader with the per-image appearance embedding, early-training
@@ -38,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..fields.hash_block import (hash_block_encode, hash_block_gather_cached,
                                  hash_block_grad_pass)
 from ..fields.hash_encoding import hash_encode
@@ -137,6 +140,140 @@ def _compact_rowpacked(n_s: torch.Tensor, cap: int, fields: dict,
     return out, rid, ok, src_c
 
 
+def compact_a_warp_plain(tree: dv.DeviceTree, n_s: torch.Tensor, out_t: torch.Tensor,
+                        out_dt: torch.Tensor, out_node: torch.Tensor, rays_o: torch.Tensor,
+                        rays_d: torch.Tensor, cap: int):
+    """Plain PyTorch version of K12's ``compact_a_warp`` (JAX
+    ``renderer.py:223-240``): ``_compact_rowpacked``, the leaf row, the
+    world point, ``apply_warp`` and the pin of padding slots."""
+    R, max_s = out_t.shape
+    a, rid_a, ok_a, _ = _compact_rowpacked(
+        n_s, cap, dict(t=out_t.reshape(-1), dt=out_dt.reshape(-1),
+                       node=out_node.reshape(-1)), R, max_s=max_s)
+    rid_ac = torch.clamp(rid_a, max=R - 1).long()
+    node_a = torch.where(ok_a, a["node"], torch.zeros_like(a["node"]))
+    trans_a = torch.clamp(tree.trans_idx[node_a.long()], min=0)
+    xyz_a = rays_o[rid_ac] + rays_d[rid_ac] * a["t"][:, None]
+    warp_a = dv.apply_warp(tree, trans_a, xyz_a)
+    # invalid A slots are pinned to the volume center: their warp can be
+    # non-finite, and the cached-B fill index forwards enc_a[cap1-1] into
+    # the grad pass
+    pts01_a = torch.where(ok_a[:, None], (warp_a + 1.0) * 0.5,
+                          torch.full_like(warp_a, 0.5))
+    return dict(a, trans=trans_a, pts01=pts01_a, dirs=rays_d[rid_ac]), rid_a, ok_a
+
+
+def compact_a_warp(tree: dv.DeviceTree, n_s: torch.Tensor, out_t: torch.Tensor,
+                   out_dt: torch.Tensor, out_node: torch.Tensor, rays_o: torch.Tensor,
+                   rays_d: torch.Tensor, cap: int):
+    """The marcher's dense [R, max_s] output (row-packed: ray r's samples
+    in its first n_s[r] slots) as flat buffer A [cap], each slot warped.
+    Returns (fields, rid [cap] i32, ok [cap] bool); fields: t, dt [cap]
+    f32, node, trans [cap] i32 (the slot's node and its leaf row
+    max(trans_idx[node], 0)), pts01 [cap, 3] (the warped point in [0, 1]^3,
+    0.5 on padding) and dirs [cap, 3] (the ray's direction). Padding slots
+    have t = dt = node = 0, rid = R and the last ray's direction. CPU
+    tensors take ``compact_a_warp_plain``; CUDA tensors launch K12's
+    ``f2_compact_a_warp`` (csrc/warp.cu: a block scans n_s for its slots'
+    owners, then a thread a slot), bit for bit the plain version."""
+    R, max_s = out_t.shape
+    if n_s.dtype != torch.int32 or out_node.dtype != torch.int32 \
+            or tree.trans_idx.dtype != torch.int32 \
+            or any(x.dtype != torch.float32 for x in (out_t, out_dt, rays_o, rays_d)):
+        raise ValueError("compact_a_warp: n_s, out_node and trans_idx must be int32; "
+                         "out_t, out_dt and the rays float32")
+    if tuple(n_s.shape) != (R,) or tuple(out_dt.shape) != (R, max_s) \
+            or tuple(out_node.shape) != (R, max_s) or tuple(rays_o.shape) != (R, 3) \
+            or tuple(rays_d.shape) != (R, 3) or R < 1 or max_s < 1 or cap < 1 \
+            or R * max_s >= 1 << 31:
+        raise ValueError(f"compact_a_warp: shapes n_s {tuple(n_s.shape)}, out_t "
+                         f"{tuple(out_t.shape)}, out_dt {tuple(out_dt.shape)}, out_node "
+                         f"{tuple(out_node.shape)}, rays {tuple(rays_o.shape)}, cap {cap}")
+    if n_s.device.type == "cpu":
+        return compact_a_warp_plain(tree, n_s, out_t, out_dt, out_node, rays_o, rays_d, cap)
+    if n_s.device.type != "cuda":
+        raise ValueError(f"compact_a_warp: unsupported device {n_s.device}")
+    dv.check_warp_tables("compact_a_warp", tree)
+    ins = [x.contiguous() for x in (n_s, out_t, out_dt, out_node, rays_o, rays_d)]
+    kernels.require_cuda("compact_a_warp", *ins, tree.trans_idx, tree.w2xz, tree.weight)
+    dev = n_s.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    t, dt = torch.empty((cap,), **f32), torch.empty((cap,), **f32)
+    node, rid, trans = (torch.empty((cap,), **i32) for _ in range(3))
+    ok = torch.empty((cap,), dtype=torch.bool, device=dev)
+    pts01, dirs = torch.empty((cap, 3), **f32), torch.empty((cap, 3), **f32)
+    code = kernels.library().f2_compact_a_warp(
+        *(x.data_ptr() for x in (*ins, tree.trans_idx, tree.w2xz, tree.weight, t, dt, node,
+                                 rid, ok, trans, pts01, dirs)),
+        cap, R, max_s, tree.trans_idx.shape[0], kernels.stream_ptr(dev))
+    kernels.check(code, "compact_a_warp")
+    compact_a_warp.launches += 1
+    return dict(t=t, dt=dt, node=node, trans=trans, pts01=pts01, dirs=dirs), rid, ok
+
+
+compact_a_warp.launches = 0
+
+# the fields of buffer A that K13 compacts into B: (name, dtype, row width)
+KEEP_FIELDS = (("t", torch.float32, 1), ("dt", torch.float32, 1), ("node", torch.int32, 1),
+               ("trans", torch.int32, 1), ("pts01", torch.float32, 3),
+               ("dirs", torch.float32, 3))
+
+
+def compact_keep_plain(keep: torch.Tensor, cap: int, fields: dict, rid_src: torch.Tensor,
+                       n_rays: int):
+    """Plain PyTorch version of K13 (JAX ``_compact`` with a ray-id source,
+    renderer.py:72): ``_compact``."""
+    return _compact(keep, cap, fields, n_rays, ray_id_src=rid_src)
+
+
+def compact_keep(keep: torch.Tensor, cap: int, fields: dict, rid_src: torch.Tensor,
+                 n_rays: int):
+    """The keep-set compaction A -> B: slot p < min(total, cap) takes the
+    p-th kept row of A (kept rows past cap are dropped); padding slots get
+    zeros, rid = n_rays and index n - 1. ``fields``: A's KEEP_FIELDS;
+    rid_src: A's ray ids [n] i32. Returns what ``_compact`` returns:
+    (fields [cap], rid [cap] i32, ok [cap] bool, idx [cap] int64). CPU
+    tensors take ``compact_keep_plain``; CUDA tensors launch K13
+    (csrc/compact.cu, one cooperative launch), bit for bit the plain
+    version."""
+    n = keep.shape[0]
+    if set(fields) != {k for k, _, _ in KEEP_FIELDS} or keep.dtype != torch.bool \
+            or rid_src.dtype != torch.int32 or tuple(rid_src.shape) != (n,) \
+            or keep.dim() != 1 or n < 1 or cap < 1 or n_rays < 0 \
+            or any(fields[k].dtype != dt or tuple(fields[k].shape) != ((n,) if c == 1 else (n, c))
+                   for k, dt, c in KEEP_FIELDS):
+        raise ValueError(f"compact_keep: expected bool keep [n], int32 rid_src [n] and "
+                         f"fields {[(k, str(dt), c) for k, dt, c in KEEP_FIELDS]} over n "
+                         f"rows; got keep {keep.dtype} {tuple(keep.shape)}, rid_src "
+                         f"{rid_src.dtype} {tuple(rid_src.shape)}, fields "
+                         f"{ {k: (v.dtype, tuple(v.shape)) for k, v in fields.items()} }")
+    if keep.device.type == "cpu":
+        return compact_keep_plain(keep, cap, fields, rid_src, n_rays)
+    if keep.device.type != "cuda":
+        raise ValueError(f"compact_keep: unsupported device {keep.device}")
+    ins = [x.contiguous() for x in (keep, *(fields[k] for k, _, _ in KEEP_FIELDS), rid_src)]
+    kernels.require_cuda("compact_keep", *ins)
+    dev = keep.device
+    out = {k: torch.empty((cap,) if c == 1 else (cap, c), dtype=dt, device=dev)
+           for k, dt, c in KEEP_FIELDS}
+    rid = torch.empty((cap,), dtype=torch.int32, device=dev)
+    ok = torch.empty((cap,), dtype=torch.bool, device=dev)
+    idx = torch.empty((cap,), dtype=torch.int64, device=dev)
+    lib = kernels.library()
+    counts = torch.empty((lib.f2_compact_keep_max_blocks(),), dtype=torch.int32, device=dev)
+    code = lib.f2_compact_keep(
+        *(x.data_ptr() for x in (*ins, *(out[k] for k, _, _ in KEEP_FIELDS), rid, ok, idx,
+                                 counts)),
+        n, cap, n_rays, kernels.stream_ptr(dev))
+    kernels.check(code, "compact_keep")
+    compact_keep.launches += 1
+    return out, rid, ok, idx
+
+
+compact_keep.launches = 0
+
+
 def _field_encode(params, consts, pts01, vol_idx, statics: RenderStatics):
     """The field's hash encode -> [n, N_LEVELS*N_CHANNELS] features."""
     encode = (hash_block_encode if statics.field_type == "HashBlock"
@@ -227,29 +364,17 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
             tree, rays_o, rays_d, hit_idx, hit_near, hit_far, n_hits,
             noise * fineness, st.sample_l, st.scale_by_dis, st.max_s)
 
-    # --- compact dense -> flat buffer A [CAP1]
+    # --- compact dense -> flat buffer A [CAP1], each slot warped (K12)
     spans("render.compact_a_warp")
-    a, rid_a, ok_a, _ = _compact_rowpacked(
-        n_s, st.cap1, dict(t=out_t.reshape(-1), dt=out_dt.reshape(-1),
-                           node=out_node.reshape(-1)), R, max_s=st.max_s)
-    rid_ac = torch.clamp(rid_a, max=R - 1).long()
-    node_a = torch.where(ok_a, a["node"], torch.zeros_like(a["node"]))
-    trans_a = torch.clamp(tree.trans_idx[node_a.long()], min=0)
-    xyz_a = rays_o[rid_ac] + rays_d[rid_ac] * a["t"][:, None]
-    warp_a = dv.apply_warp(tree, trans_a, xyz_a)
-    # invalid A slots are pinned to the volume center: their warp can be
-    # non-finite, and the cached-B fill index forwards enc_a[cap1-1] into
-    # the grad pass
-    pts01_a = torch.where(ok_a[:, None], (warp_a + 1.0) * 0.5,
-                          torch.full_like(warp_a, 0.5))
-    dirs_a = rays_d[rid_ac]
+    a, rid_a, ok_a = compact_a_warp(tree, n_s, out_t, out_dt, out_node, rays_o, rays_d,
+                                    st.cap1)
+    trans_a, pts01_a, dirs_a = a["trans"], a["pts01"], a["dirs"]
 
     occ = None
     if st.single_pass:
         # one field query over all of A; dead suffixes have transmittance
         # < 1e-4 and add next to nothing to the composite
-        b = dict(t=a["t"], dt=a["dt"], pts01=pts01_a, trans=trans_a,
-                 dirs=dirs_a, node=a["node"])
+        b = a
         rid_b, ok_b = rid_a, ok_a
         vol_b = trans_a
     else:
@@ -270,17 +395,15 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
             keep = ok_a & (trans_vis_a > 1e-4)
             n_keep = keep.to(torch.float32).sum()
             if st.train:
-                occ = dv.compute_occupancy_adders(
-                    tree, torch.where(ok_a, a["node"], torch.full_like(a["node"], -1)),
-                    rid_a, weights_a, alpha_a, R)
+                # A's padding rows carry rid == R, which the votes skip
+                # whatever their node (JAX also sets their node to -1)
+                occ = dv.compute_occupancy_adders(tree, a["node"], rid_a, weights_a,
+                                                  alpha_a, R)
 
-        # --- compact A -> B [CAP2]
+        # --- compact A -> B [CAP2] (K13); B's padding rows have trans 0
         spans("render.compact_b")
-        b, rid_b, ok_b, idx_b = _compact(
-            keep, st.cap2, dict(t=a["t"], dt=a["dt"], pts01=pts01_a,
-                                trans=trans_a, dirs=dirs_a, node=a["node"]),
-            R, ray_id_src=rid_a)
-        vol_b = torch.where(ok_b, b["trans"], torch.zeros_like(b["trans"]))
+        b, rid_b, ok_b, idx_b = compact_keep(keep, st.cap2, a, rid_a, R)
+        vol_b = b["trans"]
 
     # --- grad-enabled field query (+ edge samples for the TV loss)
     spans("render.field_shader")
@@ -372,10 +495,9 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
         overflow_b = torch.zeros((), **f32)
         if st.train:
             with torch.no_grad():
-                occ = dv.compute_occupancy_adders(
-                    tree, torch.where(ok_b, b["node"], torch.full_like(b["node"], -1)),
-                    rid_b, weights, torch.where(ok_b, alpha, torch.zeros_like(alpha)),
-                    R)
+                # B is A here: its padding rows carry rid == R, which the
+                # votes skip whatever their node and alpha
+                occ = dv.compute_occupancy_adders(tree, b["node"], rid_b, weights, alpha, R)
     else:
         overflow_b = n_keep - ok_b.to(torch.float32).sum()
 
