@@ -36,15 +36,17 @@ Phases:
                one step, forward and backward, each launch repeated bit
                for bit, K10 beside torch.segment_reduce, K11 and the
                offsets launch one device launch a call (torch.profiler);
-               K12 (the A compaction with its warp, and the edge
-               samples' warp), K13 (the keep-set compaction A -> B) and
-               K14 (the occupancy votes and their fold) at the step's own
-               inputs and at their edge cases (a uniform slice shape,
-               overflow past the capacity, nothing kept, the degenerate
-               warp's inf and NaN, NaN, +-inf and -0.0 weights), every
-               output bit for bit its plain version, each launch
-               repeated bit for bit, the votes beside one scatter_reduce
-               amax).
+               K12 (the A compaction with its warp and A's ray offsets,
+               held to the offsets launch's, and the edge samples' warp),
+               K13 (the keep-set compaction A -> B) and K14 (the occupancy
+               votes, with the offsets given and computed, and their fold)
+               at the step's own inputs and at their edge cases (a
+               uniform slice shape, overflow past the capacity, nothing
+               kept, the degenerate warp's inf and NaN, NaN, +-inf and
+               -0.0 weights), every output bit for bit its plain version,
+               each launch repeated bit for bit, the votes beside one
+               scatter_reduce amax; with --baseline ROOT, ROOT's K12 and
+               votes in turns at the step's own inputs).
                K7's and K8's
                bounds also have a chain term (march_case, traverse_case):
                the longest ray's dependent operations at the card's max
@@ -131,7 +133,8 @@ Phases:
                variants phase, also over 3 more steps of its config (a);
                with --baseline ROOT, the launches phase of ROOT's package
                and of this tree's, one process each, in turns (ROOT,
-               this, this, ROOT: launch_turns).
+               this, this, ROOT: launch_turns; this tree's step held to
+               STEP_DEVICE_LAUNCHES and STEP_ATEN_OPS).
   launches   — not run by default: LAUNCH_TURN_STEPS synced slice steps
                timed, then the profile phase's counts, as one JSON line
                (--phases device,build,launches [--package-root ROOT]).
@@ -153,6 +156,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import json
 import os
 import statistics
@@ -256,6 +260,13 @@ CARD = {}              # what phase_device reads of the card (max SM clock)
 # turns (launch_turns): ROOT, this, this, ROOT; each process times
 # LAUNCH_TURN_STEPS synced steps after the slice's steps
 LAUNCH_TURN_STEPS = 40
+# a profiled slice step of this tree launches at most STEP_DEVICE_LAUNCHES
+# device activities and dispatches at most STEP_ATEN_OPS outermost aten ops
+# (before K12 wrote buffer A's ray offsets: 1,482 and 1,614, PERF.md §5;
+# their allocation and a view may add two aten ops, and no device launch):
+# launch_turns holds them
+STEP_DEVICE_LAUNCHES = 1482
+STEP_ATEN_OPS = 1616
 OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
                 "hash_encode_fwd", "hash_encode_bwd", "ray_march", "traverse",
@@ -1058,21 +1069,30 @@ def compact_a_case(args: tuple, label: str) -> dict:
     """K12's compact_a_warp on (tree, n_s, out_t, out_dt, out_node, rays_o,
     rays_d, cap). Bound: n_s, the used slots' t, dt and node, the rays, the
     distinct nodes' trans_idx and the distinct leaves' warp rows read once,
-    45 bytes a slot written."""
+    45 bytes a slot and the R + 1 offsets written. The offsets are also
+    held to the offsets launch's for the kernel's ray ids."""
+    from f2nerf_torch.ops import segment as sg
     from f2nerf_torch.render import renderer as rd
     tree, n_s, out_t = args[:3]
     cap = args[-1]
     R, max_s = out_t.shape
     total = int(n_s.long().sum())
-    a, _, ok = rd.compact_a_warp_plain(*args)
+    a, _, ok, _ = rd.compact_a_warp_plain(*args)
     nodes = torch.unique(a["node"][ok]).numel()
     leaves = torch.unique(a["trans"][ok]).numel()
     del a, ok
-    nbytes = R * 4 + min(total, cap) * 12 + R * 24 + nodes * 4 + leaves * 132 * 4 + cap * 45
+    nbytes = (R * 4 + min(total, cap) * 12 + R * 24 + nodes * 4 + leaves * 132 * 4 + cap * 45
+              + (R + 1) * 4)
     r = exact_case("K12 compact_a_warp", f"{label}: R={R}, max_s={max_s}, cap={cap}, "
                    f"{total} samples, {leaves} leaves", lambda: rd.compact_a_warp(*args),
                    lambda: rd.compact_a_warp_plain(*args), nbytes)
-    return dict(r, R=R, max_s=max_s, cap=cap, samples=total, leaves=leaves)
+    _, rid, _, offsets = rd.compact_a_warp(*args)
+    launch = sg.ray_offsets(rid, R)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(offsets, launch):
+        raise AssertionError(f"K12's offsets differ from the offsets launch's ({label})")
+    return dict(r, R=R, max_s=max_s, cap=cap, samples=total, leaves=leaves,
+                offsets_equal_offsets_launch=True)
 
 
 def edges_case(args: tuple, label: str) -> dict:
@@ -1110,25 +1130,37 @@ def keep_case(args: tuple, label: str) -> dict:
 
 
 def votes_case(args: tuple, label: str) -> dict:
-    """K14's votes on (tree, node, rid, w, a, n_rays). Bound: node and rid
-    of every row and w and a of the valid rows read once, the four [N]
-    votes written. Library: one scatter_reduce amax of the weight votes
-    into [N + 1] (its inputs made before timing)."""
+    """K14's votes on (tree, node, rid, w, a, n_rays[, offsets]): given
+    the offsets (as the renderer passes buffer A's or B's; made by the
+    offsets launch where the case has none) and without them (the wrapper
+    computes them). Bound: the offsets, node of the rays' rows and w and a
+    of their valid rows read once, the four [N] votes written. Library:
+    one scatter_reduce amax of the weight votes into [N + 1] (its inputs
+    made before timing)."""
+    from f2nerf_torch.ops import segment as sg
     from f2nerf_torch.sampler import device as dv
-    tree, node, rid, w, a, n_rays = args
+    tree, node, rid, w, a, n_rays = args[:6]
+    if len(args) == 6:
+        args = args + (sg.ray_offsets(rid, n_rays)[0],)
     n, N = node.shape[0], tree.trans_idx.shape[0]
     valid = (rid < n_rays) & (node >= 0)
     n_valid = int(valid.sum())
+    in_rays = int((rid < n_rays).sum())
     nid = torch.where(valid, node, torch.full_like(node, N)).long()
     src = torch.where(valid & (w > 0.01), 512, -1).to(torch.int32)
     base = torch.full((N + 1,), -1, dtype=torch.int32, device=node.device)
     r = exact_case("K14 votes", f"{label}: n={n}, {n_valid} valid rows, R={n_rays}, N={N}",
                    lambda: dv.compute_occupancy_adders(*args),
                    lambda: dv.compute_occupancy_adders_plain(*args),
-                   n * 8 + n_valid * 8 + N * 16,
+                   (n_rays + 1) * 4 + in_rays * 4 + n_valid * 8 + N * 16,
                    lambda: base.scatter_reduce(0, nid, src, "amax", include_self=True),
                    "scatter_reduce amax")
-    return dict(r, n=n, valid=n_valid, N=N)
+    computed = exact_case("K14 votes", f"{label}, offsets computed by the wrapper",
+                          lambda: dv.compute_occupancy_adders(*args[:6]),
+                          lambda: dv.compute_occupancy_adders_plain(*args[:6]),
+                          (n_rays + 1) * 4 + n * 4 + in_rays * 4 + n_valid * 8 + N * 16)
+    return dict(r, n=n, valid=n_valid, N=N, offsets_computed_ms=computed["ms"],
+                max_abs_err=max(r["max_abs_err"], computed["max_abs_err"]))
 
 
 def fold_case(args: tuple, label: str) -> dict:
@@ -1261,7 +1293,121 @@ def votes_uniform_args(tr, seed: int, special: bool, R: int = 2048, per: int = 1
     return (tr.tree, *(torch.from_numpy(x).to(DEV) for x in (node, rid, w, a)), R)
 
 
-def warp_compact_occupancy_rows(calls: dict, tr) -> list[dict]:
+def baseline_warp_votes(root: str):
+    """K12's and K14's votes entry points of ROOT's csrc/warp.cu and
+    csrc/occupancy.cu, built alone with nvcc (the package's flags) into one
+    library under f2nerf_torch/_build/baseline/. Returns a function of an
+    entry point's name and its wrapper's arguments that launches ROOT's
+    kernel on them and returns its outputs as this tree's wrapper does
+    (without the offsets where ROOT's kernels predate them: there
+    compact_a_warp writes none and the votes search rid)."""
+    from f2nerf_torch import kernels
+    out = os.path.join(kernels.BUILD_DIR, "baseline")
+    os.makedirs(out, exist_ok=True)
+    srcs = [os.path.join(os.path.abspath(root), "f2nerf_torch", "csrc", f)
+            for f in ("warp.cu", "occupancy.cu")]
+    so = os.path.join(out, "libbaseline_warp_votes.so")
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, *srcs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {srcs}:\n{proc.stderr}")
+    lib = ctypes.CDLL(so)
+    offsets_iface = "void* offsets, long long cap" in open(srcs[0]).read()
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, types in (("f2_compact_a_warp", [vp] * (18 if offsets_iface else 17)
+                         + [ll, i, i, i, vp]),
+                        ("f2_sample_edges", [vp] * 10 + [i, i, i, vp]),
+                        ("f2_occupancy_votes", [vp] * 8 + [ll, i, i, vp])):
+        getattr(lib, name).argtypes = types
+        getattr(lib, name).restype = ctypes.c_int
+
+    def run(name, *args):
+        # the kernels read their inputs as dense arrays, as the wrappers
+        # pass them (the step's rays_o is a view)
+        args = tuple(x.contiguous() if torch.is_tensor(x) else x for x in args)
+        if name == "compact_a_warp":
+            tree, n_s, out_t, out_dt, out_node, o, d, cap = args
+            R, max_s = out_t.shape
+            f32 = dict(dtype=torch.float32, device=DEV)
+            i32 = dict(dtype=torch.int32, device=DEV)
+            outs = [torch.empty((cap,), **f32), torch.empty((cap,), **f32),
+                    torch.empty((cap,), **i32), torch.empty((cap,), **i32),
+                    torch.empty((cap,), dtype=torch.bool, device=DEV), torch.empty((cap,), **i32),
+                    torch.empty((cap, 3), **f32), torch.empty((cap, 3), **f32)]
+            if offsets_iface:
+                outs.append(torch.empty((R + 1,), **i32))
+            code = lib.f2_compact_a_warp(
+                *(x.data_ptr() for x in (n_s, out_t, out_dt, out_node, o, d, tree.trans_idx,
+                                         tree.w2xz, tree.weight, *outs)),
+                cap, R, max_s, tree.trans_idx.shape[0], kernels.stream_ptr(DEV))
+        elif name == "sample_edges":
+            tree, e, coord = args
+            outs = [torch.empty((e.shape[0], 2, 3), dtype=torch.float32, device=DEV),
+                    torch.empty((e.shape[0], 2), dtype=torch.int32, device=DEV)]
+            code = lib.f2_sample_edges(
+                *(x.data_ptr() for x in (e, coord, tree.edge_t, tree.edge_center, tree.edge_dir0,
+                                         tree.edge_dir1, tree.w2xz, tree.weight, *outs)),
+                e.shape[0], tree.edge_t.shape[0], tree.w2xz.shape[0], kernels.stream_ptr(DEV))
+        else:
+            tree, node, rid, w, a, n_rays, offsets = args
+            N = tree.trans_idx.shape[0]
+            out = torch.empty((4, N), dtype=torch.int32, device=DEV)
+            ins = (node, w, a, offsets) if offsets_iface else (node, rid, w, a)
+            code = lib.f2_occupancy_votes(
+                *(x.data_ptr() for x in ins), *(out[k].data_ptr() for k in range(4)),
+                node.shape[0], n_rays, N, kernels.stream_ptr(DEV))
+            outs = list(out)
+        kernels.check(code, f"baseline {name}")
+        return outs
+    return run
+
+
+def baseline_turns(root: str, calls: dict) -> dict:
+    """--baseline ROOT: K12's two entry points and K14's votes of ROOT
+    (``baseline_warp_votes``) and of this tree at the slice step's own
+    inputs, timed in turns (ROOT, this, this, ROOT, ...; cuda_time_turns),
+    ROOT's outputs held bit for bit to this tree's."""
+    from f2nerf_torch.ops import segment as sg
+    from f2nerf_torch.render import renderer as rd
+    from f2nerf_torch.sampler import device as dv
+    run = baseline_warp_votes(root)
+    (a_args,), (e_args,), (v_args,) = (calls["compact_a_warp"], calls["sample_edges"],
+                                       calls["compute_occupancy_adders"])
+    if len(v_args) == 6:
+        v_args = v_args + (sg.ray_offsets(v_args[2], v_args[5])[0],)
+    this = {"compact_a_warp": lambda: list(out_leaves(rd.compact_a_warp(*a_args))),
+            "sample_edges": lambda: list(out_leaves(dv.sample_edges(*e_args))),
+            "compute_occupancy_adders": lambda: list(out_leaves(
+                dv.compute_occupancy_adders(*v_args)))}
+    args = {"compact_a_warp": a_args, "sample_edges": e_args, "compute_occupancy_adders": v_args}
+    out = {}
+    for name, fn in this.items():
+        mine = [x for _, x in fn()]
+        theirs = run(name, *args[name])
+        torch.cuda.synchronize()
+        if name == "compact_a_warp":   # t, dt, node, trans, pts01, dirs, then rid, ok
+            mine = [mine[i] for i in (4, 1, 2, 6, 7, 5, 3, 0)] + mine[8:]
+        if name == "compute_occupancy_adders":
+            mine = [mine[i] for i in (1, 0, 2, 3)]      # adder_a, adder_w, mark, visit_max
+        differ = {i: int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                  if x.dtype == y.dtype == torch.float32 else int((x != y).sum())
+                  for i, (x, y) in enumerate(zip(theirs, mine)) if not bits_equal(x, y)}
+        if differ:
+            first = {i: int(torch.nonzero(theirs[i] != mine[i])[0, 0]) for i in differ
+                     if theirs[i].shape == mine[i].shape and bool((theirs[i] != mine[i]).any())}
+            raise AssertionError(f"the baseline's {name} differs from this tree's: outputs "
+                                 f"{differ} differ (elements), first at {first}; "
+                                 f"{[(tuple(x.shape), x.dtype) for x in theirs]} against "
+                                 f"{[(tuple(x.shape), x.dtype) for x in mine]}")
+        t = cuda_time_turns({"baseline": lambda n=name: run(n, *args[n]), "this tree": fn})
+        out[name] = dict(baseline_ms=t["baseline"], ms=t["this tree"])
+        log(f"[kernels] {name} at the slice step's own inputs, in turns with {root}: "
+            f"baseline {t['baseline']:.4f} ms, this tree {t['this tree']:.4f} ms "
+            f"(outputs bit for bit the same)")
+    return out
+
+
+def warp_compact_occupancy_rows(calls: dict, tr, baseline: str | None = None) -> list[dict]:
     """K12 (compact_a_warp, sample_edges), K13 (compact_keep) and K14 (the
     votes and the fold), each at one slice step's own inputs (spied; the
     row's ms, plain_ms, bound_ms and library_ms) and beside them:
@@ -1273,8 +1419,13 @@ def warp_compact_occupancy_rows(calls: dict, tr) -> list[dict]:
           the step's flags at half the kept rows' capacity (overflow) and
           with nothing kept;
       votes — uniform at the slice's shape with finite weights and with
-          NaN, +-inf and -0.0 weights (``votes_uniform_args``);
-      fold — the uniform votes folded into the step's tree."""
+          NaN, +-inf and -0.0 weights (``votes_uniform_args``), each with
+          the offsets given and computed (``votes_case``);
+      fold — the uniform votes folded into the step's tree.
+    With ``baseline`` (an earlier tree, with or without the offsets),
+    K12's two entry points and the votes of that tree too, in turns at the
+    step's own inputs (``baseline_turns``: the rows' ``baseline_ms`` and
+    ``turns_ms``)."""
     from f2nerf_torch.sampler import device as dv
     gen = torch.Generator(device=DEV).manual_seed(12)
     (a_args,), (e_args,), (k_args,) = (calls["compact_a_warp"], calls["sample_edges"],
@@ -1318,12 +1469,16 @@ def warp_compact_occupancy_rows(calls: dict, tr) -> list[dict]:
                                          "f2nerf_tpu/sampler/device.py:667", LIBRARY_VOTES),
             "apply_occupancy_adders": ("f2nerf_torch/csrc/occupancy.cu",
                                        "f2nerf_tpu/sampler/device.py:719", NO_LIBRARY_FOLD)}
+    turns = baseline_turns(baseline, calls) if baseline else {}
     rows = []
     for name, cs in cases.items():
         source, replaces, library = meta[name]
         step = cs["step"]
+        extra = {}
+        if name in turns:
+            extra = dict(baseline_ms=turns[name]["baseline_ms"], turns_ms=turns[name]["ms"])
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         library=library, bound_by="bytes",
+                         library=library, bound_by="bytes", **extra,
                          **{k: step[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
                          max_abs_err=max(r["max_abs_err"] for r in cs.values()),
                          **{f"{c}_{k}": v for c, r in cs.items() for k, v in r.items()}))
@@ -1632,7 +1787,7 @@ def capture_step_inputs(tr) -> dict:
 
 
 def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
-                            launches: dict) -> None:
+                            launches: dict, baseline: str | None = None) -> None:
     """The kernels at the slice's own inputs, which become the ``ms``,
     ``plain_ms`` and ``bound_ms`` of their rows (the earlier shapes keep
     theirs under ``uniform_``/``micro_gather_``):
@@ -1682,7 +1837,7 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
     r4 = gather_check(cache, idx, f"slice's own inputs (cap1 {cache.shape[0]}, "
                                   f"cap2 {idx.shape[0]})")
     seg = segment_step_cases(calls)
-    rows += warp_compact_occupancy_rows(calls, tr)
+    rows += warp_compact_occupancy_rows(calls, tr, baseline)
     del calls, fwd, cache, idx
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -2026,6 +2181,15 @@ def phase_launches(tr) -> dict:
     return out
 
 
+def check_step_launches(out: dict, where: str) -> None:
+    """A slice step's launches within STEP_DEVICE_LAUNCHES and
+    STEP_ATEN_OPS."""
+    if out["device_launches"] > STEP_DEVICE_LAUNCHES or out["aten_ops"] > STEP_ATEN_OPS:
+        raise AssertionError(f"{where}: a slice step launched {out['device_launches']} device "
+                             f"activities and {out['aten_ops']} outermost aten ops, more than "
+                             f"{STEP_DEVICE_LAUNCHES} / {STEP_ATEN_OPS}")
+
+
 def launch_turns(root: str) -> dict:
     """--baseline ROOT: ``phase_launches`` of ROOT's package and of this
     tree's, one process each (this script with --package-root ROOT, then
@@ -2051,6 +2215,7 @@ def launch_turns(root: str) -> dict:
         f"fewer); outermost aten ops a step {out['baseline']['aten_ops']:.1f} -> "
         f"{out['this tree']['aten_ops']:.1f}; steps/s {out['baseline']['steps_per_s']:.3f} -> "
         f"{out['this tree']['steps_per_s']:.3f} (each the median of two turns; all: {runs})")
+    check_step_launches(out["this tree"], "launch_turns")
     return out
 
 
@@ -3322,7 +3487,7 @@ def main(argv=None) -> int:
             launches, tr, (cap1, cap2) = timed("slice", phase_slice, tmp)
             if rows:
                 timed("kernels_at_slice_inputs", kernels_at_slice_inputs, rows, tr,
-                      cap1, cap2, launches)
+                      cap1, cap2, launches, args.baseline)
             if "profile" in phases:
                 timed("profile", phase_profile, tr)
                 if args.baseline:

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "f2_ray_offsets": [_vp] * 4 + [_ll, _i, _vp],
     "f2_segment_reduce": [_vp, _ll, _ll, _vp, _vp, _i, _i, _vp],
     "f2_segment_scan": [_vp] * 4 + [_ll, _i, _i, _vp],
-    "f2_compact_a_warp": [_vp] * 17 + [_ll, _i, _i, _i, _vp],
+    "f2_compact_a_warp": [_vp] * 18 + [_ll, _i, _i, _i, _vp],
     "f2_sample_edges": [_vp] * 10 + [_i, _i, _i, _vp],
     "f2_compact_keep": [_vp] * 18 + [_ll, _ll, _i, _vp],
     "f2_compact_keep_max_blocks": [],

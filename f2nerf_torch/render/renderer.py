@@ -145,7 +145,8 @@ def compact_a_warp_plain(tree: dv.DeviceTree, n_s: torch.Tensor, out_t: torch.Te
                         rays_d: torch.Tensor, cap: int):
     """Plain PyTorch version of K12's ``compact_a_warp`` (JAX
     ``renderer.py:223-240``): ``_compact_rowpacked``, the leaf row, the
-    world point, ``apply_warp`` and the pin of padding slots."""
+    world point, ``apply_warp`` and the pin of padding slots; A's ray
+    offsets by a searchsorted over its ray ids."""
     R, max_s = out_t.shape
     a, rid_a, ok_a, _ = _compact_rowpacked(
         n_s, cap, dict(t=out_t.reshape(-1), dt=out_dt.reshape(-1),
@@ -160,7 +161,9 @@ def compact_a_warp_plain(tree: dv.DeviceTree, n_s: torch.Tensor, out_t: torch.Te
     # the grad pass
     pts01_a = torch.where(ok_a[:, None], (warp_a + 1.0) * 0.5,
                           torch.full_like(warp_a, 0.5))
-    return dict(a, trans=trans_a, pts01=pts01_a, dirs=rays_d[rid_ac]), rid_a, ok_a
+    keys = torch.arange(R + 1, dtype=rid_a.dtype, device=rid_a.device)
+    offsets_a = torch.searchsorted(rid_a, keys).to(torch.int32)
+    return dict(a, trans=trans_a, pts01=pts01_a, dirs=rays_d[rid_ac]), rid_a, ok_a, offsets_a
 
 
 def compact_a_warp(tree: dv.DeviceTree, n_s: torch.Tensor, out_t: torch.Tensor,
@@ -168,14 +171,18 @@ def compact_a_warp(tree: dv.DeviceTree, n_s: torch.Tensor, out_t: torch.Tensor,
                    rays_d: torch.Tensor, cap: int):
     """The marcher's dense [R, max_s] output (row-packed: ray r's samples
     in its first n_s[r] slots) as flat buffer A [cap], each slot warped.
-    Returns (fields, rid [cap] i32, ok [cap] bool); fields: t, dt [cap]
-    f32, node, trans [cap] i32 (the slot's node and its leaf row
-    max(trans_idx[node], 0)), pts01 [cap, 3] (the warped point in [0, 1]^3,
-    0.5 on padding) and dirs [cap, 3] (the ray's direction). Padding slots
-    have t = dt = node = 0, rid = R and the last ray's direction. CPU
-    tensors take ``compact_a_warp_plain``; CUDA tensors launch K12's
+    Returns (fields, rid [cap] i32, ok [cap] bool, offsets [R + 1] i32);
+    fields: t, dt [cap] f32, node, trans [cap] i32 (the slot's node and its
+    leaf row max(trans_idx[node], 0)), pts01 [cap, 3] (the warped point in
+    [0, 1]^3, 0.5 on padding) and dirs [cap, 3] (the ray's direction).
+    Padding slots have t = dt = node = 0, rid = R and the last ray's
+    direction. ``offsets`` are A's ray offsets as ``ray_offsets`` gives
+    them for rid: ray r's first slot, min(the sum of n_s before r, cap),
+    and offsets[R] the first padding slot. CPU tensors take
+    ``compact_a_warp_plain``; CUDA tensors launch K12's
     ``f2_compact_a_warp`` (csrc/warp.cu: a block scans n_s for its slots'
-    owners, then a thread a slot), bit for bit the plain version."""
+    owners, block 0 writes the offsets, 2 slots a thread), bit for bit the
+    plain version."""
     R, max_s = out_t.shape
     if n_s.dtype != torch.int32 or out_node.dtype != torch.int32 \
             or tree.trans_idx.dtype != torch.int32 \
@@ -185,7 +192,7 @@ def compact_a_warp(tree: dv.DeviceTree, n_s: torch.Tensor, out_t: torch.Tensor,
     if tuple(n_s.shape) != (R,) or tuple(out_dt.shape) != (R, max_s) \
             or tuple(out_node.shape) != (R, max_s) or tuple(rays_o.shape) != (R, 3) \
             or tuple(rays_d.shape) != (R, 3) or R < 1 or max_s < 1 or cap < 1 \
-            or R * max_s >= 1 << 31:
+            or R * max_s >= 1 << 31 or cap >= 1 << 31:
         raise ValueError(f"compact_a_warp: shapes n_s {tuple(n_s.shape)}, out_t "
                          f"{tuple(out_t.shape)}, out_dt {tuple(out_dt.shape)}, out_node "
                          f"{tuple(out_node.shape)}, rays {tuple(rays_o.shape)}, cap {cap}")
@@ -203,13 +210,14 @@ def compact_a_warp(tree: dv.DeviceTree, n_s: torch.Tensor, out_t: torch.Tensor,
     node, rid, trans = (torch.empty((cap,), **i32) for _ in range(3))
     ok = torch.empty((cap,), dtype=torch.bool, device=dev)
     pts01, dirs = torch.empty((cap, 3), **f32), torch.empty((cap, 3), **f32)
+    offsets = torch.empty((R + 1,), **i32)
     code = kernels.library().f2_compact_a_warp(
         *(x.data_ptr() for x in (*ins, tree.trans_idx, tree.w2xz, tree.weight, t, dt, node,
-                                 rid, ok, trans, pts01, dirs)),
+                                 rid, ok, trans, pts01, dirs, offsets)),
         cap, R, max_s, tree.trans_idx.shape[0], kernels.stream_ptr(dev))
     kernels.check(code, "compact_a_warp")
     compact_a_warp.launches += 1
-    return dict(t=t, dt=dt, node=node, trans=trans, pts01=pts01, dirs=dirs), rid, ok
+    return dict(t=t, dt=dt, node=node, trans=trans, pts01=pts01, dirs=dirs), rid, ok, offsets
 
 
 compact_a_warp.launches = 0
@@ -366,8 +374,8 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
 
     # --- compact dense -> flat buffer A [CAP1], each slot warped (K12)
     spans("render.compact_a_warp")
-    a, rid_a, ok_a = compact_a_warp(tree, n_s, out_t, out_dt, out_node, rays_o, rays_d,
-                                    st.cap1)
+    a, rid_a, ok_a, offsets_a = compact_a_warp(tree, n_s, out_t, out_dt, out_node, rays_o,
+                                               rays_d, st.cap1)
     trans_a, pts01_a, dirs_a = a["trans"], a["pts01"], a["dirs"]
 
     occ = None
@@ -398,7 +406,7 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
                 # A's padding rows carry rid == R, which the votes skip
                 # whatever their node (JAX also sets their node to -1)
                 occ = dv.compute_occupancy_adders(tree, a["node"], rid_a, weights_a,
-                                                  alpha_a, R)
+                                                  alpha_a, R, offsets_a)
 
         # --- compact A -> B [CAP2] (K13); B's padding rows have trans 0
         spans("render.compact_b")
@@ -497,7 +505,8 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
             with torch.no_grad():
                 # B is A here: its padding rows carry rid == R, which the
                 # votes skip whatever their node and alpha
-                occ = dv.compute_occupancy_adders(tree, b["node"], rid_b, weights, alpha, R)
+                occ = dv.compute_occupancy_adders(tree, b["node"], rid_b, weights, alpha, R,
+                                                  offsets_b)
     else:
         overflow_b = n_keep - ok_b.to(torch.float32).sum()
 

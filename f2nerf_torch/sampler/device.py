@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops.segment import check_offsets, ray_offsets
 from .octree import OctreeHost, build_ropes
 from .warp import N_PROS
 
@@ -788,8 +789,8 @@ def sample_edges(tree: DeviceTree, edge_idx: torch.Tensor, coord: torch.Tensor):
     edge_idx: [n] int32 picks in [0, max(n_edges, 1)); coord: [n, 2] in
     [-1, 1). Returns (pts [n, 2, 3] warp coords, trans idx [n, 2] i32).
     CPU tensors take ``sample_edges_plain``; CUDA tensors launch K12's
-    ``f2_sample_edges`` (csrc/warp.cu, a thread a sample), bit for bit the
-    plain version."""
+    ``f2_sample_edges`` (csrc/warp.cu, a thread a (sample, frame)), bit for
+    bit the plain version."""
     n = edge_idx.shape[0]
     if edge_idx.dtype != torch.int32 or coord.dtype != torch.float32 \
             or tree.edge_t.dtype != torch.int32:
@@ -842,10 +843,12 @@ def _scatter_max(base: torch.Tensor, idx: torch.Tensor, src: torch.Tensor):
 
 def compute_occupancy_adders_plain(tree: DeviceTree, node_idx: torch.Tensor,
                                    ray_id: torch.Tensor, weights: torch.Tensor,
-                                   alphas: torch.Tensor, n_rays: int) -> dict:
+                                   alphas: torch.Tensor, n_rays: int,
+                                   offsets: torch.Tensor | None = None) -> dict:
     """Plain PyTorch version of K14's votes (JAX
     ``compute_occupancy_adders``, device.py:667-716): segment maxima,
-    scatter-maxes and a run-length cumsum / index_add."""
+    scatter-maxes and a run-length cumsum / index_add. ``offsets`` is
+    accepted as the kernel's wrapper takes it, and not read."""
     from ..ops.segment import segment_max
 
     n_nodes = tree.trans_idx.shape[0]
@@ -892,15 +895,19 @@ def compute_occupancy_adders_plain(tree: DeviceTree, node_idx: torch.Tensor,
 
 def compute_occupancy_adders(tree: DeviceTree, node_idx: torch.Tensor,
                              ray_id: torch.Tensor, weights: torch.Tensor,
-                             alphas: torch.Tensor, n_rays: int) -> dict:
+                             alphas: torch.Tensor, n_rays: int,
+                             offsets: torch.Tensor | None = None) -> dict:
     """Per-batch occupancy vote tensors (MarkVistNodeKernel,
     PersSampler.cu:475-534): max-combinable [n_nodes] i32 arrays adder_w,
     adder_a, mark, visit_max. node_idx/ray_id: [cap] int32 flat sample
     buffer, sorted by ray_id (padding: ray_id == n_rays, node_idx == -1);
-    weights/alphas [cap] float32. CPU tensors take
-    ``compute_occupancy_adders_plain``; CUDA tensors launch K14's
-    ``f2_occupancy_votes`` (csrc/occupancy.cu: one cooperative launch, a
-    warp a ray, integer maxima), bit for bit the plain version."""
+    weights/alphas [cap] float32. ``offsets``: the buffer's ray offsets
+    as ``ray_offsets`` gives them for ray_id (the renderer passes buffer
+    A's from ``compact_a_warp``, or B's; computed by ``ray_offsets`` when
+    None). CPU tensors take ``compute_occupancy_adders_plain``; CUDA
+    tensors launch K14's ``f2_occupancy_votes`` (csrc/occupancy.cu: one
+    cooperative launch, a warp a ray over its rows [offsets[r],
+    offsets[r + 1]), integer maxima), bit for bit the plain version."""
     n = node_idx.shape[0]
     if node_idx.dtype != torch.int32 or ray_id.dtype != torch.int32 \
             or weights.dtype != torch.float32 or alphas.dtype != torch.float32:
@@ -913,18 +920,24 @@ def compute_occupancy_adders(tree: DeviceTree, node_idx: torch.Tensor,
                          f"{tuple(node_idx.shape)}, ray_id {tuple(ray_id.shape)}, weights "
                          f"{tuple(weights.shape)}, alphas {tuple(alphas.shape)}, n_rays "
                          f"{n_rays}")
+    if offsets is not None:
+        check_offsets("compute_occupancy_adders", offsets, ray_id, n_rays)
     if node_idx.device.type == "cpu":
         return compute_occupancy_adders_plain(tree, node_idx, ray_id, weights, alphas,
-                                              n_rays)
+                                              n_rays, offsets)
     if node_idx.device.type != "cuda":
         raise ValueError(f"compute_occupancy_adders: unsupported device {node_idx.device}")
     ins = [x.contiguous() for x in (node_idx, ray_id, weights, alphas)]
-    kernels.require_cuda("compute_occupancy_adders", *ins)
+    if offsets is None:
+        offsets = ray_offsets(ins[1], n_rays)[0]
+    kernels.require_cuda("compute_occupancy_adders", *ins, offsets)
     n_nodes = tree.trans_idx.shape[0]
     out = torch.empty((4, n_nodes), dtype=torch.int32, device=node_idx.device)
+    node_idx, ray_id, weights, alphas = ins
     code = kernels.library().f2_occupancy_votes(
-        *(x.data_ptr() for x in ins), *(out[k].data_ptr() for k in range(4)), n, n_rays,
-        n_nodes, kernels.stream_ptr(node_idx.device))
+        *(x.data_ptr() for x in (node_idx, weights, alphas, offsets)),
+        *(out[k].data_ptr() for k in range(4)), n, n_rays, n_nodes,
+        kernels.stream_ptr(node_idx.device))
     kernels.check(code, "compute_occupancy_adders")
     compute_occupancy_adders.launches += 1
     return dict(adder_w=out[0], adder_a=out[1], mark=out[2], visit_max=out[3])

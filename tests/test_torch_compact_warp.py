@@ -1,18 +1,21 @@
 """Kernels K12 (``compact_a_warp``, ``sample_edges``) and K13
 (``compact_keep``) of the port: their plain versions against the JAX
-package on the CPU, the wrappers' routing and refusals, and on the card
-(``cuda`` marker, skipped without one) each kernel against its plain
-version.
+package on the CPU, buffer A's ray offsets (``compact_a_warp``'s fourth
+output) against ``ray_offsets_plain`` of A's ray ids, the wrappers'
+routing and refusals, and on the card (``cuda`` marker, skipped without
+one) each kernel against its plain version and A's offsets against the
+offsets launch.
 
 Inputs come from numpy seeds on a JAX-built octree converted to the port
 (tests/test_sampler.py's synthetic rig): dense marcher buffers with empty
 rays, padding past the total and a total past the capacity; nodes whose
-leaf row is -1 (the root, culled leaves); keep flags with nothing kept,
-everything kept and an overflow past cap2.
+leaf row is -1 (the root, culled leaves); rays that start at or past the
+capacity; keep flags with nothing kept, everything kept and an overflow
+past cap2.
 
 Tolerances:
-  * compactions, ray ids, nodes, leaf rows and directions (copies and
-    integers): exact;
+  * compactions, ray ids, ray offsets, nodes, leaf rows and directions
+    (copies and integers): exact;
   * the warped points against JAX: rtol 1e-5, atol 1e-5 (XLA may contract
     a multiply-add into one FMA where torch rounds twice, as
     tests/test_torch_sampler.py's warp test);
@@ -30,6 +33,7 @@ import torch
 from f2nerf_tpu.render import renderer as jren
 from f2nerf_tpu.sampler import device as jdv
 from f2nerf_tpu.sampler import octree as joc
+from f2nerf_torch.ops.segment import ray_offsets, ray_offsets_plain
 from f2nerf_torch.render import renderer as tren
 from f2nerf_torch.sampler import device as tdv
 from f2nerf_torch.sampler.octree import OctreeHost
@@ -108,6 +112,47 @@ def jax_compact_a_warp(jtree, n_s, out_t, out_dt, out_node, o, d, cap):
 A_CASES = [(8, 16, 64), (100, 32, 1024), (100, 32, 256), (130, 8, 2048), (64, 4, 16)]
 
 
+def offsets_want(n_s: np.ndarray, cap: int) -> np.ndarray:
+    """Ray r's first slot of A: the samples before it, at most cap (a ray
+    that starts at or past cap has none), and the first padding slot."""
+    return np.minimum(np.concatenate([[0], np.cumsum(n_s)]), cap).astype(np.int32)
+
+
+def offsets_case(jtree, mode: str, n_rays: int, max_s: int, cap: int):
+    """dense_case with n_s by ``mode``: 'step' (U[0, 143), the slice
+    step's mean of ~71 samples a ray, under cap), 'zeros' (a fifth of the
+    rays with samples, the first and last empty), 'overflow' (U[0, max_s],
+    past cap: the later rays start past it), 'exact' (the total is cap),
+    'first_past' (the first ray alone fills cap)."""
+    case = list(dense_case(jtree, 23 + n_rays, n_rays, max_s))
+    rng = np.random.RandomState(n_rays + cap)
+    n_s = case[0]
+    if mode == "step":
+        n_s = rng.randint(0, min(143, max_s + 1), n_rays)
+    elif mode == "zeros":
+        n_s = np.where(rng.rand(n_rays) < 0.2, rng.randint(1, max_s + 1, n_rays), 0)
+        n_s[[0, -1]] = 0
+    elif mode == "overflow":
+        n_s = rng.randint(0, max_s + 1, n_rays)
+    elif mode == "exact":
+        n_s = np.full(n_rays, cap // n_rays)
+        n_s[: cap % n_rays] += 1
+    elif mode == "first_past":
+        n_s = np.full(n_rays, max_s)
+    n_s = n_s.astype(np.int32)
+    live = np.arange(max_s)[None, :] < n_s[:, None]
+    case[0] = n_s
+    case[1] = np.where(live, case[1], 0).astype(np.float32)
+    case[2] = np.where(live, case[2], 0).astype(np.float32)
+    case[3] = np.where(live, case[3], -1).astype(np.int32)
+    return tuple(case)
+
+
+OFFSET_CASES = [("step", 2048, 512, 262144), ("zeros", 64, 16, 512),
+                ("overflow", 2048, 512, 262144), ("exact", 100, 32, 1600),
+                ("first_past", 8, 64, 16)]
+
+
 # ------------------------------------------------------------------ K12 (CPU)
 
 @pytest.mark.parametrize("n_rays,max_s,cap", A_CASES)
@@ -115,11 +160,12 @@ def test_compact_a_warp_plain_matches_jax(trees, n_rays, max_s, cap):
     _, jtree, ttree = trees
     case = dense_case(jtree, 11 + n_rays + cap, n_rays, max_s)
     want, rid_j, ok_j = jax_compact_a_warp(jtree, *case, cap)
-    got, rid_t, ok_t = tren.compact_a_warp_plain(ttree, *map(T, case), cap)
+    got, rid_t, ok_t, off_t = tren.compact_a_warp_plain(ttree, *map(T, case), cap)
     total = int(case[0].sum())
     assert int(ok_t.sum()) == min(total, cap)
     np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
     np.testing.assert_array_equal(rid_t.numpy(), np.asarray(rid_j))
+    np.testing.assert_array_equal(off_t.numpy(), offsets_want(case[0], cap))
     for k in A_FIELDS:
         if k == "pts01":
             np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
@@ -134,6 +180,25 @@ def test_compact_a_warp_plain_matches_jax(trees, n_rays, max_s, cap):
         assert bool((got["dirs"][pad] == T(case[5][-1])).all())
 
 
+@pytest.mark.parametrize("mode,n_rays,max_s,cap", OFFSET_CASES)
+def test_compact_a_warp_offsets(trees, mode, n_rays, max_s, cap):
+    """A's offsets equal ray_offsets_plain of A's ray ids (the offsets
+    launch's plain version), with empty rays and rays that start at or past
+    the capacity."""
+    _, jtree, ttree = trees
+    case = offsets_case(jtree, mode, n_rays, max_s, cap)
+    _, rid, ok, off = tren.compact_a_warp_plain(ttree, *map(T, case), cap)
+    assert off.dtype == torch.int32 and tuple(off.shape) == (n_rays + 1,)
+    assert torch.equal(off, ray_offsets_plain(rid, n_rays)[0])
+    np.testing.assert_array_equal(off.numpy(), offsets_want(case[0], cap))
+    assert int(off[-1]) == int(ok.sum())
+    starts = np.concatenate([[0], np.cumsum(case[0])])[:-1]
+    if mode in ("overflow", "first_past"):
+        assert (starts >= cap).any() and bool((off[:-1][T(starts >= cap)] == cap).all())
+    if mode == "zeros":
+        assert (case[0] == 0).sum() > n_rays // 2
+
+
 def test_compact_a_warp_routes_cpu_to_plain(trees):
     _, jtree, ttree = trees
     case = tuple(map(T, dense_case(jtree, 3, 40, 16)))
@@ -141,7 +206,7 @@ def test_compact_a_warp_routes_cpu_to_plain(trees):
     want = tren.compact_a_warp_plain(ttree, *case, 512)
     for k in A_FIELDS:
         assert same_bits(got[0][k], want[0][k]), k
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
 
 
 @pytest.mark.parametrize("bad", ["n_s_int64", "rays_f64", "node_shape", "n_s_shape", "meta"])
@@ -303,16 +368,18 @@ def degenerate_tree(dev) -> tdv.DeviceTree:
 
 def _a_on_card(tree, case, cap):
     """K12's compact_a_warp twice and its plain version, on the card: the
-    same bits."""
+    same bits; A's offsets also those of the offsets launch."""
     got = tren.compact_a_warp(tree, *case, cap)
     again = tren.compact_a_warp(tree, *case, cap)
     want = tren.compact_a_warp_plain(tree, *case, cap)
+    launch = ray_offsets(got[1], case[0].shape[0])[0]
     torch.cuda.synchronize()
     for k in A_FIELDS:
         assert same_bits(got[0][k], want[0][k]), k
         assert same_bits(got[0][k], again[0][k]), k
-    for i in (1, 2):
+    for i in (1, 2, 3):
         assert torch.equal(got[i], want[i]) and torch.equal(got[i], again[i])
+    assert torch.equal(got[3], launch)
     return got
 
 
@@ -322,6 +389,15 @@ def test_compact_a_warp_on_card(trees, cuda, n_rays, max_s, cap):
     _, jtree, ttree = trees
     case = tuple(T(x).to(cuda) for x in dense_case(jtree, 5 + n_rays, n_rays, max_s))
     _a_on_card(tree_on(ttree, cuda), case, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,n_rays,max_s,cap", OFFSET_CASES + [("overflow", 4096, 512, 65536)])
+def test_compact_a_warp_offsets_on_card(trees, cuda, mode, n_rays, max_s, cap):
+    _, jtree, ttree = trees
+    case = tuple(T(x).to(cuda) for x in offsets_case(jtree, mode, n_rays, max_s, cap))
+    _, _, _, off = _a_on_card(tree_on(ttree, cuda), case, cap)
+    np.testing.assert_array_equal(off.cpu().numpy(), offsets_want(case[0].cpu().numpy(), cap))
 
 
 @pytest.mark.cuda
@@ -338,7 +414,7 @@ def test_compact_a_warp_degenerate_on_card(cuda):
     o = torch.tensor([[0.0, 0.0, 0.0], [0.3, 0.0, 0.0], [0.2, 0.1, 0.0], [0.0, 0.5, 0.0],
                       [-0.4, 0.0, 0.0], [0.1, 0.1, 0.1]], device=cuda)
     d = torch.tensor([[1.0, 0.0, 0.0]] * R, device=cuda)
-    a, _, ok = _a_on_card(tree, (n_s, out_t, out_dt, out_node, o, d), 32)
+    a, _, ok, _ = _a_on_card(tree, (n_s, out_t, out_dt, out_node, o, d), 32)
     p = a["pts01"][ok]
     assert bool(torch.isnan(p).any()) and bool(torch.isinf(p).any())
     assert bool((a["pts01"][~ok] == 0.5).all())

@@ -1,8 +1,10 @@
 """Kernel K14 of the port, the occupancy votes (``compute_occupancy_adders``)
 and their fold (``apply_occupancy_adders``): the plain versions against the
-JAX package and against a loop over the rays in numpy, the wrappers'
-routing and refusals on the CPU, and on the card (``cuda`` marker, skipped
-without one) each kernel against its plain version.
+JAX package and against a loop over the rays in numpy, the votes with the
+buffer's ray offsets given and without, the wrappers' routing and
+refusals on the CPU, and on the card (``cuda`` marker, skipped without
+one) each kernel against its plain version, the votes with the offsets
+given and computed.
 
 Inputs come from numpy seeds: ray-sorted buffers with empty rays, rows of
 a ray whose node is -1, trailing padding (ray id == n_rays), runs that
@@ -25,6 +27,7 @@ import torch
 
 from f2nerf_tpu.sampler import device as jdv
 from f2nerf_tpu.sampler import octree as joc
+from f2nerf_torch.ops.segment import ray_offsets, ray_offsets_plain
 from f2nerf_torch.sampler import device as tdv
 from f2nerf_torch.utils.convert import octree_from_fields
 from test_sampler import CFG, synthetic_rig
@@ -153,6 +156,38 @@ def test_votes_plain_match_the_loop(trees, special):
     assert (want["adder_w"] == 512).any() and (want["mark"] == 1).any()
 
 
+@pytest.mark.parametrize("seed,n_rays,cap,special", [(8, 32, 1024, False), (9, 7, 256, True),
+                                                     (10, 64, 512, True)])
+def test_votes_with_offsets(trees, seed, n_rays, cap, special):
+    """The buffer's offsets given (as the renderer passes A's or B's) or
+    not: the same votes, JAX's and the numpy loop's."""
+    jtree, ttree = trees
+    node, rid, w, a = buffer(seed, n_rays, cap, CAPS[0], special)
+    args = tuple(map(T, (node, rid, w, a)))
+    offsets = ray_offsets_plain(args[1], n_rays)[0]
+    given = tdv.compute_occupancy_adders(ttree, *args, n_rays, offsets)
+    plain = tdv.compute_occupancy_adders_plain(ttree, *args, n_rays, offsets)
+    without = tdv.compute_occupancy_adders(ttree, *args, n_rays)
+    want = votes_loop(node, rid, w, a, n_rays, CAPS[0])
+    occ_j = jdv.compute_occupancy_adders(jtree, *map(jnp.asarray, (node, rid, w, a)), n_rays)
+    for k in VOTES:
+        assert torch.equal(given[k], without[k]) and torch.equal(plain[k], without[k]), k
+        np.testing.assert_array_equal(given[k].numpy(), want[k], err_msg=k)
+        if not special:
+            np.testing.assert_array_equal(given[k].numpy(), np.asarray(occ_j[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("bad", ["int64", "short", "long", "meta", "list"])
+def test_votes_refuse_bad_offsets(trees, bad):
+    _, ttree = trees
+    node, rid, w, a = map(T, buffer(6, 16, 256, CAPS[0]))
+    offsets = ray_offsets_plain(rid, 16)[0]
+    offsets = {"int64": offsets.long(), "short": offsets[:16], "long": torch.cat([offsets] * 2),
+               "meta": offsets.to("meta"), "list": offsets.tolist()}[bad]
+    with pytest.raises(ValueError):
+        tdv.compute_occupancy_adders(ttree, node, rid, w, a, 16, offsets)
+
+
 def test_wrappers_route_cpu_to_plain(trees):
     _, ttree = trees
     args = tuple(map(T, buffer(5, 32, 1024, CAPS[0])))
@@ -223,12 +258,17 @@ def card_tree(ttree, n_nodes: int, dev, seed: int = 0):
 
 
 def _votes_on_card(tree, args, n_rays):
-    got = tdv.compute_occupancy_adders(tree, *args, n_rays)
-    again = tdv.compute_occupancy_adders(tree, *args, n_rays)
+    """The votes with the offsets launch's offsets given, twice, and
+    without them (the wrapper computes them): the plain version's."""
+    offsets = ray_offsets(args[1], n_rays)[0]
+    got = tdv.compute_occupancy_adders(tree, *args, n_rays, offsets)
+    again = tdv.compute_occupancy_adders(tree, *args, n_rays, offsets)
+    without = tdv.compute_occupancy_adders(tree, *args, n_rays)
     want = tdv.compute_occupancy_adders_plain(tree, *args, n_rays)
     torch.cuda.synchronize()
     for k in VOTES:
         assert torch.equal(got[k], want[k]) and torch.equal(got[k], again[k]), k
+        assert torch.equal(without[k], want[k]), k
     return got
 
 
@@ -245,6 +285,47 @@ def test_votes_on_card(trees, cuda, special, n_rays, cap, n_nodes):
     if want is not None:
         for k in VOTES:
             np.testing.assert_array_equal(got[k].cpu().numpy(), want[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_ray", [512, 700])
+def test_votes_long_rays_on_card(trees, cuda, per_ray):
+    """Rays of 512 rows (the register window's end) and 700 (past it: rows
+    read a second time), runs across the window's edge."""
+    _, ttree = trees
+    tree = card_tree(ttree, 4096, cuda)
+    rng = np.random.RandomState(per_ray)
+    n_rays, cap = 9, 9 * per_ray + 100
+    rid = np.concatenate([np.repeat(np.arange(n_rays), per_ray), np.full(100, n_rays)])
+    node = np.repeat(rng.randint(0, 4096, cap), 5)[:cap]
+    node[rng.rand(cap) < 0.03] = -1
+    w = rng.uniform(0, 0.05, cap).astype(np.float32)
+    a = rng.uniform(0, 0.1, cap).astype(np.float32)
+    args = tuple(T(x).to(cuda) for x in (node.astype(np.int32), rid.astype(np.int32), w, a))
+    got = _votes_on_card(tree, args, n_rays)
+    want = votes_loop(node, rid, w, a, n_rays, 4096)
+    for k in VOTES:
+        np.testing.assert_array_equal(got[k].cpu().numpy(), want[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_votes_a_offsets_on_card(trees, cuda):
+    """The votes over buffer A with compact_a_warp's offsets, as the
+    renderer calls them: the plain version's."""
+    from f2nerf_torch.render import renderer as tren
+    from test_torch_compact_warp import offsets_case, tree_on
+    jtree, ttree = trees
+    tree = tree_on(ttree, cuda)
+    case = tuple(T(x).to(cuda) for x in offsets_case(jtree, "step", 2048, 512, 262144))
+    a, rid, _, offsets = tren.compact_a_warp(tree, *case, 262144)
+    rng = np.random.RandomState(2)
+    w = T(rng.uniform(0, 0.05, 262144).astype(np.float32)).to(cuda)
+    al = T(rng.uniform(0, 0.1, 262144).astype(np.float32)).to(cuda)
+    got = tdv.compute_occupancy_adders(tree, a["node"], rid, w, al, 2048, offsets)
+    want = tdv.compute_occupancy_adders_plain(tree, a["node"], rid, w, al, 2048)
+    torch.cuda.synchronize()
+    for k in VOTES:
+        assert torch.equal(got[k], want[k]), k
 
 
 @pytest.mark.cuda
