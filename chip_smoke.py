@@ -31,22 +31,28 @@ Phases:
                scale_by_dis flipped, eval's all-ones jitter, a degenerate
                warp and the step's rays at hit caps 16 and 40, bit for
                bit its plain version; K10 and K11, the segment ops, and the offsets
-               launch that K10 reads, at 2,048 uniform rays of 192
-               samples (K10 at C = 1, 2, 6 and 16) and at every call of
-               one step, forward and backward, each launch repeated bit
-               for bit, K10 beside torch.segment_reduce, K11 and the
-               offsets launch one device launch a call (torch.profiler);
+               launch that K10 reads (computed, and with the offsets
+               given, as the single-pass step launches it), at 2,048
+               uniform rays of 192 samples (K10 at C = 1, 2, 6 and 16) and
+               at every call of one step, forward and backward, each
+               launch repeated bit for bit, K10 beside
+               torch.segment_reduce, K11 and the offsets launch one device
+               launch a call (torch.profiler);
                K12 (the A compaction with its warp and A's ray offsets,
                held to the offsets launch's, and the edge samples' warp),
-               K13 (the keep-set compaction A -> B) and K14 (the occupancy
+               K13 (the keep-set compaction A -> B with B's ray segments:
+               offsets, counts, local indices, first flags) and K14 (the occupancy
                votes, with the offsets given and computed, and their fold)
                at the step's own inputs and at their edge cases (a
                uniform slice shape, overflow past the capacity, nothing
-               kept, the degenerate warp's inf and NaN, NaN, +-inf and
-               -0.0 weights), every output bit for bit its plain version,
-               each launch repeated bit for bit, the votes beside one
-               scatter_reduce amax; with --baseline ROOT, ROOT's K12 and
-               votes in turns at the step's own inputs).
+               kept, K13 also with no padding row in A, rays with no row,
+               one ray and B exactly full, the degenerate warp's inf and
+               NaN, NaN, +-inf and -0.0 weights), every output bit for bit
+               its plain version, each launch repeated bit for bit, the
+               votes beside one scatter_reduce amax; with --baseline ROOT
+               (the parent tree, whose K13 writes no segments), ROOT's K13
+               with its offsets launch (and first flags) in turns at the
+               step's own inputs).
                K7's and K8's
                bounds also have a chain term (march_case, traverse_case):
                the longest ray's dependent operations at the card's max
@@ -56,9 +62,9 @@ Phases:
                losses finite, grads finite, params moved, every kernel
                launched by the main path (launch counters reset just before),
                the table-gradient scatter K3, the traversal K8, the
-               marcher K9, the offsets launch, K12's two entry points, K13
-               and K14's two exactly once a step, K10 five times and K11
-               three times a step;
+               marcher K9, K12's two entry points, K13 and K14's two
+               exactly once a step, K10 five times and K11 three times a
+               step, the offsets launch never (K13 writes B's segments);
                then one pipelined
                train_many chunk under torch.cuda.set_sync_debug_mode:
                the synchronizing calls a step by span, none allowed in
@@ -103,7 +109,9 @@ Phases:
                against their plain versions; one step card vs CPU;
                render_image over the 24 cameras and one image card vs
                CPU; (b) HashBlock +train.single_pass=true, 10 single-pass
-               steps (K3 once a step, K4 never), one step card vs CPU;
+               steps (K3 once a step, K4 and K13 never, the offsets
+               launch once a step with K12's offsets given), one step
+               card vs CPU;
                (c) data_at_gpu=false and ray_sample_mode=single_image, 3
                steps each, then Trainer.reset and a step; (d) one
                two-pass eval render card vs CPU for each field.
@@ -262,11 +270,10 @@ CARD = {}              # what phase_device reads of the card (max SM clock)
 LAUNCH_TURN_STEPS = 40
 # a profiled slice step of this tree launches at most STEP_DEVICE_LAUNCHES
 # device activities and dispatches at most STEP_ATEN_OPS outermost aten ops
-# (before K12 wrote buffer A's ray offsets: 1,482 and 1,614, PERF.md §5;
-# their allocation and a view may add two aten ops, and no device launch):
-# launch_turns holds them
-STEP_DEVICE_LAUNCHES = 1482
-STEP_ATEN_OPS = 1616
+# (before K13 wrote B's segments: 1,482 and 1,615; measured since,
+# PERF.md §5: 1,474-1,475 and 1,609): launch_turns holds them
+STEP_DEVICE_LAUNCHES = 1475
+STEP_ATEN_OPS = 1609
 OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
                 "hash_encode_fwd", "hash_encode_bwd", "ray_march", "traverse",
@@ -387,10 +394,14 @@ def wrappers():
             dv.apply_occupancy_adders)
 
 
-def seg_need(k: int) -> dict:
-    """K10, K11 and the offsets launch at least k times each (every render
-    composites)."""
-    return {"segment_reduce": k, "segment_scan": k, "ray_offsets": k}
+def seg_need(k: int, single_pass: bool = False) -> dict:
+    """K10 and K11 at least k times each (every render composites); the
+    offsets launch too where the renders are single-pass (a two-pass
+    render's B comes with its segments from K13)."""
+    need = {"segment_reduce": k, "segment_scan": k}
+    if single_pass:
+        need["ray_offsets"] = k
+    return need
 
 
 def warp_need(k: int, train: bool = True, two_pass: bool = True) -> dict:
@@ -874,37 +885,51 @@ def segment_reduce_case(x, ray_id, n_rays: int, offsets, label: str) -> dict:
                 row_stride=ld, path="vector" if vec else "scalar")
 
 
-def ray_offsets_case(ray_id, n_rays: int, label: str) -> dict:
-    """The offsets launch against ray_offsets_plain on one input: offsets,
-    counts and local_index equal (torch.equal), a repeated launch equal;
-    the median time of both and, beside them, torch.searchsorted (the
-    offsets alone, no single PyTorch call gives all three). Bound: ray_id
-    read once, the three outputs written once. (One device launch a call:
-    segment_uniform_rows.)"""
+def ray_offsets_case(ray_id, n_rays: int, label: str, given=None) -> dict:
+    """The offsets launch against ray_offsets_plain on one input, computed
+    and with the offsets given (``given``: as the single-pass step launches
+    it on K12's offsets, which must equal the plain version's; None: the
+    plain version's): offsets, counts, local_index and first equal
+    (torch.equal), a repeated launch equal; the median time of each and,
+    beside them, torch.searchsorted (the offsets alone, no single PyTorch
+    call gives all four). Bound: ray_id read once, the outputs written once
+    (given: the offsets read instead of written, the same bytes). (One
+    device launch a call: segment_uniform_rows.)"""
     from f2nerf_torch.ops import segment as sg
-    got = sg.ray_offsets(ray_id, n_rays)
-    again = sg.ray_offsets(ray_id, n_rays)
     want = sg.ray_offsets_plain(ray_id, n_rays)
-    torch.cuda.synchronize()
-    names = ("offsets", "counts", "local_index")
-    same = {k: torch.equal(g, w) for k, g, w in zip(names, got, want)}
-    same["repeat"] = all(torch.equal(g, w) for g, w in zip(got, again))
-    err = max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
-              for g, w in zip(got, want))
-    del got, again, want
+    same = {}
+    if given is None:
+        given = want[0].clone()
+    else:
+        same["given offsets"] = torch.equal(given, want[0])
+    runs = {"computed": (lambda: sg.ray_offsets(ray_id, n_rays)),
+            "given": (lambda: sg.ray_offsets(ray_id, n_rays, given))}
+    names = ("offsets", "counts", "local_index", "first")
+    err = 0.0
+    for form, fn in runs.items():
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        same.update({f"{form} {k}": torch.equal(g, w) for k, g, w in zip(names, got, want)})
+        same[f"{form} repeat"] = all(torch.equal(g, w) for g, w in zip(got, again))
+        err = max([err] + [float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+                           for g, w in zip(got, want)])
+        del got, again
+    del want
     keys = torch.arange(n_rays + 1, dtype=ray_id.dtype, device=ray_id.device)
-    ms = cuda_time(lambda: sg.ray_offsets(ray_id, n_rays))
+    ms = cuda_time(runs["computed"])
+    given_ms = cuda_time(runs["given"])
     plain_ms = cuda_time(lambda: sg.ray_offsets_plain(ray_id, n_rays))
     search_ms = cuda_time(lambda: torch.searchsorted(ray_id, keys))
     n = ray_id.shape[0]
-    bound = bound_ms(n * 4 + (n_rays + 1) * 4 + n_rays * 4 + n * 4)
-    log(f"[kernels] ray_offsets {label}: n={n}, R={n_rays}: equal {same}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.searchsorted "
-        f"(offsets alone) {search_ms:.4f} ms; bound {bound:.4f} ms by bytes "
-        f"({100 * bound / ms:.1f}% of it)")
-    if not all(same.values()):
+    bound = bound_ms(n * 4 + (n_rays + 1) * 4 + n_rays * 4 + n * 5)
+    ok = all(same.values())
+    log(f"[kernels] ray_offsets {label}: n={n}, R={n_rays}: all equal {ok if ok else same}; "
+        f"kernel {ms:.4f} ms, offsets given {given_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.searchsorted (offsets alone) {search_ms:.4f} ms; bound {bound:.4f} ms by "
+        f"bytes ({100 * bound / ms:.1f}% of it; given {100 * bound / given_ms:.1f}%)")
+    if not ok:
         raise AssertionError(f"ray_offsets disagrees with its plain version ({label}): {same}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+    return dict(max_abs_err=err, ms=ms, given_ms=given_ms, plain_ms=plain_ms, bound_ms=bound,
                 searchsorted_ms=search_ms, n=n, R=n_rays)
 
 
@@ -942,13 +967,24 @@ def segment_scan_case(x, is_first, exclusive: bool, reverse: bool, label: str) -
 def segment_uniform_rows(gen) -> list[dict]:
     """K10 (C = 1, 2, 6 and 16, the offsets given), K11 (forward exclusive
     and its reverse) and the offsets launch at SEG_RAYS rays of SEG_PER_RAY
-    samples, x from U[0, 1). K10's row keeps C = 6's numbers."""
+    samples, x from U[0, 1); the offsets launch also at SEG_RAYS rays of
+    U[0, 2 SEG_PER_RAY) samples, a tenth of them none, padded to
+    SEG_RAYS x SEG_PER_RAY rows (``padded_`` keys). K10's row keeps C = 6's
+    numbers; the offsets launch's row the given form's (the form the
+    single-pass path launches; variants (b) replaces them with its step's
+    own)."""
     from f2nerf_torch.ops import segment as sg
     dev = torch.device(DEV)
     rid = torch.arange(SEG_RAYS, device=dev, dtype=torch.int32).repeat_interleave(SEG_PER_RAY)
     first = sg.first_flags_from_ray_id(rid, SEG_RAYS)
     shape = f"{SEG_RAYS} rays x {SEG_PER_RAY}"
     r0 = ray_offsets_case(rid, SEG_RAYS, f"uniform {shape}")
+    counts = torch.randint(0, 2 * SEG_PER_RAY, (SEG_RAYS,), generator=gen, device=dev)
+    counts[torch.rand((SEG_RAYS,), generator=gen, device=dev) < 0.1] = 0
+    pad = torch.repeat_interleave(torch.arange(SEG_RAYS, device=dev), counts)[:rid.shape[0]]
+    pad = torch.cat([pad, torch.full((rid.shape[0] - pad.shape[0],), SEG_RAYS, device=dev)])
+    r_pad = ray_offsets_case(pad.to(torch.int32), SEG_RAYS,
+                             f"{SEG_RAYS} rays of 0-{2 * SEG_PER_RAY - 1}, empty rays, padding")
     offsets = sg.ray_offsets(rid, SEG_RAYS)[0]
     r10 = {}
     for c in (1, 2, 6, 16):
@@ -977,9 +1013,13 @@ def segment_uniform_rows(gen) -> list[dict]:
     pick = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     return [dict(name="ray_offsets", route="cuda", source="f2nerf_torch/csrc/segment.cu",
                  replaces="f2nerf_tpu/ops/segment.py:65", bound_by="bytes", library_ms=None,
-                 library="none: no single PyTorch call gives the offsets, counts and "
-                         "local index (torch.searchsorted, the offsets alone, timed beside)",
-                 **{f"uniform_{k}": v for k, v in r0.items()}, **{k: r0[k] for k in pick}),
+                 library="none: no single PyTorch call gives the offsets, counts, local "
+                         "index and first flags (torch.searchsorted, the offsets alone, "
+                         "timed beside)", path="variants (b)",
+                 **{f"uniform_{k}": v for k, v in r0.items()},
+                 **{f"padded_{k}": v for k, v in r_pad.items()},
+                 max_abs_err=max(r0["max_abs_err"], r_pad["max_abs_err"]), ms=r0["given_ms"],
+                 plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"]),
             dict(name="segment_reduce", route="cuda", source="f2nerf_torch/csrc/segment.cu",
                  replaces="f2nerf_tpu/ops/segment.py:23", bound_by="bytes",
                  library="torch.segment_reduce", **r10,
@@ -1002,6 +1042,8 @@ def segment_step_cases(calls: dict) -> dict:
                      ("segment_scan", lambda a: segment_scan_case(
             *a, f"step call{' (backward)' if a[3] else ''}"))):
         rs = [fn(a) for a in calls[name]]
+        if not rs:                     # the two-pass step: K13 writes B's segments
+            continue
         tot = {k: sum(r[k] for r in rs) for k in ("ms", "plain_ms", "bound_ms")}
         if name == "segment_reduce":
             lib = [r["library_ms"] for r in rs]
@@ -1070,8 +1112,9 @@ def compact_a_case(args: tuple, label: str) -> dict:
     rays_d, cap). Bound: n_s, the used slots' t, dt and node, the rays, the
     distinct nodes' trans_idx and the distinct leaves' warp rows read once,
     45 bytes a slot and the R + 1 offsets written. The offsets are also
-    held to the offsets launch's for the kernel's ray ids."""
-    from f2nerf_torch.ops import segment as sg
+    held to the offsets launch's for the kernel's ray ids, and the offsets
+    launch given them, all four outputs and a repeat, to its plain version
+    on the kernel's padded A (``ray_offsets_case``)."""
     from f2nerf_torch.render import renderer as rd
     tree, n_s, out_t = args[:3]
     cap = args[-1]
@@ -1086,13 +1129,13 @@ def compact_a_case(args: tuple, label: str) -> dict:
     r = exact_case("K12 compact_a_warp", f"{label}: R={R}, max_s={max_s}, cap={cap}, "
                    f"{total} samples, {leaves} leaves", lambda: rd.compact_a_warp(*args),
                    lambda: rd.compact_a_warp_plain(*args), nbytes)
+    # A's offsets equal the offsets launch's, and the offsets launch given
+    # them (as a single-pass step launches it on A) is its plain version
     _, rid, _, offsets = rd.compact_a_warp(*args)
-    launch = sg.ray_offsets(rid, R)[0]
-    torch.cuda.synchronize()
-    if not torch.equal(offsets, launch):
-        raise AssertionError(f"K12's offsets differ from the offsets launch's ({label})")
+    off = ray_offsets_case(rid, R, f"{label}: K12's A and offsets", given=offsets)
     return dict(r, R=R, max_s=max_s, cap=cap, samples=total, leaves=leaves,
-                offsets_equal_offsets_launch=True)
+                offsets_equal_offsets_launch=True, offsets_launch_given_ms=off["given_ms"],
+                offsets_launch_ms=off["ms"], offsets_launch_bound_ms=off["bound_ms"])
 
 
 def edges_case(args: tuple, label: str) -> dict:
@@ -1111,16 +1154,18 @@ def edges_case(args: tuple, label: str) -> dict:
 
 
 def keep_case(args: tuple, label: str) -> dict:
-    """K13 on (keep, cap, fields, rid_src, n_rays). Bound: the flags and
-    the kept rows (44 bytes) read once, 53 bytes a slot written. Beside
-    it, torch.nonzero_static (B's indices alone) where the card's torch
-    has it on CUDA."""
+    """K13 on (keep, cap, fields, rid_src, n_rays): B and B's segments
+    (offsets, counts, local indices, first flags) bit for bit. Bound: the
+    flags and A's ray ids read once, the kept rows' 40 bytes of fields
+    read once, 53 bytes a slot and the segments (5 bytes a slot, 8 a ray)
+    written. Beside it, torch.nonzero_static (B's indices alone) where the
+    card's torch has it on CUDA."""
     from f2nerf_torch.render import renderer as rd
     keep, cap = args[:2]
-    n, kept = keep.shape[0], int(keep.sum())
-    r = exact_case("K13 compact_keep", f"{label}: n={n}, cap={cap}, {kept} kept",
+    n, kept, R = keep.shape[0], int(keep.sum()), args[4]
+    r = exact_case("K13 compact_keep", f"{label}: n={n}, cap={cap}, R={R}, {kept} kept",
                    lambda: rd.compact_keep(*args), lambda: rd.compact_keep_plain(*args),
-                   n + min(kept, cap) * 44 + cap * 53)
+                   n * 5 + min(kept, cap) * 40 + cap * (53 + 5) + R * 8 + 4)
     try:
         nz = cuda_time(lambda: torch.nonzero_static(keep, size=cap, fill_value=n))
     except (RuntimeError, NotImplementedError, AttributeError) as e:
@@ -1244,13 +1289,24 @@ def degenerate_warp_args() -> tuple:
     return a_args, (tree, torch.zeros((64,), dtype=torch.int32, device=dev), coord)
 
 
-def keep_uniform_args(gen, n: int = 393216, cap: int = 262144, R: int = 2048) -> tuple:
+def keep_uniform_args(gen, n: int = 393216, cap: int = 262144, R: int = 2048,
+                      mode: str = "uniform") -> tuple:
     """K13's input at the slice's uniform shape: A's fields over n rows
     (R rays of U[0, 2 n / R) rows each, sorted, padding past the last),
-    each row kept with probability one half."""
+    each row kept with probability one half. ``mode``: 'nopad' (every row
+    in a ray: no padding row in A), 'gaps' (every third ray has rows, the
+    others none), 'one_ray' (R = 1: every valid row in ray 0)."""
     from f2nerf_torch.render import renderer as rd
     dev = torch.device(DEV)
+    if mode == "one_ray":
+        R = 1
     counts = torch.randint(0, 2 * n // R, (R,), generator=gen, device=dev)
+    if mode == "nopad":
+        counts = torch.full((R,), -(-n // R), device=dev)
+    elif mode == "gaps":
+        counts = torch.where(torch.arange(R, device=dev) % 3 == 0, 3 * counts, 0)
+    elif mode == "one_ray":
+        counts = torch.full((1,), n // 2, device=dev)
     rid = torch.repeat_interleave(torch.arange(R, device=dev), counts)[:n]
     rid = torch.cat([rid, torch.full((n - rid.numel(),), R, device=dev)]).to(torch.int32)
     fields = {k: (torch.rand((n,) if c == 1 else (n, c), generator=gen, device=dev) if
@@ -1293,118 +1349,90 @@ def votes_uniform_args(tr, seed: int, special: bool, R: int = 2048, per: int = 1
     return (tr.tree, *(torch.from_numpy(x).to(DEV) for x in (node, rid, w, a)), R)
 
 
-def baseline_warp_votes(root: str):
-    """K12's and K14's votes entry points of ROOT's csrc/warp.cu and
-    csrc/occupancy.cu, built alone with nvcc (the package's flags) into one
-    library under f2nerf_torch/_build/baseline/. Returns a function of an
-    entry point's name and its wrapper's arguments that launches ROOT's
-    kernel on them and returns its outputs as this tree's wrapper does
-    (without the offsets where ROOT's kernels predate them: there
-    compact_a_warp writes none and the votes search rid)."""
+def baseline_keep(root: str, first: bool = False):
+    """ROOT's K13 (csrc/compact.cu: no segments) and offsets launch
+    (csrc/segment.cu: offsets, counts and local indices), built alone with
+    nvcc (the package's flags) into one library under
+    f2nerf_torch/_build/baseline/. Returns a function of compact_keep's
+    arguments that launches ROOT's K13 and then ROOT's offsets launch on
+    B's ray ids (``first``: and first_flags_from_ray_id, as ROOT's
+    renderer took B's first flags), and returns B's fields, rid, ok, idx
+    and B's segments, as this tree's compact_keep does."""
     from f2nerf_torch import kernels
+    from f2nerf_torch.ops import segment as sg
+    from f2nerf_torch.render import renderer as rd
     out = os.path.join(kernels.BUILD_DIR, "baseline")
     os.makedirs(out, exist_ok=True)
     srcs = [os.path.join(os.path.abspath(root), "f2nerf_torch", "csrc", f)
-            for f in ("warp.cu", "occupancy.cu")]
-    so = os.path.join(out, "libbaseline_warp_votes.so")
+            for f in ("compact.cu", "segment.cu")]
+    so = os.path.join(out, "libbaseline_keep.so")
     proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, *srcs],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {srcs}:\n{proc.stderr}")
     lib = ctypes.CDLL(so)
-    offsets_iface = "void* offsets, long long cap" in open(srcs[0]).read()
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, types in (("f2_compact_a_warp", [vp] * (18 if offsets_iface else 17)
-                         + [ll, i, i, i, vp]),
-                        ("f2_sample_edges", [vp] * 10 + [i, i, i, vp]),
-                        ("f2_occupancy_votes", [vp] * 8 + [ll, i, i, vp])):
+    for name, types in (("f2_compact_keep", [vp] * 18 + [ll, ll, i, vp]),
+                        ("f2_compact_keep_max_blocks", []),
+                        ("f2_ray_offsets", [vp] * 4 + [ll, i, vp])):
         getattr(lib, name).argtypes = types
         getattr(lib, name).restype = ctypes.c_int
 
-    def run(name, *args):
-        # the kernels read their inputs as dense arrays, as the wrappers
-        # pass them (the step's rays_o is a view)
-        args = tuple(x.contiguous() if torch.is_tensor(x) else x for x in args)
-        if name == "compact_a_warp":
-            tree, n_s, out_t, out_dt, out_node, o, d, cap = args
-            R, max_s = out_t.shape
-            f32 = dict(dtype=torch.float32, device=DEV)
-            i32 = dict(dtype=torch.int32, device=DEV)
-            outs = [torch.empty((cap,), **f32), torch.empty((cap,), **f32),
-                    torch.empty((cap,), **i32), torch.empty((cap,), **i32),
-                    torch.empty((cap,), dtype=torch.bool, device=DEV), torch.empty((cap,), **i32),
-                    torch.empty((cap, 3), **f32), torch.empty((cap, 3), **f32)]
-            if offsets_iface:
-                outs.append(torch.empty((R + 1,), **i32))
-            code = lib.f2_compact_a_warp(
-                *(x.data_ptr() for x in (n_s, out_t, out_dt, out_node, o, d, tree.trans_idx,
-                                         tree.w2xz, tree.weight, *outs)),
-                cap, R, max_s, tree.trans_idx.shape[0], kernels.stream_ptr(DEV))
-        elif name == "sample_edges":
-            tree, e, coord = args
-            outs = [torch.empty((e.shape[0], 2, 3), dtype=torch.float32, device=DEV),
-                    torch.empty((e.shape[0], 2), dtype=torch.int32, device=DEV)]
-            code = lib.f2_sample_edges(
-                *(x.data_ptr() for x in (e, coord, tree.edge_t, tree.edge_center, tree.edge_dir0,
-                                         tree.edge_dir1, tree.w2xz, tree.weight, *outs)),
-                e.shape[0], tree.edge_t.shape[0], tree.w2xz.shape[0], kernels.stream_ptr(DEV))
-        else:
-            tree, node, rid, w, a, n_rays, offsets = args
-            N = tree.trans_idx.shape[0]
-            out = torch.empty((4, N), dtype=torch.int32, device=DEV)
-            ins = (node, w, a, offsets) if offsets_iface else (node, rid, w, a)
-            code = lib.f2_occupancy_votes(
-                *(x.data_ptr() for x in ins), *(out[k].data_ptr() for k in range(4)),
-                node.shape[0], n_rays, N, kernels.stream_ptr(DEV))
-            outs = list(out)
-        kernels.check(code, f"baseline {name}")
-        return outs
+    def run(keep, cap, fields, rid_src, n_rays):
+        f32 = dict(dtype=torch.float32, device=DEV)
+        i32 = dict(dtype=torch.int32, device=DEV)
+        outs = [torch.empty((cap,) if c == 1 else (cap, c), dtype=dt, device=DEV)
+                for _, dt, c in rd.KEEP_FIELDS]
+        outs += [torch.empty((cap,), **i32), torch.empty((cap,), dtype=torch.bool, device=DEV),
+                 torch.empty((cap,), dtype=torch.int64, device=DEV)]
+        ins = [keep, *(fields[k].contiguous() for k, _, _ in rd.KEEP_FIELDS), rid_src]
+        stream = kernels.stream_ptr(DEV)
+        counts = torch.empty((lib.f2_compact_keep_max_blocks(),), **i32)
+        kernels.check(lib.f2_compact_keep(*(x.data_ptr() for x in (*ins, *outs, counts)),
+                                          keep.shape[0], cap, n_rays, stream),
+                      "baseline compact_keep")
+        seg = [torch.empty((n_rays + 1,), **i32), torch.empty((n_rays,), **f32),
+               torch.empty((cap,), **i32)]
+        kernels.check(lib.f2_ray_offsets(outs[6].data_ptr(), *(x.data_ptr() for x in seg),
+                                         cap, n_rays, stream), "baseline ray_offsets")
+        if first:
+            seg.append(sg.first_flags_from_ray_id(outs[6], n_rays))
+        return outs + seg
     return run
 
 
 def baseline_turns(root: str, calls: dict) -> dict:
-    """--baseline ROOT: K12's two entry points and K14's votes of ROOT
-    (``baseline_warp_votes``) and of this tree at the slice step's own
-    inputs, timed in turns (ROOT, this, this, ROOT, ...; cuda_time_turns),
-    ROOT's outputs held bit for bit to this tree's."""
-    from f2nerf_torch.ops import segment as sg
+    """--baseline ROOT: ROOT's K13 with its offsets launch on B (and again
+    with the first flags' torch ops; ``baseline_keep``) and this tree's
+    K13, which writes B's segments itself, at the slice step's own inputs,
+    timed in turns (ROOT, this, this, ROOT, ...; cuda_time_turns), ROOT's
+    outputs held bit for bit to this tree's."""
     from f2nerf_torch.render import renderer as rd
-    from f2nerf_torch.sampler import device as dv
-    run = baseline_warp_votes(root)
-    (a_args,), (e_args,), (v_args,) = (calls["compact_a_warp"], calls["sample_edges"],
-                                       calls["compute_occupancy_adders"])
-    if len(v_args) == 6:
-        v_args = v_args + (sg.ray_offsets(v_args[2], v_args[5])[0],)
-    this = {"compact_a_warp": lambda: list(out_leaves(rd.compact_a_warp(*a_args))),
-            "sample_edges": lambda: list(out_leaves(dv.sample_edges(*e_args))),
-            "compute_occupancy_adders": lambda: list(out_leaves(
-                dv.compute_occupancy_adders(*v_args)))}
-    args = {"compact_a_warp": a_args, "sample_edges": e_args, "compute_occupancy_adders": v_args}
-    out = {}
-    for name, fn in this.items():
-        mine = [x for _, x in fn()]
-        theirs = run(name, *args[name])
-        torch.cuda.synchronize()
-        if name == "compact_a_warp":   # t, dt, node, trans, pts01, dirs, then rid, ok
-            mine = [mine[i] for i in (4, 1, 2, 6, 7, 5, 3, 0)] + mine[8:]
-        if name == "compute_occupancy_adders":
-            mine = [mine[i] for i in (1, 0, 2, 3)]      # adder_a, adder_w, mark, visit_max
-        differ = {i: int((x.view(torch.int32) != y.view(torch.int32)).sum())
-                  if x.dtype == y.dtype == torch.float32 else int((x != y).sum())
-                  for i, (x, y) in enumerate(zip(theirs, mine)) if not bits_equal(x, y)}
-        if differ:
-            first = {i: int(torch.nonzero(theirs[i] != mine[i])[0, 0]) for i in differ
-                     if theirs[i].shape == mine[i].shape and bool((theirs[i] != mine[i]).any())}
-            raise AssertionError(f"the baseline's {name} differs from this tree's: outputs "
-                                 f"{differ} differ (elements), first at {first}; "
-                                 f"{[(tuple(x.shape), x.dtype) for x in theirs]} against "
-                                 f"{[(tuple(x.shape), x.dtype) for x in mine]}")
-        t = cuda_time_turns({"baseline": lambda n=name: run(n, *args[n]), "this tree": fn})
-        out[name] = dict(baseline_ms=t["baseline"], ms=t["this tree"])
-        log(f"[kernels] {name} at the slice step's own inputs, in turns with {root}: "
-            f"baseline {t['baseline']:.4f} ms, this tree {t['this tree']:.4f} ms "
-            f"(outputs bit for bit the same)")
-    return out
+    (k_args,) = calls["compact_keep"]
+    theirs_fn, theirs_first = baseline_keep(root), baseline_keep(root, first=True)
+
+    def keep_out():
+        b, rid, ok, idx, seg = rd.compact_keep(*k_args)
+        return [b[k] for k, _, _ in rd.KEEP_FIELDS] + [rid, ok, idx, *seg]
+    mine, theirs = keep_out(), theirs_first(*k_args)
+    torch.cuda.synchronize()
+    differ = {i: int((x.view(torch.int32) != y.view(torch.int32)).sum())
+              if x.dtype == y.dtype == torch.float32 else int((x != y).sum())
+              for i, (x, y) in enumerate(zip(theirs, mine)) if not bits_equal(x, y)}
+    if differ:
+        raise AssertionError(f"the baseline's compact_keep differs from this tree's: outputs "
+                             f"{differ} differ (elements); "
+                             f"{[(tuple(x.shape), x.dtype) for x in theirs]} against "
+                             f"{[(tuple(x.shape), x.dtype) for x in mine]}")
+    del mine, theirs
+    t = cuda_time_turns({"baseline": lambda: theirs_fn(*k_args), "this tree": keep_out,
+                         "baseline_with_first": lambda: theirs_first(*k_args)})
+    log(f"[kernels] compact_keep at the slice step's own inputs, in turns with {root}: "
+        f"baseline K13 + offsets launch {t['baseline']:.4f} ms (with the first flags' torch "
+        f"ops {t['baseline_with_first']:.4f} ms), this tree {t['this tree']:.4f} ms (outputs "
+        f"bit for bit the same)")
+    return {"compact_keep": dict(baseline_ms=t["baseline"], ms=t["this tree"],
+                                 baseline_with_first_ms=t["baseline_with_first"])}
 
 
 def warp_compact_occupancy_rows(calls: dict, tr, baseline: str | None = None) -> list[dict]:
@@ -1416,16 +1444,17 @@ def warp_compact_occupancy_rows(calls: dict, tr, baseline: str | None = None) ->
           the total's capacity (overflow), the degenerate warp;
       sample_edges — the degenerate warp's edge samples;
       compact_keep — uniform at the slice's shape (``keep_uniform_args``),
-          the step's flags at half the kept rows' capacity (overflow) and
-          with nothing kept;
+          the step's flags at half the kept rows' capacity (overflow), at
+          exactly their count (B full) and with nothing kept, A with no
+          padding row, rays without rows, one ray (B's segments held too);
       votes — uniform at the slice's shape with finite weights and with
           NaN, +-inf and -0.0 weights (``votes_uniform_args``), each with
           the offsets given and computed (``votes_case``);
       fold — the uniform votes folded into the step's tree.
-    With ``baseline`` (an earlier tree, with or without the offsets),
-    K12's two entry points and the votes of that tree too, in turns at the
-    step's own inputs (``baseline_turns``: the rows' ``baseline_ms`` and
-    ``turns_ms``)."""
+    With ``baseline`` (the parent tree, whose K13 writes no segments),
+    that tree's K13 with its offsets launch, in turns at the step's own
+    inputs (``baseline_turns``: K13's row's ``baseline_ms``, ``turns_ms``
+    and ``baseline_with_first_ms``, with the first flags' torch ops too)."""
     from f2nerf_torch.sampler import device as dv
     gen = torch.Generator(device=DEV).manual_seed(12)
     (a_args,), (e_args,), (k_args,) = (calls["compact_a_warp"], calls["sample_edges"],
@@ -1450,7 +1479,14 @@ def warp_compact_occupancy_rows(calls: dict, tr, baseline: str | None = None) ->
             "overflow": keep_case((k_args[0], max(1, kept // 2)) + k_args[2:],
                                   "step's flags, cap half the kept rows"),
             "none_kept": keep_case((torch.zeros_like(k_args[0]),) + k_args[1:],
-                                   "nothing kept")}}
+                                   "nothing kept"),
+            "full": keep_case((k_args[0], max(1, kept)) + k_args[2:],
+                              "step's flags, B exactly full"),
+            "no_padding": keep_case(keep_uniform_args(gen, mode="nopad"),
+                                    "no padding row in A"),
+            "rays_without_rows": keep_case(keep_uniform_args(gen, mode="gaps"),
+                                           "two rays in three without rows"),
+            "one_ray": keep_case(keep_uniform_args(gen, mode="one_ray"), "n_rays = 1")}}
     uni = votes_uniform_args(tr, 14, False)
     cases["compute_occupancy_adders"] = {
         "step": votes_case(v_args, "step's own buffer"),
@@ -1476,7 +1512,8 @@ def warp_compact_occupancy_rows(calls: dict, tr, baseline: str | None = None) ->
         step = cs["step"]
         extra = {}
         if name in turns:
-            extra = dict(baseline_ms=turns[name]["baseline_ms"], turns_ms=turns[name]["ms"])
+            extra = dict(turns[name])
+            extra["turns_ms"] = extra.pop("ms")
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          library=library, bound_by="bytes", **extra,
                          **{k: step[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -1783,7 +1820,8 @@ def capture_step_inputs(tr) -> dict:
                               "segment_reduce": sg, "segment_scan": sg,
                               "ray_offsets": renderer, "compact_a_warp": renderer,
                               "compact_keep": renderer, "sample_edges": dv,
-                              "compute_occupancy_adders": dv, "apply_occupancy_adders": dv})
+                              "compute_occupancy_adders": dv, "apply_occupancy_adders": dv,
+                              "first_flags_from_ray_id": renderer})
 
 
 def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
@@ -1836,6 +1874,12 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
     (cache, idx), = calls["row_gather"]
     r4 = gather_check(cache, idx, f"slice's own inputs (cap1 {cache.shape[0]}, "
                                   f"cap2 {idx.shape[0]})")
+    # the renderer takes first flags from torch ops for A only (B's from K13)
+    firsts = [tuple(a[0].shape) for a in calls["first_flags_from_ray_id"]]
+    a_rows = tuple(calls["compact_keep"][0][3].shape)
+    log(f"[kernels] first_flags_from_ray_id in one slice step: {firsts} (A's {a_rows})")
+    if firsts != [a_rows]:
+        raise AssertionError(f"first_flags_from_ray_id ran on {firsts}, expected A's alone")
     seg = segment_step_cases(calls)
     rows += warp_compact_occupancy_rows(calls, tr, baseline)
     del calls, fwd, cache, idx
@@ -1931,17 +1975,17 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
     if not moved > 0:
         raise AssertionError("params did not move")
     # one table-gradient scatter a step: the grad pass's B and edge samples
-    # share one K3 launch; one traversal and one march a step; the offsets
-    # launch once a step (B's rays), K10 five times (the composite's sums,
-    # weight_var's two, the backwards of the appearance gather and of
-    # weight_var's mean gather), K11 three times (the prefilter's and the
-    # composite's scans, the composite's backward); K12's A side and edge
-    # samples, K13 and K14's votes and fold once each
+    # share one K3 launch; one traversal and one march a step; no offsets
+    # launch (K12 writes A's offsets, K13 B's segments), K10 five times (the
+    # composite's sums, weight_var's two, the backwards of the appearance
+    # gather and of weight_var's mean gather), K11 three times (the
+    # prefilter's and the composite's scans, the composite's backward);
+    # K12's A side and edge samples, K13 and K14's votes and fold once each
     check_counts("the slice", launches, {
         "fused_adam": N_STEPS * len(p0), "hash_block_fwd": N_STEPS},
         exact={"hash_block_bwd": N_STEPS, "row_gather": N_STEPS, "hash_encode_fwd": 0,
                "hash_encode_bwd": 0, "ray_march": 0, "traverse": N_STEPS,
-               "ray_march_parallel": N_STEPS, "ray_offsets": N_STEPS,
+               "ray_march_parallel": N_STEPS, "ray_offsets": 0,
                "segment_reduce": 5 * N_STEPS, "segment_scan": 3 * N_STEPS,
                **{k: N_STEPS for k in warp_need(1)}})
     sync_counts(tr)
@@ -2684,8 +2728,8 @@ def phase_runner(tmp: str):
         # eval renders single-pass: one K2, K8 and K9 launch per chunk, no
         # cached gather
         check_counts("mode=render_path", eval_counts, {
-            "hash_block_fwd": 3, "traverse": 3, "ray_march_parallel": 3, **seg_need(3),
-            **warp_need(3, train=False, two_pass=False)})
+            "hash_block_fwd": 3, "traverse": 3, "ray_march_parallel": 3,
+            **seg_need(3, single_pass=True), **warp_need(3, train=False, two_pass=False)})
         if eval_counts["row_gather"] or eval_counts["fused_adam"] \
                 or eval_counts["compute_occupancy_adders"] or eval_counts["sample_edges"]:
             raise AssertionError(f"render_path launched training kernels: {eval_counts}")
@@ -2981,7 +3025,7 @@ def two_pass_eval_parity(card, where: str, want: dict) -> None:
         f"kept {a['stats']['n_meaningful']:.0f} (cpu {b['stats']['n_sampled']:.0f} / "
         f"{b['stats']['n_meaningful']:.0f}); errors {err} (tolerances {EVAL_TOL}); "
         f"card launches {counts}")
-    check_counts(where, counts, want)
+    check_counts(where, counts, want, exact={"compact_keep": 1, "ray_offsets": 0})
     if a["stats"]["n_sampled"] != b["stats"]["n_sampled"] or occ is not None:
         raise AssertionError("card and CPU sampled differently (or eval voted)")
     if not eval_agrees(err, exact=False):
@@ -3067,14 +3111,18 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
           step card vs CPU; render_image over the 24 cameras (eval rays/s)
           and one image card vs CPU;
       (b) HashBlock with +train.single_pass=true: SINGLE_PASS_STEPS steps,
-          each single pass (B = A), K3 once a step, K4 never; one step card
-          vs CPU;
+          each single pass (B = A), K3 once a step, K4 and K13 never, the
+          offsets launch once a step with K12's offsets given; the offsets
+          launch at one more step's own A and offsets (its row's ms,
+          plain_ms and bound_ms); one step card vs CPU;
       (c) data_at_gpu=false and ray_sample_mode=single_image: HOST_STEPS
           steps each; then Trainer.reset and one step;
-      (d) one two-pass eval render card vs CPU for each field.
+      (d) one two-pass eval render card vs CPU for each field (K13 once,
+          the offsets launch never).
     With ``profile``, phase_profile runs on (a)'s trainer after its timed
-    steps. Returns the launches of (a)."""
+    steps. Returns the launches of (a) and of (b), by path name."""
     from f2nerf_torch.fields import hash_encoding as he
+    from f2nerf_torch.ops import segment as sg
     from f2nerf_torch.sampler import device as dv
     from f2nerf_torch.train.trainer import Trainer
     from f2nerf_torch.utils.synthetic import write_ball_dataset
@@ -3175,7 +3223,8 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     if not np.isfinite(colors).all():
         raise AssertionError("(a): non-finite colours in render_image")
     check_counts("variants (a) render_image", ev, {"hash_encode_fwd": 1, "ray_march": 1,
-                                                   "traverse": 1, **seg_need(1),
+                                                   "traverse": 1,
+                                                   **seg_need(1, single_pass=True),
                                                    **warp_need(1, train=False, two_pass=False)},
                  exact={"hash_block_fwd": 0, "hash_encode_bwd": 0, "ray_march_parallel": 0})
     eval_image_parity(tr, "variants (a) eval parity")
@@ -3188,19 +3237,41 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     tr = Trainer(_compose(["+train.single_pass=true"]), os.path.join(tmp, "exp_single"),
                  data_dir, seed=2022, device=DEV, tree_host=copy.deepcopy(tree0))
     reset_counts()
+    sg.ray_offsets.given_launches = 0
     ms = _train_checked(tr, SINGLE_PASS_STEPS, "variants (b)")
     torch.cuda.synchronize()
     sp = read_counts()
+    given = sg.ray_offsets.given_launches
     log(f"[variants] (b) +train.single_pass=true: single pass at every step "
         f"{[m['single_pass'] for m in ms]}, cap1 = cap2 {[m['cap1'] == m['cap2'] for m in ms]}; "
-        f"launches {sp}")
+        f"launches {sp}; the offsets launch with K12's offsets given {given} times")
     if not all(m["single_pass"] and m["cap1"] == m["cap2"] for m in ms):
         raise AssertionError("(b): a step ran two passes")
-    check_counts("variants (b)", sp, seg_need(SINGLE_PASS_STEPS), exact={
+    if given != SINGLE_PASS_STEPS:
+        raise AssertionError(f"(b): the offsets launch had the offsets given {given} times, "
+                             f"expected {SINGLE_PASS_STEPS}")
+    for r in rows:
+        if r.get("path") == "variants (b)":
+            r["launches_per_step"] = sp[r["name"]] / SINGLE_PASS_STEPS
+    check_counts("variants (b)", sp, seg_need(SINGLE_PASS_STEPS, single_pass=True), exact={
+        "ray_offsets": SINGLE_PASS_STEPS,
         **{k: SINGLE_PASS_STEPS for k in warp_need(1, two_pass=False)}, "compact_keep": 0,
         "hash_block_fwd": SINGLE_PASS_STEPS, "hash_block_bwd": SINGLE_PASS_STEPS,
         "row_gather": 0, "hash_encode_fwd": 0, "ray_march": 0,
         "traverse": SINGLE_PASS_STEPS, "ray_march_parallel": SINGLE_PASS_STEPS})
+    if rows:
+        # the offsets launch at (b)'s own step: K12's A and its offsets, given
+        from f2nerf_torch.render import renderer
+        (off_args,) = capture_calls(tr, {"ray_offsets": renderer})["ray_offsets"]
+        rid_a, n_rays, offsets_a = off_args
+        r = ray_offsets_case(rid_a, n_rays, "single-pass step's own A and K12's offsets",
+                             given=offsets_a)
+        del off_args, rid_a, offsets_a
+        for row in rows:
+            if row["name"] == "ray_offsets":
+                row.update(ms=r["given_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                           max_abs_err=max(row["max_abs_err"], r["max_abs_err"]),
+                           **{f"slice_{k}": v for k, v in r.items()})
     step_parity(tr, max_hits=64, where="variants (b) parity", single_pass=True)
     two_pass_eval_parity(tr, "variants (d)", {"hash_block_fwd": 1, "row_gather": 1,
                                               "traverse": 1, "ray_march_parallel": 1})
@@ -3227,7 +3298,7 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     _train_checked(tr, 1, "variants (c) after reset")
     del tr
     torch.cuda.empty_cache()
-    return launches
+    return {"variants (a)": launches, "variants (b)": sp}
 
 
 # ------------------------------------------------------------ data parallel
@@ -3532,8 +3603,9 @@ def main(argv=None) -> int:
     log(f"[time] phases (s): {walls}")
     for r in rows:
         # each kernel's launches on its own path: K5-K7 the reference-
-        # semantics run, the others the default slice
-        path = var_launches if r.get("path") == "variants (a)" else launches
+        # semantics run, the offsets launch the single-pass run (b), the
+        # others the default slice
+        path = var_launches.get(r.get("path"), launches)
         r["launches"] = path.get(r["name"], 0)
         r.update({key: counts.get(r["name"], 0) for key, counts in paths.items()})
     rows.sort(key=lambda r: KERNEL_ORDER.index(r["name"]))

@@ -5,22 +5,31 @@
 // ray_offsets: for a ray-sorted buffer ray_id [n] (padding rows carry
 // ray_id == n_rays), offsets [n_rays + 1] int32 (each ray's first row;
 // offsets[n_rays] the first padding row, n if none), counts [n_rays] f32
-// (end - start, exact) and local_index [n] int32 (each row's index in its
+// (end - start, exact), local_index [n] int32 (each row's index in its
 // ray: the exclusive segmented scan of ones of f2nerf_tpu/ops/segment.py:65,
 // padding rows continuing the last segment's count, a buffer with no valid
-// row one segment from row 0). Replaces the step's K10 launch over ones and
-// its K11 launch over ones: all three outputs are integers, so they equal
-// those launches' values bit for bit. One cooperative launch (every block
-// resident), a thread a row over a grid-stride loop:
-//   1. where ray_id changes at row i (row 0 after a virtual -1, row n
-//      before a virtual n_rays), the thread writes offsets[q] = i for every
-//      ray q in (previous, current], so an empty ray gets start == end;
-//   2. a grid-wide barrier;
-//   3. counts[r] = offsets[r + 1] - offsets[r]; a valid row's local index
-//      is i - offsets[ray_id[i]], a padding row's i - offsets of the last
-//      ray that has rows (i when no ray has one).
-// Bound: bytes, ray_id read once and the three outputs written once; at the
-// slice's B buffer (262,144 rows) ~2.1 MB, ~0.6 us at 3.35 TB/s.
+// row one segment from row 0) and first [n] bool (a row whose ray id
+// differs from the previous row's and is below n_rays:
+// first_flags_from_ray_id). Replaces the step's K10 launch over ones and
+// its K11 launch over ones: all outputs are integers, so they equal those
+// launches' values bit for bit. Two forms:
+//   - computed: one cooperative launch (every block resident), a thread a
+//     row over a grid-stride loop:
+//     1. where ray_id changes at row i (row 0 after a virtual -1, row n
+//        before a virtual n_rays), the thread writes offsets[q] = i for
+//        every ray q in (previous, current], so an empty ray gets
+//        start == end;
+//     2. a grid-wide barrier;
+//     3. the rest from the offsets (``segments_at``);
+//   - given (the buffer's offsets from the kernel that made it: K12 writes
+//     buffer A's, which the single-pass step's B is): step 3 alone, one
+//     ordinary launch, a thread a row or ray.
+// Step 3: counts[r] = offsets[r + 1] - offsets[r]; a valid row's local
+// index is i - offsets[ray_id[i]], a padding row's i - offsets of the last
+// ray that has rows (i when no ray has one); first[i] from ray_id[i - 1].
+// K13 (csrc/compact.cu) writes the same four for the B buffer it makes.
+// Bound: bytes, ray_id read once and the outputs written once; at the
+// slice's B buffer (262,144 rows) ~2.4 MB, ~0.7 us at 3.35 TB/s.
 //
 // K10, segment_reduce: out[r, c] = sum of x[i, c] over the rows of ray r,
 // [offsets[r], offsets[r + 1]), for a ray-sorted flat buffer x [n, C] f32.
@@ -122,12 +131,34 @@ constexpr int kWarpRows = kChunks * 32;   // K11: rows a warp
 constexpr int kTileRows = kWarps * kWarpRows;   // K11: rows a block (a tile)
 constexpr unsigned kFull = 0xffffffffu;
 
-// ray_offsets, steps 1-3 (see the header). A cooperative launch: the grid
-// is at most what the card holds at once, so the barrier is reached by
-// every block.
+// ray_offsets' step 3 at index i (see the header): a ray's count, a row's
+// local index and first flag. last_start: the first row of the last ray
+// that has rows (0 if none).
+__device__ __forceinline__ void segments_at(const int* __restrict__ ray_id, const int* offsets,
+                                            float* __restrict__ counts, int* __restrict__ local,
+                                            unsigned char* __restrict__ first, long long n,
+                                            int n_rays, long long i, int last_start) {
+  if (i < n_rays) counts[i] = (float)(offsets[i + 1] - offsets[i]);
+  if (i < n) {
+    const int r = __ldg(ray_id + i);
+    local[i] = (int)(i - (r < n_rays ? offsets[r] : last_start));
+    first[i] = r < n_rays && (i == 0 || __ldg(ray_id + i - 1) != r);
+  }
+}
+
+__device__ __forceinline__ int last_ray_start(const int* __restrict__ ray_id, const int* offsets,
+                                              int n_rays) {
+  const int first_pad = offsets[n_rays];
+  return first_pad > 0 ? offsets[min(ray_id[first_pad - 1], n_rays - 1)] : 0;
+}
+
+// ray_offsets, the computed form. A cooperative launch: the grid is at
+// most what the card holds at once, so the barrier is reached by every
+// block.
 __global__ void __launch_bounds__(kThreads)
 ray_offsets_kernel(const int* __restrict__ ray_id, int* offsets, float* __restrict__ counts,
-                   int* __restrict__ local, long long n, int n_rays) {
+                   int* __restrict__ local, unsigned char* __restrict__ first, long long n,
+                   int n_rays) {
   const long long stride = (long long)gridDim.x * kThreads;
   const long long i0 = (long long)blockIdx.x * kThreads + threadIdx.x;
   for (long long i = i0; i <= n; i += stride) {
@@ -136,15 +167,19 @@ ray_offsets_kernel(const int* __restrict__ ray_id, int* offsets, float* __restri
     for (int q = prev + 1; q <= cur; ++q) offsets[q] = (int)i;
   }
   cooperative_groups::this_grid().sync();
-  const int first_pad = offsets[n_rays];
-  const int last_start = first_pad > 0 ? offsets[min(ray_id[first_pad - 1], n_rays - 1)] : 0;
-  for (long long i = i0; i < n || i < n_rays; i += stride) {
-    if (i < n_rays) counts[i] = (float)(offsets[i + 1] - offsets[i]);
-    if (i < n) {
-      const int r = __ldg(ray_id + i);
-      local[i] = (int)(i - (r < n_rays ? offsets[r] : last_start));
-    }
-  }
+  const int last_start = last_ray_start(ray_id, offsets, n_rays);
+  for (long long i = i0; i < n || i < n_rays; i += stride)
+    segments_at(ray_id, offsets, counts, local, first, n, n_rays, i, last_start);
+}
+
+// ray_offsets, the given form: step 3 alone, a thread a row or ray.
+__global__ void __launch_bounds__(kThreads)
+ray_segments_kernel(const int* __restrict__ ray_id, const int* __restrict__ offsets,
+                    float* __restrict__ counts, int* __restrict__ local,
+                    unsigned char* __restrict__ first, long long n, int n_rays) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  segments_at(ray_id, offsets, counts, local, first, n, n_rays, i,
+              last_ray_start(ray_id, offsets, n_rays));
 }
 
 // Ray r's rows [s, e) from the offsets, held to x's rows [0, n).
@@ -410,13 +445,26 @@ segment_scan_kernel(const float* __restrict__ x, const unsigned char* __restrict
 
 }  // namespace
 
-// offsets [n_rays + 1] int32, counts [n_rays] f32, local [n] int32, n >= 1
-// (the caller fills an empty buffer's offsets): all written by the kernel.
-// The grid is at most what the card holds at once (read once a device and
-// process), at most a thread a row.
+// offsets [n_rays + 1] int32, counts [n_rays] f32, local [n] int32, first
+// [n] bool, n >= 1 (the caller fills an empty buffer's offsets). given = 0:
+// the kernel writes the offsets (a grid of at most what the card holds at
+// once, read once a device and process, at most a thread a row); given =
+// 1: offsets are the buffer's, read only.
 extern "C" int f2_ray_offsets(const void* ray_id, void* offsets, void* counts, void* local,
-                              long long n, int n_rays, void* stream) {
+                              void* first, long long n, int n_rays, int given, void* stream) {
   if (n <= 0 || n_rays < 0) return (int)cudaErrorInvalidValue;
+  const int* rid = (const int*)ray_id;
+  int* off = (int*)offsets;
+  float* cnt = (float*)counts;
+  int* loc = (int*)local;
+  unsigned char* fst = (unsigned char*)first;
+  const long long span = n + 1 > n_rays ? n + 1 : (long long)n_rays;   // threads of work
+  const long long want = (span + kThreads - 1) / kThreads;
+  if (given) {
+    ray_segments_kernel<<<(unsigned)want, kThreads, 0, (cudaStream_t)stream>>>(
+        rid, off, cnt, loc, fst, n, n_rays);
+    return (int)cudaGetLastError();
+  }
   static int resident[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -431,15 +479,8 @@ extern "C" int f2_ray_offsets(const void* ray_id, void* offsets, void* counts, v
     if (sms * per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
     resident[dev] = sms * per_sm;
   }
-  const int resident_blocks = resident[dev];
-  const long long span = n + 1 > n_rays ? n + 1 : (long long)n_rays;   // threads of work
-  const long long want = (span + kThreads - 1) / kThreads;
-  const unsigned grid = (unsigned)(want < resident_blocks ? want : resident_blocks);
-  const int* rid = (const int*)ray_id;
-  int* off = (int*)offsets;
-  float* cnt = (float*)counts;
-  int* loc = (int*)local;
-  void* args[] = {&rid, &off, &cnt, &loc, &n, &n_rays};
+  const unsigned grid = (unsigned)(want < resident[dev] ? want : resident[dev]);
+  void* args[] = {&rid, &off, &cnt, &loc, &fst, &n, &n_rays};
   e = cudaLaunchCooperativeKernel((const void*)ray_offsets_kernel, dim3(grid), dim3(kThreads),
                                   args, 0, (cudaStream_t)stream);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();

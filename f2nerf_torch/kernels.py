@@ -50,16 +50,19 @@ _SIGNATURES = {
     "f2_ray_march_lockstep": [_vp] * 16 + [_i, _i, _i, _i, _f, _i, _vp],
     "f2_traverse": [_vp] * 13 + [_i, _i, _i, _i, _vp],
     "f2_ray_march_parallel": [_vp] * 18 + [_i, _i, _i, _f, _i, _i, _i, _vp],
-    "f2_ray_offsets": [_vp] * 4 + [_ll, _i, _vp],
+    "f2_ray_offsets": [_vp] * 5 + [_ll, _i, _i, _vp],
     "f2_segment_reduce": [_vp, _ll, _ll, _vp, _vp, _i, _i, _vp],
     "f2_segment_scan": [_vp] * 4 + [_ll, _i, _i, _vp],
     "f2_compact_a_warp": [_vp] * 18 + [_ll, _i, _i, _i, _vp],
     "f2_sample_edges": [_vp] * 10 + [_i, _i, _i, _vp],
-    "f2_compact_keep": [_vp] * 18 + [_ll, _ll, _i, _vp],
-    "f2_compact_keep_max_blocks": [],
+    "f2_compact_keep": [_vp] * 22 + [_ll, _ll, _i, _vp],
+    "f2_compact_keep_state_bytes": [_ll],
     "f2_occupancy_votes": [_vp] * 8 + [_ll, _i, _i, _vp],
     "f2_occupancy_fold": [_vp] * 12 + [_i, _vp],
 }
+
+# entry points that return something other than a cudaError_t
+_RESTYPES = {"f2_compact_keep_state_bytes": ctypes.c_longlong}
 
 
 class _State:
@@ -138,7 +141,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _state.lib = lib
     return _state.lib
 

@@ -15,11 +15,14 @@ step on the card gives the same bits on every run:
   * ``ray_gather`` (``RayGather``): ``x[ray_id]`` for x [n_rays, ...],
     zeros on padding; backward K10;
   * ``local_index``: each sample's index in its ray (``ray_offsets``);
-  * ``ray_offsets``: each ray's first row, its count and each row's local
-    index, one launch a buffer. K10 reads the offsets instead of searching
-    ``ray_id``: ``segment_sum``, ``ray_gather`` and ``segment_reduce`` take
-    them as an optional last argument (computed when not given), and the
-    renderer computes them once for its B buffer.
+  * ``ray_offsets``: each ray's first row, its count, each row's local
+    index and first flag, one launch a buffer; given the buffer's offsets
+    (from the kernel that made the buffer), the rest in one plain launch.
+    K10 reads the offsets instead of searching ``ray_id``: ``segment_sum``,
+    ``ray_gather`` and ``segment_reduce`` take them as an optional last
+    argument (computed when not given). The renderer's B buffer comes with
+    all four from K13 (render/renderer.py ``compact_keep``); the
+    single-pass B, which is A, takes K12's offsets.
 
 K10, K11 and the offsets launch are in csrc/segment.cu. A wrapper given
 CPU tensors runs its plain version (``segment_sum_plain``: an index_add;
@@ -76,18 +79,23 @@ def segment_cumsum_plain(x: torch.Tensor, is_first: torch.Tensor,
 
 def local_index_plain(ray_id: torch.Tensor, n_rays: int) -> torch.Tensor:
     """Index of each sample within its ray (0-based), int32."""
-    is_first = first_flags_from_ray_id(ray_id, n_rays)
-    idx = torch.arange(ray_id.shape[0], device=ray_id.device)
+    return _local_from_first(first_flags_from_ray_id(ray_id, n_rays))
+
+
+def _local_from_first(is_first: torch.Tensor) -> torch.Tensor:
+    idx = torch.arange(is_first.shape[0], device=is_first.device)
     return (idx - _segment_start(is_first)).to(torch.int32)
 
 
 def ray_offsets_plain(ray_id: torch.Tensor, n_rays: int):
-    """Plain version of ``ray_offsets``: a searchsorted over the sorted
-    ray_id, the differences of the offsets, and ``local_index_plain``."""
+    """Plain version of ``ray_offsets`` (both forms: given offsets must be
+    these): a searchsorted over the sorted ray_id, the differences of the
+    offsets, ``local_index_plain`` and ``first_flags_from_ray_id``."""
     keys = torch.arange(n_rays + 1, dtype=ray_id.dtype, device=ray_id.device)
     offsets = torch.searchsorted(ray_id, keys).to(torch.int32)
     counts = (offsets[1:] - offsets[:-1]).to(torch.float32)
-    return offsets, counts, local_index_plain(ray_id, n_rays)
+    first = first_flags_from_ray_id(ray_id, n_rays)
+    return offsets, counts, _local_from_first(first), first
 
 
 # ------------------------------------------------------------------ kernels
@@ -113,41 +121,53 @@ def check_offsets(name: str, offsets, ray_id: torch.Tensor, n_rays: int) -> None
                          f"{ray_id.device}, got {got}")
 
 
-def ray_offsets(ray_id: torch.Tensor, n_rays: int):
+def ray_offsets(ray_id: torch.Tensor, n_rays: int, offsets: torch.Tensor | None = None):
     """Each ray's rows in a ray-sorted buffer (int32 ray_id [n], padding
     rows == n_rays): offsets [n_rays + 1] int32 (each ray's first row,
     offsets[n_rays] the first padding row, n if none), counts [n_rays] f32
-    (its rows) and local_index [n] int32 (``local_index``'s values: padding
-    rows continue the last ray's count). CPU tensors take
-    ``ray_offsets_plain``; CUDA tensors launch one cooperative kernel, a
-    thread a row (csrc/segment.cu)."""
+    (its rows), local_index [n] int32 (``local_index``'s values: padding
+    rows continue the last ray's count) and first [n] bool
+    (``first_flags_from_ray_id``). ``offsets``: the buffer's offsets, as
+    the kernel that made it wrote them (K12's for buffer A); then they are
+    returned as given and the launch writes the rest. CPU tensors take
+    ``ray_offsets_plain``; CUDA tensors launch one kernel (csrc/segment.cu):
+    without offsets a cooperative one, a thread a row, with them a plain
+    one, a thread a row or ray."""
+    if ray_id.dtype != torch.int32 or ray_id.dim() != 1 or n_rays < 0:
+        raise ValueError(f"ray_offsets: expected int32 ray_id [n] and n_rays >= 0, got "
+                         f"{ray_id.dtype} {tuple(ray_id.shape)}, n_rays {n_rays}")
+    if offsets is not None:
+        check_offsets("ray_offsets", offsets, ray_id, n_rays)
     if ray_id.device.type == "cpu":
         return ray_offsets_plain(ray_id, n_rays)
     if ray_id.device.type != "cuda":
         raise ValueError(f"ray_offsets: unsupported device {ray_id.device}")
-    if ray_id.dtype != torch.int32 or ray_id.dim() != 1 or n_rays < 0:
-        raise ValueError(f"ray_offsets: expected int32 ray_id [n] and n_rays >= 0, got "
-                         f"{ray_id.dtype} {tuple(ray_id.shape)}, n_rays {n_rays}")
     ray_id = ray_id.contiguous()
-    kernels.require_cuda("ray_offsets", ray_id)
+    kernels.require_cuda("ray_offsets", ray_id, *(() if offsets is None else (offsets,)))
     n = ray_id.shape[0]
-    i32 = dict(dtype=torch.int32, device=ray_id.device)
-    if n == 0:
-        return (torch.zeros((n_rays + 1,), **i32),
-                torch.zeros((n_rays,), dtype=torch.float32, device=ray_id.device),
-                torch.empty((0,), **i32))
-    offsets = torch.empty((n_rays + 1,), **i32)
-    counts = torch.empty((n_rays,), dtype=torch.float32, device=ray_id.device)
+    dev = ray_id.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    counts = torch.empty((n_rays,), dtype=torch.float32, device=dev)
     local = torch.empty((n,), **i32)
+    first = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return (torch.zeros((n_rays + 1,), **i32) if offsets is None else offsets,
+                counts.zero_(), local, first)
+    given = offsets is not None
+    if not given:
+        offsets = torch.empty((n_rays + 1,), **i32)
     code = kernels.library().f2_ray_offsets(
-        ray_id.data_ptr(), offsets.data_ptr(), counts.data_ptr(), local.data_ptr(), n,
-        n_rays, kernels.stream_ptr(ray_id.device))
+        ray_id.data_ptr(), offsets.data_ptr(), counts.data_ptr(), local.data_ptr(),
+        first.data_ptr(), n, n_rays, int(given), kernels.stream_ptr(dev))
     kernels.check(code, "ray_offsets")
     ray_offsets.launches += 1
-    return offsets, counts, local
+    if given:
+        ray_offsets.given_launches += 1
+    return offsets, counts, local, first
 
 
 ray_offsets.launches = 0
+ray_offsets.given_launches = 0    # of them, the given form
 
 
 def segment_reduce(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int,
@@ -208,13 +228,30 @@ def scan_state(device, stream: int, n: int) -> torch.Tensor:
     resets the counters and flags), so it is kept and reused, one a device
     and stream (launches on one stream run in order). It grows to the next
     power of two of bytes when a call needs more."""
+    return zeroed_state(_scan_states, device, stream, scan_state_bytes(n))
+
+
+def zeroed_state(states: dict, device, stream: int, need: int) -> torch.Tensor:
+    """A kernel's state buffer of at least ``need`` bytes on (device,
+    stream) from ``states`` (``scan_state``'s rules: zeroed when allocated,
+    left zero by every launch, grown to a power of two)."""
     key = (str(device), stream)
-    st = _scan_states.get(key)
-    need = scan_state_bytes(n)
+    st = states.get(key)
     if st is None or st.numel() < need:
         st = torch.zeros((1 << (need - 1).bit_length(),), dtype=torch.uint8, device=device)
-        _scan_states[key] = st
+        states[key] = st
     return st
+
+
+def check_state_launch(code: int, name: str, states: dict, device, stream: int) -> None:
+    """``kernels.check`` for a launch that takes a ``zeroed_state`` buffer:
+    after a failed launch the buffer is dropped from ``states`` (the
+    launch may have left its flags and counters set), so the next call
+    starts from a new zeroed one and fails, if it does, as an error and
+    not as a wait that never ends."""
+    if code != 0:
+        states.pop((str(device), stream), None)
+    kernels.check(code, name)
 
 
 def segment_scan(x: torch.Tensor, is_first: torch.Tensor, exclusive: bool = True,
@@ -241,7 +278,7 @@ def segment_scan(x: torch.Tensor, is_first: torch.Tensor, exclusive: bool = True
     code = kernels.library().f2_segment_scan(
         x.data_ptr(), is_first.data_ptr(), out.data_ptr(), state.data_ptr(), n,
         int(exclusive), int(reverse), stream)
-    kernels.check(code, "segment_scan")
+    check_state_launch(code, "segment_scan", _scan_states, x.device, stream)
     segment_scan.launches += 1
     return out
 

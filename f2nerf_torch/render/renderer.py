@@ -47,8 +47,9 @@ from ..fields.hash_encoding import hash_encode
 from ..fields.mlp import mlp_apply
 from ..fields.sh import sh_encode
 from ..ops.activations import density_activation, gradient_scaling
-from ..ops.segment import (first_flags_from_ray_id, ray_gather, ray_offsets,
-                           segment_cumsum, segment_sum)
+from ..ops.segment import (check_state_launch, first_flags_from_ray_id, ray_gather,
+                           ray_offsets, ray_offsets_plain, segment_cumsum, segment_sum,
+                           zeroed_state)
 from ..sampler import device as dv
 from ..utils.spans import Spans
 
@@ -231,8 +232,13 @@ KEEP_FIELDS = (("t", torch.float32, 1), ("dt", torch.float32, 1), ("node", torch
 def compact_keep_plain(keep: torch.Tensor, cap: int, fields: dict, rid_src: torch.Tensor,
                        n_rays: int):
     """Plain PyTorch version of K13 (JAX ``_compact`` with a ray-id source,
-    renderer.py:72): ``_compact``."""
-    return _compact(keep, cap, fields, n_rays, ray_id_src=rid_src)
+    renderer.py:72): ``_compact``, then B's segments by
+    ``ray_offsets_plain`` of B's ray ids."""
+    b, rid, ok, idx = _compact(keep, cap, fields, n_rays, ray_id_src=rid_src)
+    return b, rid, ok, idx, ray_offsets_plain(rid, n_rays)
+
+
+_keep_states: dict = {}
 
 
 def compact_keep(keep: torch.Tensor, cap: int, fields: dict, rid_src: torch.Tensor,
@@ -240,22 +246,28 @@ def compact_keep(keep: torch.Tensor, cap: int, fields: dict, rid_src: torch.Tens
     """The keep-set compaction A -> B: slot p < min(total, cap) takes the
     p-th kept row of A (kept rows past cap are dropped); padding slots get
     zeros, rid = n_rays and index n - 1. ``fields``: A's KEEP_FIELDS;
-    rid_src: A's ray ids [n] i32. Returns what ``_compact`` returns:
-    (fields [cap], rid [cap] i32, ok [cap] bool, idx [cap] int64). CPU
-    tensors take ``compact_keep_plain``; CUDA tensors launch K13
-    (csrc/compact.cu, one cooperative launch), bit for bit the plain
-    version."""
+    rid_src: A's ray ids [n] i32 (ray-sorted, padding rows n_rays; kept
+    rows lie in rays, as the prefilter keeps only valid rows). Returns
+    (fields [cap], rid [cap] i32, ok [cap] bool, idx [cap] int64,
+    segments): ``_compact``'s four, then B's segments, what ``ray_offsets``
+    gives for B's rid: (offsets [n_rays + 1] i32, counts [n_rays] f32, local
+    [cap] i32, first [cap] bool). CPU tensors take ``compact_keep_plain``;
+    CUDA tensors launch K13 (csrc/compact.cu: one launch, tiles of A that
+    look back over the earlier tiles' kept counts, then blocks that write
+    B's padding), bit for bit the plain version."""
     n = keep.shape[0]
     if set(fields) != {k for k, _, _ in KEEP_FIELDS} or keep.dtype != torch.bool \
             or rid_src.dtype != torch.int32 or tuple(rid_src.shape) != (n,) \
             or keep.dim() != 1 or n < 1 or cap < 1 or n_rays < 0 \
+            or n >= 1 << 31 or cap >= 1 << 31 \
             or any(fields[k].dtype != dt or tuple(fields[k].shape) != ((n,) if c == 1 else (n, c))
                    for k, dt, c in KEEP_FIELDS):
         raise ValueError(f"compact_keep: expected bool keep [n], int32 rid_src [n] and "
                          f"fields {[(k, str(dt), c) for k, dt, c in KEEP_FIELDS]} over n "
                          f"rows; got keep {keep.dtype} {tuple(keep.shape)}, rid_src "
                          f"{rid_src.dtype} {tuple(rid_src.shape)}, fields "
-                         f"{ {k: (v.dtype, tuple(v.shape)) for k, v in fields.items()} }")
+                         f"{ {k: (v.dtype, tuple(v.shape)) for k, v in fields.items()} }, "
+                         f"cap {cap}")
     if keep.device.type == "cpu":
         return compact_keep_plain(keep, cap, fields, rid_src, n_rays)
     if keep.device.type != "cuda":
@@ -268,15 +280,20 @@ def compact_keep(keep: torch.Tensor, cap: int, fields: dict, rid_src: torch.Tens
     rid = torch.empty((cap,), dtype=torch.int32, device=dev)
     ok = torch.empty((cap,), dtype=torch.bool, device=dev)
     idx = torch.empty((cap,), dtype=torch.int64, device=dev)
+    offsets = torch.empty((n_rays + 1,), dtype=torch.int32, device=dev)
+    counts = torch.empty((n_rays,), dtype=torch.float32, device=dev)
+    local = torch.empty((cap,), dtype=torch.int32, device=dev)
+    first = torch.empty((cap,), dtype=torch.bool, device=dev)
     lib = kernels.library()
-    counts = torch.empty((lib.f2_compact_keep_max_blocks(),), dtype=torch.int32, device=dev)
+    stream = kernels.stream_ptr(dev)
+    state = zeroed_state(_keep_states, dev, stream, lib.f2_compact_keep_state_bytes(n))
     code = lib.f2_compact_keep(
         *(x.data_ptr() for x in (*ins, *(out[k] for k, _, _ in KEEP_FIELDS), rid, ok, idx,
-                                 counts)),
-        n, cap, n_rays, kernels.stream_ptr(dev))
-    kernels.check(code, "compact_keep")
+                                 offsets, counts, local, first, state)),
+        n, cap, n_rays, stream)
+    check_state_launch(code, "compact_keep", _keep_states, dev, stream)
     compact_keep.launches += 1
-    return out, rid, ok, idx
+    return out, rid, ok, idx, (offsets, counts, local, first)
 
 
 compact_keep.launches = 0
@@ -385,6 +402,7 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
         b = a
         rid_b, ok_b = rid_a, ok_a
         vol_b = trans_a
+        seg_b = None
     else:
         # --- no-grad prefilter (Renderer.cpp:106-137); the raw encodings
         # are kept for the HashBlock grad pass's cached gather
@@ -408,9 +426,10 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
                 occ = dv.compute_occupancy_adders(tree, a["node"], rid_a, weights_a,
                                                   alpha_a, R, offsets_a)
 
-        # --- compact A -> B [CAP2] (K13); B's padding rows have trans 0
+        # --- compact A -> B [CAP2] with B's segments (K13); B's padding
+        # rows have trans 0
         spans("render.compact_b")
-        b, rid_b, ok_b, idx_b = compact_keep(keep, st.cap2, a, rid_a, R)
+        b, rid_b, ok_b, idx_b, seg_b = compact_keep(keep, st.cap2, a, rid_a, R)
         vol_b = b["trans"]
 
     # --- grad-enabled field query (+ edge samples for the TV loss)
@@ -452,9 +471,12 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
     sigma = torch.where(ok_b[:, None], sigma, torch.zeros_like(sigma))
     shading_feat = torch.cat([torch.ones_like(scene_feat[:, :1]),
                               scene_feat[:, 1:]], dim=-1)
-    # B's rays once: each ray's rows (every K10 of the step reads them), its
-    # count and each sample's index in it
-    offsets_b, counts_b, i_local = ray_offsets(rid_b, R)
+    # B's rays: each ray's rows (every K10 of the step reads them), its
+    # count, each sample's index in it and whether it starts it (single
+    # pass: from K12's offsets, one plain launch)
+    if seg_b is None:
+        seg_b = ray_offsets(rid_b, R, offsets_a)
+    offsets_b, counts_b, i_local, first_b = seg_b
     if st.train and st.use_app_emb:
         # each ray's image row, then to its samples: both backwards sum in a
         # fixed order (an index_select's would be an index_add of atomics)
@@ -472,7 +494,6 @@ def render(params: dict, consts: dict, tree: dv.DeviceTree,
     spans("render.composite")
     sampled_t = b["t"] + 1e-2
     sec = sigma[:, 0] * b["dt"]
-    first_b = first_flags_from_ray_id(rid_b, R)
     acc = segment_cumsum(sec, first_b, exclusive=True)
     trans_vis = torch.exp(-acc)
     alpha = 1.0 - torch.exp(-sec)

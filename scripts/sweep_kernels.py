@@ -1,11 +1,11 @@
-"""Sweep the launch shapes and variants of K8-K12, K14's votes and the
+"""Sweep the launch shapes and variants of K8-K14 (K14: the votes) and the
 offsets launch, and show what their time is made of, on one CUDA card.
 
-    python scripts/sweep_kernels.py [--kernels k8,k9,k10,k11,offsets,k12,k14]
+    python scripts/sweep_kernels.py [--kernels k8,k9,k10,k11,offsets,k12,k13,k14]
         [--baseline ROOT] [--out results.json]
 
 Each variant is a copy of a source in f2nerf_torch/csrc/ (traverse.cu,
-march_parallel.cu, segment.cu, warp.cu or occupancy.cu) with a few text
+march_parallel.cu, segment.cu, warp.cu, compact.cu or occupancy.cu) with a few text
 edits, built alone with nvcc (the package's flags) into a library of its
 own under f2nerf_torch/_build/sweep/, and timed on the same inputs as the
 unedited kernel, in turns (CUDA events after ~1 ms of a busy stream,
@@ -14,14 +14,17 @@ unedited kernel's outputs bit for bit (K10's, which add in another order,
 to the plain version within 1e-5 of each ray's sum of |x|; K12's and
 K14's to their plain versions); diagnostic ones (``diag``) change the
 arithmetic or drop work to show what that work costs, and are only timed.
-With ``--baseline ROOT`` (an earlier tree, e.g. a ``git archive`` of it,
-whose compact_a_warp writes no ray offsets and whose votes search rid)
-the k12 and k14 sweeps also build ROOT's warp.cu and occupancy.cu and
-their diagnostic variants (``EARLIER_*``: the per-block scan
-alone, no warp, no divisions, 1 and 2 slots a thread, every row before
-the first division; 64- and 128-thread edge blocks, a thread a (sample,
-frame); the votes' init and barrier alone, no init, the searches alone),
-timed in the same turns as this tree's.
+The k13 sweep times K13 (``K13_VARIANTS``: 2, 4 and 8 rows a thread, 2
+or 4 rows' loads in flight, tiles from a ticket instead of the block
+index, padding blocks of 1,024-4,096 slots; diagnostics without the
+copies, the padding, the segments, and with only the loads, scans,
+look-back and waits) and, with ``--baseline ROOT`` (an earlier tree, e.g.
+a ``git archive`` of it, whose K13 writes no segments and whose offsets
+launch writes offsets, counts and local indices), ROOT's K13 followed by
+ROOT's offsets launch, that pair with the first flags' torch ops, each
+alone, and ROOT's K13 taken apart (``EARLIER_K13_VARIANTS``: no copies,
+no padding, neither (the launch, the flags, the barrier and the sums
+over the block counts), and that without the sums), in the same turns.
 
 Inputs: K8 on the slice's tree (confs/wanjinyou.yaml at full width on the
 ball scene, 945 nodes) with 2,048 uniform rays (hit cap 64) and with the
@@ -38,8 +41,11 @@ of the appearance gather's gradient); K12 and K14's votes at the slice
 step's shapes (``step_warp_inputs``: 2,048 rays, cap1 262,144, 146,012
 valid slots in runs of 1-32 at one leaf, 393,216 nodes, 8,192 edge
 samples) and at the slice's uniform shape (K12: ``uniform_a``, 393,216
-slots at random leaves; votes: ``uniform_votes``). A one-element torch add
-is timed the same way: the floor of a launch.
+slots at random leaves; votes: ``uniform_votes``); K13 on the step's buffer
+A (``step_keep_inputs``: those 262,144 slots, 97% of the valid ones kept,
+cap2 262,144) and at the slice's uniform shape (393,216 rows of 2,048 rays,
+half kept, cap2 262,144). A one-element torch add is timed the same way:
+the floor of a launch.
 """
 
 from __future__ import annotations
@@ -126,6 +132,56 @@ OFFSETS_VARIANTS = {
     "one_a_sm": [(OFFSETS_GRID, "    resident[dev] = sms;")],
     "two_a_sm": [(OFFSETS_GRID, "    resident[dev] = 2 * sms;")],
 }
+# K13 (csrc/compact.cu): its launch shapes and diagnostics (the designs it
+# replaced are in PERF.md §6)
+K13_ROWS = "constexpr int kRows = 4;"
+K13_COPY = "constexpr int kCopy = kRows < 4 ? kRows : 4;"
+K13_PAD = "constexpr int kPadSlots = kThreads * 8;"
+K13_N_COPY = "  const int n_copy = (int)max(0LL, min((long long)cnt, cap - excl));"
+K13_STARTS = "    if ((starts >> k) & 1u) {"
+K13_LOCAL = "    if (kept[k] && kk < cap) {"
+K13_VARIANTS = {
+    "base": [],
+    "rows2": [(K13_ROWS, "constexpr int kRows = 2;")],
+    "rows8": [(K13_ROWS, "constexpr int kRows = 8;")],
+    "copy2": [(K13_COPY, "constexpr int kCopy = 2;")],
+    # a block's tile or padding range from a ticket taken as it starts (one
+    # atomic on the state's unused word a block), not its index
+    "ticket": [("  const unsigned b = blockIdx.x;\n",
+                "  __shared__ unsigned s_b;\n  if (threadIdx.x == 0) s_b = atomicAdd(p.counters, 1u);"
+                "\n  __syncthreads();\n  const unsigned b = s_b;\n"),
+               ("      p.counters[1] = 0;", "      p.counters[0] = 0;\n      p.counters[1] = 0;")],
+    "pad1024": [(K13_PAD, "constexpr int kPadSlots = kThreads * 4;")],
+    "pad4096": [(K13_PAD, "constexpr int kPadSlots = kThreads * 16;")],
+    "diag_no_copy": [(K13_N_COPY, "  const int n_copy = 0;")],
+    "diag_no_pad": [("  const long long lo = max(s0, m);", "  const long long lo = s1;")],
+    "diag_no_segments": [(K13_STARTS, K13_STARTS.replace(" {", " if (p.n < 0) {")),
+                         (K13_LOCAL, K13_LOCAL.replace(") {", " && p.n < 0) {"))],
+    # the tiles' loads, scans and look-back, the padding blocks' waits
+    "diag_skeleton": [(K13_N_COPY, "  const int n_copy = 0;"),
+                      (K13_STARTS, K13_STARTS.replace(" {", " if (p.n < 0) {")),
+                      (K13_LOCAL, K13_LOCAL.replace(") {", " && p.n < 0) {")),
+                      ("  const long long lo = max(s0, m);", "  const long long lo = s1;")],
+}
+# the earlier K13 (one cooperative launch: count, a grid barrier, every
+# block sums every block's count, then copies its rows; no segments)
+EARLIER_K13_SUM = "  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {"
+EARLIER_K13_COPY = "    if (kept && pos < p.cap) {"
+EARLIER_K13_PAD = ("  for (long long q = min(all, p.cap) + (long long)blockIdx.x * kThreads + "
+                   "threadIdx.x;")
+EARLIER_K13_VARIANTS = {
+    "base": [],
+    "diag_no_copy": [(EARLIER_K13_COPY, "    if (kept && pos < p.cap && p.n < 0) {")],
+    "diag_no_pad": [(EARLIER_K13_PAD, EARLIER_K13_PAD.replace("min(all, p.cap)", "p.cap"))],
+    # the launch, the flags read, the barrier and the sums over the counts
+    "diag_skeleton": [(EARLIER_K13_COPY, "    if (kept && pos < p.cap && p.n < 0) {"),
+                      (EARLIER_K13_PAD, EARLIER_K13_PAD.replace("min(all, p.cap)", "p.cap"))],
+    # ... without the sums
+    "diag_skeleton_no_sum": [
+        (EARLIER_K13_SUM, EARLIER_K13_SUM.replace("= threadIdx.x", "= gridDim.x")),
+        (EARLIER_K13_COPY, "    if (kept && pos < p.cap && p.n < 0) {"),
+        (EARLIER_K13_PAD, EARLIER_K13_PAD.replace("min(all, p.cap)", "p.cap"))],
+}
 K9_BOUNDS = "__global__ void __launch_bounds__(kMaxThreads, 4)"
 K9_ROW_LOAD = ("      const float4 r0 = __ldg(m4 + 8 * kq + 2 * kk), "
                "r1 = __ldg(m4 + 8 * kq + 2 * kk + 1);")
@@ -142,75 +198,6 @@ K9_VARIANTS = {
 }
 K9_RAYS_PER_BLOCK = (1, 2, 4)    # csrc/march_parallel.cu: at most 256 threads a block
 
-# the earlier K12 and K14 (the sources of --baseline ROOT):
-# the unedited kernels and diagnostic variants that each remove one
-# suspect. Both K12 entry points share warp.cu's libraries.
-EARLIER_A_SLOT = "    if (j >= p.cap) continue;\n    const bool ok = owner[k] >= 0;"
-EARLIER_EDGE_IDX = "  const int i = blockIdx.x * kThreads + threadIdx.x;\n  if (i >= p.n) return;"
-EARLIER_EDGE_LAUNCH = "sample_edges_kernel<<<(n + kThreads - 1) / kThreads, kThreads,"
-EARLIER_EDGE_BODY = """#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int ts = __ldg(p.edge_t + 2 * e + s);"""
-EARLIER_WARP_LOADS = """  out[0] = out[1] = out[2] = 0.0f;
-#pragma unroll
-  for (int kq = 0; kq < kPros / 4; ++kq) {
-    float4 w[3];
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) w[ax] = __ldg(w4 + 3 * ax + kq);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 r0 = __ldg(m4 + 8 * kq + 2 * kk), r1 = __ldg(m4 + 8 * kq + 2 * kk + 1);"""
-# every row of the leaf loaded before the first division
-EARLIER_WARP_UPFRONT = """  float4 m[24], w9[9];
-#pragma unroll
-  for (int q = 0; q < 24; ++q) m[q] = __ldg(m4 + q);
-#pragma unroll
-  for (int q = 0; q < 9; ++q) w9[q] = __ldg(w4 + q);
-  out[0] = out[1] = out[2] = 0.0f;
-#pragma unroll
-  for (int kq = 0; kq < kPros / 4; ++kq) {
-    float4 w[3];
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) w[ax] = w9[3 * ax + kq];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 r0 = m[8 * kq + 2 * kk], r1 = m[8 * kq + 2 * kk + 1];"""
-
-
-def earlier_edge_threads(t: int) -> list:
-    return [(EARLIER_EDGE_IDX, "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-                            "  if (i >= p.n) return;"),
-            (EARLIER_EDGE_LAUNCH, f"sample_edges_kernel<<<(n + {t - 1}) / {t}, {t},")]
-
-
-EARLIER_WARP_VARIANTS = {
-    "base": [],
-    # compact_a_warp: the per-block scan alone (each slot's owner stored)
-    "diag_scan_only": [(EARLIER_A_SLOT, "    if (j >= p.cap) continue;\n    p.rid[j] = owner[k];\n"
-                                     "    continue;\n    const bool ok = owner[k] >= 0;")],
-    # compact_a_warp: the scan and the gathers, no warp
-    "diag_no_warp": [("      warp_point(p.w2xz, p.weight, tr, x, w);",
-                      "      w[0] = x[0]; w[1] = x[1]; w[2] = x[2];")],
-    # both: the warp with products for the divisions (wrong bits)
-    "diag_no_div": [("const float v = __fdiv_rn(", "const float v = __fmul_rn(")],
-    "slots1": [("constexpr int kSlots = 4;", "constexpr int kSlots = 1;")],
-    "slots2": [("constexpr int kSlots = 4;", "constexpr int kSlots = 2;")],
-    # both: the leaf's 33 float4 rows loaded before the first division
-    "rows_upfront": [(EARLIER_WARP_LOADS, EARLIER_WARP_UPFRONT)],
-    # sample_edges: 64- and 128-thread blocks; a thread a (sample, frame)
-    "edges_threads64": earlier_edge_threads(64),
-    "edges_threads128": earlier_edge_threads(128),
-    "edges_per_frame": [
-        (EARLIER_EDGE_IDX, "  const int i = (blockIdx.x * kThreads + threadIdx.x) >> 1;\n"
-                        "  if (i >= p.n) return;"),
-        (EARLIER_EDGE_BODY, "  {\n    const int s = threadIdx.x & 1;\n"
-                         "    const int ts = __ldg(p.edge_t + 2 * e + s);"),
-        (EARLIER_EDGE_LAUNCH, "sample_edges_kernel<<<(2 * n + kThreads - 1) / kThreads, kThreads,")],
-}
-EARLIER_A_NAMES = ("base", "diag_scan_only", "diag_no_warp", "diag_no_div", "slots1", "slots2",
-                "rows_upfront")
-EARLIER_EDGE_NAMES = ("base", "diag_no_div", "rows_upfront", "edges_threads64",
-                   "edges_threads128", "edges_per_frame")
 # this tree's K12 and K14: launch shapes, the layouts and diagnostic
 # variants
 WARP_FINAL = ("    if (owner[k] >= 0) valid_slot(p, j, owner[k], start[k]); "
@@ -404,22 +391,6 @@ VOTES_VARIANTS = {
     # every block the card holds, as the earlier kernel launched
     "grid_resident": [(VOTES_GRID, "  const unsigned grid = (unsigned)resident[dev];")],
 }
-EARLIER_VOTE_INIT = "u < p.n_nodes; u += stride) {"
-EARLIER_VOTE_RAYS = "r < p.n_rays; r += n_warps) {"
-EARLIER_VOTE_SEARCH = "    const long long e = warp_lower_bound(p.rid, p.n, r + 1, lane);\n"
-EARLIER_VOTES_VARIANTS = {
-    "base": [],
-    # the init and the grid barrier alone
-    "diag_init_only": [(EARLIER_VOTE_RAYS, "r < 0; r += n_warps) {")],
-    # everything but the init (the barrier kept)
-    "diag_no_init": [(EARLIER_VOTE_INIT, "u < 0; u += stride) {")],
-    # the barrier and the two searches a ray (each ray's row count stored)
-    "diag_search_only": [(EARLIER_VOTE_INIT, "u < 0; u += stride) {"),
-                         (EARLIER_VOTE_SEARCH, EARLIER_VOTE_SEARCH +
-                          "    if (lane == 0) p.visit_max[r] = (int)(e - s);\n    continue;\n")],
-}
-
-
 def log(*a):
     print(*a, flush=True)
 
@@ -659,31 +630,192 @@ def sweep_offsets() -> dict:
     libs = build("segment", {f"offsets_{k}": v for k, v in OFFSETS_VARIANTS.items()})
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for lib in libs.values():
-        lib.f2_ray_offsets.argtypes = [vp] * 4 + [ll, i, vp]
+        lib.f2_ray_offsets.argtypes = [vp] * 5 + [ll, i, i, vp]
         lib.f2_ray_offsets.restype = ctypes.c_int
     dev = torch.device("cuda")
 
-    def run(name, rid):
+    def run(name, rid, given=None):
         n = rid.shape[0]
-        outs = (torch.empty((2049,), dtype=torch.int32, device=dev),
-                torch.empty((2048,), device=dev), torch.empty((n,), dtype=torch.int32, device=dev))
+        outs = (torch.empty((2049,), dtype=torch.int32, device=dev) if given is None else given,
+                torch.empty((2048,), device=dev), torch.empty((n,), dtype=torch.int32, device=dev),
+                torch.empty((n,), dtype=torch.bool, device=dev))
         kernels.check(libs[name].f2_ray_offsets(
-            rid.data_ptr(), *(o.data_ptr() for o in outs), n, 2048, kernels.stream_ptr(dev)),
-            "sweep ray_offsets")
+            rid.data_ptr(), *(o.data_ptr() for o in outs), n, 2048, int(given is not None),
+            kernels.stream_ptr(dev)), "sweep ray_offsets")
         return outs
 
     res = {}
     for case, r in step_like_ray_ids().items():
         rid_d = torch.from_numpy(r.astype(np.int32)).to(dev)
         want = sg.ray_offsets_plain(rid_d, 2048)
+        given = want[0].clone()
         for name in libs:
-            got = run(name, rid_d)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"ray_offsets {name} differs from its plain version ({case})")
-        t = in_turns({name: (lambda name=name: run(name, rid_d)) for name in libs})
+            for got in (run(name, rid_d), run(name, rid_d, given)):
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"ray_offsets {name} differs from its plain version "
+                                         f"({case})")
+        fns = {name: (lambda name=name: run(name, rid_d)) for name in libs}
+        fns["offsets_given"] = lambda: run("offsets_base", rid_d, given)
+        t = in_turns(fns)
         res[case] = t
         log(f"[offsets] {case}: " + ", ".join(f"{k[8:]} {v:.4f} ms" for k, v in t.items()))
+    return res
+
+
+def step_keep_inputs(tree, seed: int = 17) -> tuple:
+    """K13's input at the slice step's shapes: buffer A as the plain K12
+    makes it from ``step_warp_inputs`` (cap1 262,144 slots, STEP_VALID
+    valid), each valid slot kept with probability 0.97 (a step early in
+    training keeps ~97% of its samples), cap2 262,144."""
+    from f2nerf_torch.render import renderer as rd
+    a, rid, ok = rd.compact_a_warp_plain(*step_warp_inputs(tree)["a"])[:3]
+    g = torch.Generator(device=rid.device).manual_seed(seed)
+    keep = ok & (torch.rand(ok.shape, generator=g, device=ok.device) < 0.97)
+    return keep, 262144, {k: a[k] for k, _, _ in rd.KEEP_FIELDS}, rid, STEP_RAYS
+
+
+def uniform_keep(seed: int = 18, n: int = 393216, cap: int = 262144, R: int = 2048) -> tuple:
+    """K13 at the slice's uniform shape (as chip_smoke.py's
+    keep_uniform_args): R rays of U[0, 2 n / R) rows, padding past the
+    last, each row kept with probability one half."""
+    from f2nerf_torch.render import renderer as rd
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    counts = torch.randint(0, 2 * n // R, (R,), generator=g, device=dev)
+    rid = torch.repeat_interleave(torch.arange(R, device=dev), counts)[:n]
+    rid = torch.cat([rid, torch.full((n - rid.numel(),), R, device=dev)]).to(torch.int32)
+    fields = {k: (torch.rand((n,) if c == 1 else (n, c), generator=g, device=dev)
+                  if dt == torch.float32 else
+                  torch.randint(0, 1 << 16, (n,), generator=g, device=dev, dtype=dt))
+              for k, dt, c in rd.KEEP_FIELDS}
+    keep = (torch.rand((n,), generator=g, device=dev) < 0.5) & (rid < R)
+    return keep, cap, fields, rid, R
+
+
+def keep_outputs(cap: int, n_rays: int, dev, segments: bool) -> list:
+    """K13's outputs: the six fields, rid, ok, idx, and with ``segments``
+    offsets, counts, local and first."""
+    from f2nerf_torch.render import renderer as rd
+    outs = [torch.empty((cap,) if c == 1 else (cap, c), dtype=dt, device=dev)
+            for _, dt, c in rd.KEEP_FIELDS]
+    outs += [torch.empty((cap,), dtype=torch.int32, device=dev),
+             torch.empty((cap,), dtype=torch.bool, device=dev),
+             torch.empty((cap,), dtype=torch.int64, device=dev)]
+    if segments:
+        outs += [torch.empty((n_rays + 1,), dtype=torch.int32, device=dev),
+                 torch.empty((n_rays,), dtype=torch.float32, device=dev),
+                 torch.empty((cap,), dtype=torch.int32, device=dev),
+                 torch.empty((cap,), dtype=torch.bool, device=dev)]
+    return outs
+
+
+_K13_STATES: dict = {}
+
+
+def new_keep(lib, keep, cap, fields, rid, n_rays):
+    """This tree's f2_compact_keep (B's segments out; its zeroed state)."""
+    from f2nerf_torch.ops import segment as sg
+    from f2nerf_torch.render import renderer as rd
+    dev = keep.device
+    outs = keep_outputs(cap, n_rays, dev, True)
+    stream = kernels.stream_ptr(dev)
+    state = sg.zeroed_state(_K13_STATES, dev, stream, lib.f2_compact_keep_state_bytes(
+        keep.shape[0]))
+    ins = (keep, *(fields[k] for k, _, _ in rd.KEEP_FIELDS), rid)
+    kernels.check(lib.f2_compact_keep(*(x.data_ptr() for x in (*ins, *outs, state)),
+                                      keep.shape[0], cap, n_rays, stream), "sweep compact_keep")
+    return outs
+
+
+def earlier_keep(lib, offsets_lib, keep, cap, fields, rid, n_rays, first=False):
+    """The earlier f2_compact_keep (no segments), then, given
+    ``offsets_lib``, the earlier offsets launch on B's ray ids (and with
+    ``first`` first_flags_from_ray_id): the parent step's B."""
+    from f2nerf_torch.ops import segment as sg
+    from f2nerf_torch.render import renderer as rd
+    dev = keep.device
+    outs = keep_outputs(cap, n_rays, dev, False)
+    counts = torch.empty((lib.f2_compact_keep_max_blocks(),), dtype=torch.int32, device=dev)
+    stream = kernels.stream_ptr(dev)
+    ins = (keep, *(fields[k] for k, _, _ in rd.KEEP_FIELDS), rid)
+    kernels.check(lib.f2_compact_keep(*(x.data_ptr() for x in (*ins, *outs, counts)),
+                                      keep.shape[0], cap, n_rays, stream), "sweep compact_keep")
+    if offsets_lib is not None:
+        seg = [torch.empty((n_rays + 1,), dtype=torch.int32, device=dev),
+               torch.empty((n_rays,), dtype=torch.float32, device=dev),
+               torch.empty((cap,), dtype=torch.int32, device=dev)]
+        kernels.check(offsets_lib.f2_ray_offsets(outs[6].data_ptr(),
+                                                 *(x.data_ptr() for x in seg), cap, n_rays,
+                                                 stream), "sweep ray_offsets")
+        outs += seg
+        if first:
+            outs.append(sg.first_flags_from_ray_id(outs[6], n_rays))
+    return outs
+
+
+def earlier_offsets(lib, rid, n_rays):
+    """The earlier offsets launch alone (offsets, counts, local)."""
+    dev = rid.device
+    seg = [torch.empty((n_rays + 1,), dtype=torch.int32, device=dev),
+           torch.empty((n_rays,), dtype=torch.float32, device=dev),
+           torch.empty(rid.shape, dtype=torch.int32, device=dev)]
+    kernels.check(lib.f2_ray_offsets(rid.data_ptr(), *(x.data_ptr() for x in seg), rid.shape[0],
+                                     n_rays, kernels.stream_ptr(dev)), "sweep ray_offsets")
+    return seg
+
+
+def sweep_k13(baseline: str | None) -> dict:
+    """K13 at the slice step's shapes and the uniform one: this tree's
+    launch shapes and diagnostics, and with --baseline the earlier K13 with its
+    offsets launch (and the first flags), each alone, and its diagnostics,
+    all timed in turns. Every non-diagnostic run is held bit for bit to
+    the plain version (the earlier pair to its first 12 outputs, with the
+    first flags to all 13)."""
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    libs = build("compact", K13_VARIANTS)
+    for lib in libs.values():
+        _sig(lib, "f2_compact_keep", [vp] * 22 + [ll, ll, i, vp])
+        lib.f2_compact_keep_state_bytes.argtypes = [ll]
+        lib.f2_compact_keep_state_bytes.restype = ll
+    old, old_off = {}, None
+    if baseline:
+        csrc = os.path.join(baseline, "f2nerf_torch", "csrc")
+        old = build("compact", EARLIER_K13_VARIANTS, csrc, "earlier_")
+        for lib in old.values():
+            _sig(lib, "f2_compact_keep", [vp] * 18 + [ll, ll, i, vp])
+            _sig(lib, "f2_compact_keep_max_blocks", [])
+        old_off = build("segment", {"base": []}, csrc, "earlier_")["base"]
+        _sig(old_off, "f2_ray_offsets", [vp] * 4 + [ll, i, vp])
+    from f2nerf_torch.render import renderer as rd
+    tree, _ = slice_tree()
+    res = {}
+    for case, args in (("step", step_keep_inputs(tree)), ("uniform", uniform_keep())):
+        b, rid, ok, idx, seg = rd.compact_keep_plain(*args)
+        want = [b[k] for k, _, _ in rd.KEEP_FIELDS] + [rid, ok, idx, *seg]
+        fns, equal = {}, {}
+        for name, lib in libs.items():
+            _held("K13", name, new_keep(lib, *args), want, equal)
+            fns[name] = lambda lib=lib, args=args: new_keep(lib, *args)
+        for name, lib in old.items():
+            if name == "base":
+                _held("K13", "earlier_with_offsets", earlier_keep(lib, old_off, *args), want[:12],
+                      equal)
+                _held("K13", "earlier_with_offsets_first",
+                      earlier_keep(lib, old_off, *args, first=True), want, equal)
+                fns["earlier_with_offsets"] = lambda lib=lib, args=args: earlier_keep(
+                    lib, old_off, *args)
+                fns["earlier_with_offsets_first"] = lambda lib=lib, args=args: earlier_keep(
+                    lib, old_off, *args, first=True)
+                fns["earlier_offsets_alone"] = lambda args=args, r=rid: earlier_offsets(
+                    old_off, r, args[4])
+            _held("K13", f"earlier_{name}", earlier_keep(lib, None, *args), want[:9], equal)
+            fns[f"earlier_{name}"] = lambda lib=lib, args=args: earlier_keep(lib, None, *args)
+        t = in_turns(fns)
+        kept = int(args[0].sum())
+        res[case] = dict(ms=t, equal=equal, n=int(args[0].shape[0]), cap=args[1], kept=kept)
+        log(f"[K13] {case} (n {args[0].shape[0]}, cap {args[1]}, {kept} kept, R {args[4]}): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()) + f"; bit for bit {equal}")
     return res
 
 
@@ -811,7 +943,7 @@ def _sig(lib, name: str, argtypes: list) -> None:
     fn.restype = ctypes.c_int
 
 
-def earlier_outputs(cap: int, dev) -> tuple:
+def a_outputs(cap: int, dev) -> tuple:
     """compact_a_warp's eight [cap] outputs: t, dt, node, rid, ok, trans,
     pts01, dirs."""
     f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
@@ -820,20 +952,8 @@ def earlier_outputs(cap: int, dev) -> tuple:
             torch.empty((cap,), **i32), torch.empty((cap, 3), **f32), torch.empty((cap, 3), **f32))
 
 
-def earlier_compact_a(lib, tree, n_s, out_t, out_dt, out_node, o, d, cap):
-    """The earlier f2_compact_a_warp (no offsets output)."""
-    dev = n_s.device
-    R, max_s = out_t.shape
-    outs = earlier_outputs(cap, dev)
-    kernels.check(lib.f2_compact_a_warp(
-        *(x.data_ptr() for x in (n_s, out_t, out_dt, out_node, o, d, tree.trans_idx,
-                                 tree.w2xz, tree.weight, *outs)),
-        cap, R, max_s, tree.trans_idx.shape[0], kernels.stream_ptr(dev)), "sweep compact_a_warp")
-    return outs
-
-
 def run_edges(lib, tree, e, coord):
-    """f2_sample_edges (the same interface in both trees)."""
+    """f2_sample_edges."""
     dev = e.device
     n = e.shape[0]
     pts = torch.empty((n, 2, 3), dtype=torch.float32, device=dev)
@@ -846,16 +966,6 @@ def run_edges(lib, tree, e, coord):
     return pts, trans
 
 
-def earlier_votes(lib, tree, node, rid, w, a, n_rays):
-    """The earlier f2_occupancy_votes (no offsets input: it searches rid)."""
-    N = tree.trans_idx.shape[0]
-    out = torch.empty((4, N), dtype=torch.int32, device=node.device)
-    kernels.check(lib.f2_occupancy_votes(
-        *(x.data_ptr() for x in (node, rid, w, a)), *(out[k].data_ptr() for k in range(4)),
-        node.shape[0], n_rays, N, kernels.stream_ptr(node.device)), "sweep occupancy_votes")
-    return out
-
-
 def same_bits(got, want) -> bool:
     return all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
 
@@ -864,7 +974,7 @@ def new_compact_a(lib, tree, n_s, out_t, out_dt, out_node, o, d, cap):
     """This tree's f2_compact_a_warp (offsets [R + 1] out)."""
     dev = n_s.device
     R = out_t.shape[0]
-    outs = earlier_outputs(cap, dev) + (torch.empty((R + 1,), dtype=torch.int32, device=dev),)
+    outs = a_outputs(cap, dev) + (torch.empty((R + 1,), dtype=torch.int32, device=dev),)
     kernels.check(lib.f2_compact_a_warp(
         *(x.data_ptr() for x in (n_s, out_t, out_dt, out_node, o, d, tree.trans_idx,
                                  tree.w2xz, tree.weight, *outs)),
@@ -890,22 +1000,14 @@ def _held(tag: str, name: str, got, want, equal: dict) -> None:
         raise AssertionError(f"{tag} {name} differs from the plain version")
 
 
-def sweep_k12(baseline: str | None) -> dict:
-    """K12's two entry points at the slice step's shapes: this tree's
-    kernel and its variants, and with --baseline the earlier kernel and its
-    diagnostic variants, each entry point's all timed in turns."""
+def sweep_k12() -> dict:
+    """K12's two entry points at the slice step's shapes: the kernel and
+    its variants, each entry point's all timed in turns."""
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     libs = build("warp", WARP_VARIANTS)
     for lib in libs.values():
         _sig(lib, "f2_compact_a_warp", [vp] * 18 + [ll, i, i, i, vp])
         _sig(lib, "f2_sample_edges", [vp] * 10 + [i, i, i, vp])
-    old = {}
-    if baseline:
-        old = build("warp", EARLIER_WARP_VARIANTS, os.path.join(baseline, "f2nerf_torch", "csrc"),
-                    "earlier_")
-        for lib in old.values():
-            _sig(lib, "f2_compact_a_warp", [vp] * 17 + [ll, i, i, i, vp])
-            _sig(lib, "f2_sample_edges", [vp] * 10 + [i, i, i, vp])
     from f2nerf_torch.render import renderer as rd
     from f2nerf_torch.sampler import device as dv
     tree, _ = slice_tree()
@@ -919,10 +1021,6 @@ def sweep_k12(baseline: str | None) -> dict:
             _held("K12 compact_a_warp", name, new_compact_a(libs[name], *args),
                   want + (offsets,), equal)
             fns[name] = lambda lib=libs[name], args=args: new_compact_a(lib, *args)
-        for name in EARLIER_A_NAMES if old else ():
-            _held("K12 compact_a_warp", f"earlier_{name}", earlier_compact_a(old[name], *args), want,
-                  equal)
-            fns[f"earlier_{name}"] = lambda lib=old[name], args=args: earlier_compact_a(lib, *args)
         t = in_turns(fns)
         res[f"compact_a_warp_{case}"] = dict(ms=t, equal=equal)
         log(f"[K12 A] {case} (R {args[1].shape[0]}, cap1 {args[-1]}, {int(offsets[-1])} valid): "
@@ -932,10 +1030,6 @@ def sweep_k12(baseline: str | None) -> dict:
     for name in WARP_EDGE_NAMES:
         _held("K12 sample_edges", name, run_edges(libs[name], *ins["edges"]), want, equal)
         fns[name] = lambda lib=libs[name]: run_edges(lib, *ins["edges"])
-    for name in EARLIER_EDGE_NAMES if old else ():
-        _held("K12 sample_edges", f"earlier_{name}", run_edges(old[name], *ins["edges"]), want,
-              equal)
-        fns[f"earlier_{name}"] = lambda lib=old[name]: run_edges(lib, *ins["edges"])
     t = in_turns(fns)
     res["sample_edges"] = dict(ms=t, equal=equal)
     log(f"[K12 edges] {STEP_EDGES} samples: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
@@ -943,20 +1037,13 @@ def sweep_k12(baseline: str | None) -> dict:
     return res
 
 
-def sweep_k14(baseline: str | None) -> dict:
+def sweep_k14() -> dict:
     """K14's votes at the slice step's shapes (buffer A's offsets given):
-    this tree's kernel and its variants, and with --baseline the earlier
-    kernel and its diagnostic variants, all timed in turns."""
+    the kernel and its variants, all timed in turns."""
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     libs = build("occupancy", VOTES_VARIANTS)
     for lib in libs.values():
         _sig(lib, "f2_occupancy_votes", [vp] * 8 + [ll, i, i, vp])
-    old = {}
-    if baseline:
-        old = build("occupancy", EARLIER_VOTES_VARIANTS,
-                    os.path.join(baseline, "f2nerf_torch", "csrc"), "earlier_")
-        for lib in old.values():
-            _sig(lib, "f2_occupancy_votes", [vp] * 8 + [ll, i, i, vp])
     from f2nerf_torch.render import renderer as rd
     from f2nerf_torch.sampler import device as dv
     tree, _ = slice_tree()
@@ -971,9 +1058,6 @@ def sweep_k14(baseline: str | None) -> dict:
         for name, lib in libs.items():
             _held("K14 votes", name, new_votes(lib, *args, offsets), want, equal)
             fns[name] = lambda lib=lib, args=args, offsets=offsets: new_votes(lib, *args, offsets)
-        for name, lib in old.items():
-            _held("K14 votes", f"earlier_{name}", earlier_votes(lib, *args), want, equal)
-            fns[f"earlier_{name}"] = lambda lib=lib, args=args: earlier_votes(lib, *args)
         t = in_turns(fns)
         res[case] = dict(ms=t, equal=equal)
         log(f"[K14 votes] {case} ({int(offsets[-1])} rows in rays of {args[1].shape[0]}, R "
@@ -1006,8 +1090,8 @@ def uniform_votes(tree, R: int = 2048, per: int = 192, cap: int = 393216, seed: 
 
 
 SWEEPS = {"k8": sweep_k8, "k9": sweep_k9, "k10": sweep_k10, "k11": sweep_k11,
-          "offsets": sweep_offsets, "k12": sweep_k12, "k14": sweep_k14}
-TAKES_BASELINE = ("k12", "k14")
+          "offsets": sweep_offsets, "k12": sweep_k12, "k13": sweep_k13, "k14": sweep_k14}
+TAKES_BASELINE = ("k13",)
 
 
 def main() -> int:
@@ -1016,9 +1100,9 @@ def main() -> int:
                     help="comma-separated sweeps to run, of " + ", ".join(SWEEPS))
     ap.add_argument("--out", default=os.path.join(SWEEP_DIR, "sweep_kernels.json"))
     ap.add_argument("--baseline", default=None, metavar="ROOT",
-                    help="an earlier tree (a git archive) whose K12 writes no ray offsets: "
-                         "the k12 and k14 sweeps also build its csrc/warp.cu and "
-                         "csrc/occupancy.cu and time them in the same turns")
+                    help="an earlier tree (a git archive) whose K13 writes no segments: "
+                         "the k13 sweep also builds its csrc/compact.cu and csrc/segment.cu "
+                         "and times them in the same turns")
     args = ap.parse_args()
     chosen = args.kernels.split(",")
     unknown = [k for k in chosen if k not in SWEEPS]

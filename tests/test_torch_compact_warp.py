@@ -1,17 +1,20 @@
 """Kernels K12 (``compact_a_warp``, ``sample_edges``) and K13
 (``compact_keep``) of the port: their plain versions against the JAX
 package on the CPU, buffer A's ray offsets (``compact_a_warp``'s fourth
-output) against ``ray_offsets_plain`` of A's ray ids, the wrappers'
-routing and refusals, and on the card (``cuda`` marker, skipped without
-one) each kernel against its plain version and A's offsets against the
-offsets launch.
+output) against ``ray_offsets_plain`` of A's ray ids, buffer B's segments
+(``compact_keep``'s fifth output) against JAX's ``local_index``,
+``segment_sum`` of ones and ``first_flags_from_ray_id`` of B's ray ids,
+the wrappers' routing and refusals, and on the card (``cuda`` marker,
+skipped without one) each kernel against its plain version, A's offsets
+against the offsets launch and the given-offsets launch on them.
 
 Inputs come from numpy seeds on a JAX-built octree converted to the port
 (tests/test_sampler.py's synthetic rig): dense marcher buffers with empty
 rays, padding past the total and a total past the capacity; nodes whose
 leaf row is -1 (the root, culled leaves); rays that start at or past the
 capacity; keep flags with nothing kept, everything kept and an overflow
-past cap2.
+past cap2, no padding row in A, rays with no row, one ray, B exactly
+full.
 
 Tolerances:
   * compactions, ray ids, ray offsets, nodes, leaf rows and directions
@@ -268,23 +271,46 @@ def test_sample_edges_refuses(trees, bad):
 
 def keep_case(seed: int, n: int, mode: str):
     """A's fields over n rows (ray-sorted ray ids with padding past the
-    last sample) and keep flags: 'half' (a random half), 'none', 'all'."""
+    last sample) and keep flags: 'half' (a random half), 'none', 'all';
+    with a random half kept: 'nopad' (no padding row in A), 'gaps' (rays
+    with no row: only every third ray has rows), 'one_ray' (n_rays 1),
+    'step' (2,048 rays of U[0, 192) rows, as the slice's buffer A)."""
     rng = np.random.RandomState(seed)
-    n_rays = 37
-    rid = np.sort(rng.randint(0, n_rays, n)).astype(np.int32)
-    rid[-n // 5:] = n_rays
+    n_rays = {"one_ray": 1, "step": 2048}.get(mode, 37)
+    if mode == "step":
+        rid = np.repeat(np.arange(n_rays), rng.randint(0, 192, n_rays))[:n]
+        rid = np.concatenate([rid, np.full(n - rid.shape[0], n_rays)]).astype(np.int32)
+    elif mode == "gaps":
+        rid = np.sort(rng.choice(np.arange(0, n_rays, 3), n)).astype(np.int32)
+    else:
+        rid = np.sort(rng.randint(0, n_rays, n)).astype(np.int32)
+    if mode not in ("nopad", "step"):
+        rid[-n // 5:] = n_rays
     fields = dict(t=rng.rand(n).astype(np.float32), dt=rng.rand(n).astype(np.float32),
                   node=rng.randint(0, 999, n).astype(np.int32),
                   trans=rng.randint(0, 50, n).astype(np.int32),
                   pts01=rng.rand(n, 3).astype(np.float32),
                   dirs=rng.randn(n, 3).astype(np.float32))
-    keep = {"half": rng.rand(n) < 0.5, "none": np.zeros(n, bool),
-            "all": np.ones(n, bool)}[mode] & (rid < n_rays)
+    keep = {"none": np.zeros(n, bool), "all": np.ones(n, bool)}.get(
+        mode, rng.rand(n) < 0.5) & (rid < n_rays)
     return keep, fields, rid, n_rays
 
 
 KEEP_CASES = [(1000, 700, "half"), (1000, 200, "half"), (1000, 300, "none"),
               (1000, 300, "all"), (1000, 900, "all"), (1, 4, "all")]
+# B's segments also at: no padding in A, rays with no row, n_rays 1, and B
+# exactly full (cap None: the kept count)
+SEG_CASES = KEEP_CASES + [(1000, 700, "nopad"), (1000, 200, "nopad"), (1000, None, "nopad"),
+                          (1000, 700, "gaps"), (1000, None, "half"), (1000, 300, "one_ray"),
+                          (1000, 1000, "step")]
+
+
+def keep_args(n: int, cap, mode: str, dev=None):
+    """keep_case as compact_keep's arguments (cap None: the kept count)."""
+    keep, fields, rid, n_rays = keep_case(n + (cap or 0), n, mode)
+    cap = cap or int(keep.sum())
+    return (T(keep).to(dev), cap, {k: T(v).to(dev) for k, v in fields.items()},
+            T(rid).to(dev), n_rays)
 
 
 @pytest.mark.parametrize("n,cap,mode", KEEP_CASES)
@@ -293,7 +319,7 @@ def test_compact_keep_plain_matches_jax(n, cap, mode):
     jb, rid_j, ok_j, idx_j = jren._compact(
         jnp.asarray(keep), cap, {k: jnp.asarray(v) for k, v in fields.items()}, n_rays,
         ray_id_src=jnp.asarray(rid))
-    tb, rid_t, ok_t, idx_t = tren.compact_keep_plain(
+    tb, rid_t, ok_t, idx_t, seg_t = tren.compact_keep_plain(
         T(keep), cap, {k: T(v) for k, v in fields.items()}, T(rid), n_rays)
     assert int(ok_t.sum()) == min(int(keep.sum()), cap)
     np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
@@ -303,7 +329,40 @@ def test_compact_keep_plain_matches_jax(n, cap, mode):
         np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]), err_msg=k)
     got = tren.compact_keep(T(keep), cap, {k: T(v) for k, v in fields.items()}, T(rid), n_rays)
     assert all(same_bits(got[0][k], tb[k]) for k in fields)
-    assert all(torch.equal(g, w) for g, w in zip(got[1:], (rid_t, ok_t, idx_t)))
+    assert all(torch.equal(g, w) for g, w in zip(got[1:4], (rid_t, ok_t, idx_t)))
+    assert all(torch.equal(g, w) for g, w in zip(got[4], seg_t))
+
+
+@pytest.mark.parametrize("n,cap,mode", SEG_CASES)
+def test_compact_keep_segments_match_jax(n, cap, mode):
+    """B's segments from compact_keep_plain against the JAX package on the
+    same inputs: ``_compact``, then ``local_index``, ``segment_sum`` of ones
+    and ``first_flags_from_ray_id`` of B's ray ids (and the offsets as a
+    searchsorted over them, each ray's first slot)."""
+    from f2nerf_tpu.ops import segment as jseg
+    keep, cap, fields, rid, n_rays = keep_args(n, cap, mode)
+    _, rid_j, _, _ = jren._compact(jnp.asarray(keep.numpy()), cap,
+                                   {k: jnp.asarray(v.numpy()) for k, v in fields.items()},
+                                   n_rays, ray_id_src=jnp.asarray(rid.numpy()))
+    _, rid_t, ok_t, _, (offsets, counts, local, first) = tren.compact_keep_plain(
+        keep, cap, fields, rid, n_rays)
+    assert (offsets.dtype, counts.dtype, local.dtype, first.dtype) == \
+        (torch.int32, torch.float32, torch.int32, torch.bool)
+    assert tuple(offsets.shape) == (n_rays + 1,) and tuple(local.shape) == (cap,)
+    np.testing.assert_array_equal(rid_t.numpy(), np.asarray(rid_j))
+    np.testing.assert_array_equal(local.numpy(), np.asarray(jseg.local_index(rid_j, n_rays)))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jseg.segment_sum(
+        jnp.ones(rid_j.shape, jnp.float32), rid_j, n_rays)))
+    np.testing.assert_array_equal(first.numpy(),
+                                  np.asarray(jseg.first_flags_from_ray_id(rid_j, n_rays)))
+    np.testing.assert_array_equal(offsets.numpy(),
+                                  np.searchsorted(np.asarray(rid_j), np.arange(n_rays + 1)))
+    m = int(ok_t.sum())
+    assert int(offsets[-1]) == m == min(int(keep.sum()), cap)
+    if mode == "gaps":
+        assert bool((counts == 0).any())
+    if cap == m:                                   # B exactly full: no padding slot
+        assert bool(ok_t.all())
 
 
 @pytest.mark.parametrize("bad", ["keep_int", "rid_int64", "missing_field", "pts_shape", "meta"])
@@ -372,14 +431,19 @@ def _a_on_card(tree, case, cap):
     got = tren.compact_a_warp(tree, *case, cap)
     again = tren.compact_a_warp(tree, *case, cap)
     want = tren.compact_a_warp_plain(tree, *case, cap)
-    launch = ray_offsets(got[1], case[0].shape[0])[0]
+    R = case[0].shape[0]
+    launch = ray_offsets(got[1], R)
+    given = ray_offsets(got[1], R, got[3])
     torch.cuda.synchronize()
     for k in A_FIELDS:
         assert same_bits(got[0][k], want[0][k]), k
         assert same_bits(got[0][k], again[0][k]), k
     for i in (1, 2, 3):
         assert torch.equal(got[i], want[i]) and torch.equal(got[i], again[i])
-    assert torch.equal(got[3], launch)
+    assert torch.equal(got[3], launch[0])
+    # the given-offsets launch (the single-pass step's) on A's offsets
+    for g, w in zip(given, ray_offsets_plain(want[1], R)):
+        assert torch.equal(g, w)
     return got
 
 
@@ -442,17 +506,30 @@ def test_sample_edges_on_card(trees, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,cap,mode", KEEP_CASES + [(393216, 262144, "half"),
-                                                     (393216, 100000, "half"),
-                                                     (393216, 262144, "none")])
+@pytest.mark.parametrize("n,cap,mode", SEG_CASES + [(393216, 262144, "half"),
+                                                    (393216, 100000, "half"),
+                                                    (393216, 262144, "none"),
+                                                    (393216, 262144, "step"),
+                                                    (393216, 100000, "step"),
+                                                    (393216, None, "step"),
+                                                    (393216, 262144, "nopad"),
+                                                    (393216, 262144, "gaps"),
+                                                    (393216, 262144, "one_ray"),
+                                                    (1 << 23, 1 << 22, "half")])
 def test_compact_keep_on_card(cuda, n, cap, mode):
-    keep, fields, rid, n_rays = keep_case(n + cap, n, mode)
-    args = (T(keep).to(cuda), cap, {k: T(v).to(cuda) for k, v in fields.items()},
-            T(rid).to(cuda), n_rays)
-    got, again = tren.compact_keep(*args), tren.compact_keep(*args)
+    """K13 against its plain version, B's segments included; each launch
+    (three in a row) the same bits. At 2^23 rows the grid (8,193 tiles and
+    2,048 padding blocks) is many times what the card holds at once: the
+    tiles' look-back and the padding blocks' waits rest on blocks being
+    dispatched in index order."""
+    args = keep_args(n, cap, mode, cuda)
+    runs = [tren.compact_keep(*args) for _ in range(3)]
     want = tren.compact_keep_plain(*args)
     torch.cuda.synchronize()
-    for k in fields:
-        assert same_bits(got[0][k], want[0][k]) and same_bits(got[0][k], again[0][k]), k
-    for i in (1, 2, 3):
-        assert torch.equal(got[i], want[i]) and torch.equal(got[i], again[i])
+    for got in runs:
+        for k in want[0]:
+            assert same_bits(got[0][k], want[0][k]), k
+        for i in (1, 2, 3):
+            assert torch.equal(got[i], want[i]), i
+        for g, w in zip(got[4], want[4]):
+            assert g.dtype == w.dtype and torch.equal(g, w)

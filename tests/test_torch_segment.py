@@ -15,9 +15,10 @@ Tolerances:
     (JAX's associative scan adds in f32, the port in f64: JAX's rounding
     grows with the running sums, ~400 over the 512-sample ray); the
     reverse scan against float64 numpy suffix sums: rtol 1e-6, atol 1e-6;
-  * gathers' forward, local_index and the offsets launch's three outputs
-    (integers): exact; the sums with the offsets given equal the same calls
-    without them, bit for bit;
+  * gathers' forward, local_index and the offsets launch's four outputs
+    (integers and flags), computed or with the offsets given: exact; the
+    sums with the offsets given equal the same calls without them, bit
+    for bit;
   * on the card, K10 against index_add: |diff| <= 1e-5 of the ray's sum of
     |x| (both f32, other orders), at C = 1, 2, 6, 8, 16 and 17 (the vector
     path where C is 8 or 16, the scalar one otherwise); K11 against the
@@ -177,19 +178,51 @@ def test_ray_offsets_plain_matches_jax(case):
     ones, local_index JAX's local_index, and each ray's rows are
     [offsets[r], offsets[r + 1]) (offsets[n_rays] the first padding row)."""
     rid, _, n = make_case(case, seed=15)
-    offsets, counts, li = tseg.ray_offsets(T(rid), n)
-    assert (offsets.dtype, counts.dtype, li.dtype) == (torch.int32, torch.float32, torch.int32)
+    offsets, counts, li, first = tseg.ray_offsets(T(rid), n)
+    assert (offsets.dtype, counts.dtype, li.dtype, first.dtype) == \
+        (torch.int32, torch.float32, torch.int32, torch.bool)
     ones = jnp.ones(rid.shape, jnp.float32)
     np.testing.assert_array_equal(counts.numpy(),
                                   np.asarray(jseg.segment_sum(ones, jnp.asarray(rid), n)))
     np.testing.assert_array_equal(li.numpy(), np.asarray(jseg.local_index(jnp.asarray(rid), n)))
     np.testing.assert_array_equal(offsets.numpy(), np.searchsorted(rid, np.arange(n + 1)))
+    np.testing.assert_array_equal(
+        first.numpy(), np.asarray(jseg.first_flags_from_ray_id(jnp.asarray(rid), n)))
 
 
 def test_ray_offsets_plain_of_an_empty_buffer():
-    offsets, counts, li = tseg.ray_offsets(torch.zeros(0, dtype=torch.int32), 3)
+    offsets, counts, li, first = tseg.ray_offsets(torch.zeros(0, dtype=torch.int32), 3)
     assert offsets.tolist() == [0, 0, 0, 0] and counts.tolist() == [0.0] * 3
-    assert li.shape == (0,)
+    assert li.shape == (0,) and first.shape == (0,)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_ray_offsets_given_equal_computed(case):
+    """The given-offsets form (the buffer's offsets passed in, as the
+    single-pass renderer passes K12's) returns what the computed form
+    returns."""
+    rid, _, n = make_case(case, seed=19)
+    want = tseg.ray_offsets(T(rid), n)
+    got = tseg.ray_offsets(T(rid), n, want[0].clone())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_ray_offsets_refuses_bad_offsets_and_dtypes():
+    """Given offsets of the wrong length, type or device, and ray ids that
+    are not int32, raise; nothing is launched."""
+    rid, _, n = make_case("ragged", seed=20)
+    good = tseg.ray_offsets(T(rid), n)[0]
+    before = tseg.ray_offsets.launches
+    for bad in (good[:-1], good.long(), good.float(), good.tolist(),
+                torch.zeros(n + 1, dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError, match="offsets must be int32"):
+            tseg.ray_offsets(T(rid), n, bad)
+    for bad_rid, bad_n in ((T(rid).long(), n), (T(rid).float(), n), (T(rid)[None], n),
+                           (T(rid), -1)):
+        with pytest.raises(ValueError, match="expected int32 ray_id"):
+            tseg.ray_offsets(bad_rid, bad_n)
+    assert tseg.ray_offsets.launches == before
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -197,7 +230,7 @@ def test_offsets_given_equal_offsets_computed(case):
     """segment_sum, ray_gather and weight_var with the offsets given: the
     same values and gradients as the same calls without them."""
     rid, x, n = make_case(case, seed=16, c=6)
-    offsets, _, li = tseg.ray_offsets(T(rid), n)
+    offsets, _, li, _ = tseg.ray_offsets(T(rid), n)
     per_ray = np.random.RandomState(17).randn(n, 3).astype(np.float32)
     w = np.abs(x[:, 0])
     out = []
@@ -323,6 +356,22 @@ def test_scan_state_sizes_and_reuse():
         tseg._scan_states.update(before)
 
 
+def test_failed_state_launch_drops_its_state():
+    """A launch that takes a zeroed state buffer and fails drops it, so the
+    next call starts from a new zeroed buffer; a launch that succeeds keeps
+    it."""
+    states = {}
+    a = tseg.zeroed_state(states, "cpu", 7, 100)
+    tseg.check_state_launch(0, "k", states, "cpu", 7)
+    assert tseg.zeroed_state(states, "cpu", 7, 100) is a
+    a.fill_(1)
+    with pytest.raises(RuntimeError, match="k failed"):
+        tseg.check_state_launch(700, "k", states, "cpu", 7)
+    assert not states
+    b = tseg.zeroed_state(states, "cpu", 7, 100)
+    assert b is not a and b.numel() == 128 and not b.any()
+
+
 # ----------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -360,13 +409,19 @@ def _reduce_on_card(cuda, rid, x, n):
 
 
 def _offsets_on_card(cuda, rid, n):
-    """The offsets launch equal to its plain version (all three outputs)."""
+    """The offsets launch equal to its plain version (all four outputs),
+    computed and with the offsets given, each launch repeated bit for
+    bit."""
     rd = T(rid).to(cuda)
-    got = tseg.ray_offsets(rd, n)
     want = tseg.ray_offsets_plain(rd, n)
+    given = want[0].clone()
+    runs = [tseg.ray_offsets(rd, n), tseg.ray_offsets(rd, n),
+            tseg.ray_offsets(rd, n, given), tseg.ray_offsets(rd, n, given)]
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    for got in runs:
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def _scan_on_card(cuda, rid, x, n):
