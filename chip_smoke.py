@@ -3,8 +3,9 @@
     python3 chip_smoke.py                 # every phase; needs one CUDA card
     python3 chip_smoke.py --phases build,kernels   # a subset (no final line)
     python3 chip_smoke.py --phases device,build,kernels,slice,profile \
-        --baseline DIR    # a slice step's launches and steps/s of an earlier
-                          # tree (a checkout in DIR) beside this tree's, in turns
+        --baseline DIR    # an earlier tree's K3 (a checkout in DIR), and its
+                          # slice step's launches and steps/s, beside this
+                          # tree's, in turns
 
 Phases:
   1. device  — refuse to run without CUDA; print the card, its power limit
@@ -16,7 +17,12 @@ Phases:
                library call where one computes the same function
                (torch._fused_adam_ for K1, in turns; index_select for K4).
                K2/K3 at a uniform shape (n 393,216, a random volume per
-               sample), K4 at micro_gather's shape; after the slice, each
+               sample; K3 bit for bit its plain version and a second run,
+               also at 2^18 samples in one row a level, 2^20 samples and
+               log2_table_size 20; the library call for K3: index_add_ of
+               the dense rows, deterministic; with --baseline ROOT, ROOT's
+               K3 with its zero-fill in turns, uniform and skewed, and at
+               the step's own inputs), K4 at micro_gather's shape; after the slice, each
                again at the slice's own inputs (kernels_at_slice_inputs:
                K2 on A at cap1, K3 on B at cap2 plus the edge samples with
                that step's gradient, K4 on the step's cached encodings and
@@ -49,10 +55,7 @@ Phases:
                one ray and B exactly full, the degenerate warp's inf and
                NaN, NaN, +-inf and -0.0 weights), every output bit for bit
                its plain version, each launch repeated bit for bit, the
-               votes beside one scatter_reduce amax; with --baseline ROOT
-               (the parent tree, whose K13 writes no segments), ROOT's K13
-               with its offsets launch (and first flags) in turns at the
-               step's own inputs).
+               votes beside one scatter_reduce amax).
                K7's and K8's
                bounds also have a chain term (march_case, traverse_case):
                the longest ray's dependent operations at the card's max
@@ -68,7 +71,11 @@ Phases:
                then one pipelined
                train_many chunk under torch.cuda.set_sync_debug_mode:
                the synchronizing calls a step by span, none allowed in
-               the render's spans or the occupancy fold (sync_counts).
+               the render's spans or the occupancy fold (sync_counts);
+               then one step run twice from one state with one set of
+               draws, torch's deterministic algorithms off: every gradient
+               leaf, parameter, Adam state leaf and occupancy counter bit
+               for bit (step_twice).
   5. parity  — one step from one saved state with one set of draws on the
                card (kernels) and on the CPU (plain versions), compared.
   6. maintain — octree maintenance on the card: (a) the slice's config with
@@ -96,9 +103,9 @@ Phases:
                (synced, pipelined, pipelined, synced; rays/s each), K1-K4
                launches over the first pipelined turn; then train_many(3)
                against three train_one calls from one state and one set of
-               draws, within STEP_TOL, with torch's deterministic
-               algorithms on and off (K10/K11 sum in a fixed order, so
-               K3's atomics are what differs).
+               draws, within STEP_TOL and bit for bit, with torch's
+               deterministic algorithms on and off (K3, K10 and K11 sum in
+               a fixed order).
  10. variants — the configurations beside the default slice
                (phase_variants): (a) the reference-semantics config
                (field.type=Hash3DAnchored +pts_sampler.march_mode=lockstep)
@@ -183,10 +190,11 @@ TIME_FROM = 4          # steps 4..20 are timed (the first ones warm up)
 
 # K1/K2 tolerances: the kernel and its plain version do the same f32
 # operations in the same order (K2 rounds its index math per operation),
-# so they agree to a few ulps. K3 sums with atomics in no fixed order: the
-# error grows with the number of terms per table entry, so it is held
-# relative to the largest gradient magnitude. K4 copies rows, so it is held
-# to index_select bit for bit.
+# so they agree to a few ulps. K3 sums in its plain version's order and is
+# held to it bit for bit. K6, and the parent's K3 that --baseline times,
+# sum with atomics in no fixed order: the error grows with the number of
+# terms per table entry, so it is held relative to the largest gradient
+# magnitude. K4 copies rows, so it is held to index_select bit for bit.
 TOL_ADAM = 1e-6
 TOL_ENCODE = 1e-6
 TOL_SCATTER_REL = 1e-5
@@ -270,10 +278,11 @@ CARD = {}              # what phase_device reads of the card (max SM clock)
 LAUNCH_TURN_STEPS = 40
 # a profiled slice step of this tree launches at most STEP_DEVICE_LAUNCHES
 # device activities and dispatches at most STEP_ATEN_OPS outermost aten ops
-# (before K13 wrote B's segments: 1,482 and 1,615; measured since,
-# PERF.md §5: 1,474-1,475 and 1,609): launch_turns holds them
-STEP_DEVICE_LAUNCHES = 1475
-STEP_ATEN_OPS = 1609
+# (before K13 wrote B's segments: 1,482 and 1,615; then 1,474-1,475 and
+# 1,609; since K3 is 9 launches and a memset where it was a zero-fill and
+# one launch, PERF.md §5): launch_turns holds them
+STEP_DEVICE_LAUNCHES = 1483
+STEP_ATEN_OPS = 1610
 OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
                 "hash_encode_fwd", "hash_encode_bwd", "ray_march", "traverse",
@@ -321,6 +330,8 @@ NO_LIBRARY_KEEP = ("none: no single PyTorch call compacts kept rows into a padde
                    "(torch.nonzero_static, the indices alone, timed beside)")
 NO_LIBRARY_FOLD = "none: no single PyTorch call folds the votes into the counters"
 LIBRARY_VOTES = "torch.Tensor.scatter_reduce amax (one of the votes' three node scatters)"
+LIBRARY_K3 = ("torch.Tensor.index_add_ of the active pairs' prebuilt dense 128-lane rows "
+              "into the [16 nb, 128] table, deterministic algorithms on: the scatter alone")
 
 
 def log(*a):
@@ -549,14 +560,61 @@ def encode_case(args: tuple, label: str) -> dict:
                 bound_ms=bound, n=n, rows=rows)
 
 
-def scatter_case(calls: list, label: str) -> dict:
+def k3_rows_histogram(calls: list) -> dict:
+    """K3's skew at these calls: active (sample, level) pairs a row, by
+    level (rows touched, median, p99, max), from the plain version's list
+    (hash_block.k3_entries)."""
+    from f2nerf_torch.fields import hash_block as hb
+    out = {}
+    for a in calls:
+        g, prim, bias, pts, vol, l2t, _ = a
+        nb = hb.n_blocks(l2t)
+        key = hb.k3_entries(torch.cat(hb._segments(g)), prim, bias,
+                            torch.cat(hb._segments(pts)),
+                            torch.cat(hb._segments(vol)).long(), nb)[0] >> 32
+        per = torch.bincount(key, minlength=16 * nb).reshape(16, nb)
+        for l in range(16):
+            c = per[l][per[l] > 0].float()
+            q = torch.quantile(c, torch.tensor([0.5, 0.99], device=c.device)).tolist() \
+                if c.numel() else [0.0, 0.0]
+            o = out.setdefault(l, dict(pairs=0, rows=0, median=0.0, p99=0.0, max=0))
+            o.update(pairs=o["pairs"] + int(c.sum()), rows=o["rows"] + int(c.numel()),
+                     median=q[0], p99=q[1], max=max(o["max"], int(c.max()) if c.numel() else 0))
+    return out
+
+
+def k3_library_ms(calls: list) -> float:
+    """The library yardstick for K3: one index_add_ of the active pairs'
+    prebuilt dense 128-lane rows (the plain version's values) into the
+    [16 nb, 128] view of a zeroed table, under
+    torch.use_deterministic_algorithms(True): the scatter alone (building
+    the rows and zeroing the table are not timed)."""
+    from f2nerf_torch.fields import hash_block as hb
+    (g, prim, bias, pts, vol, l2t, shape), = calls
+    key, lane, val = hb.k3_entries(torch.cat(hb._segments(g)), prim, bias,
+                                   torch.cat(hb._segments(pts)),
+                                   torch.cat(hb._segments(vol)).long(), hb.n_blocks(l2t))
+    rows = torch.zeros((key.shape[0], hb.LANES), dtype=torch.float32, device=DEV)
+    rows.scatter_(1, lane, val)
+    idx, table = key >> 32, torch.zeros((int(np.prod(shape[:2])), hb.LANES), device=DEV)
+    del lane, val, key
+    torch.use_deterministic_algorithms(True)
+    try:
+        return cuda_time(lambda: table.index_add_(0, idx, rows))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def scatter_case(calls: list, label: str, library: bool = False,
+                 time_plain: bool = True) -> dict:
     """K3 as the step calls it: each call's (g, prim, bias, pts, vol,
     log2_table_size, table_shape) scattered, the gradients summed, against
-    the plain version; the error is held relative to the largest gradient
-    entry (atomics sum in no fixed order). The bound: g, points and
-    volumes read, and each call's output, the dense [16, nb, 128]
-    gradient, written once (K3 zero-fills it and adds into the touched
-    rows)."""
+    the plain version bit for bit (K3 sums in its plain version's order)
+    and against a second run of itself bit for bit (``max_abs_err`` is the
+    larger difference: 0). The bound: g, points and volumes read, and each
+    call's output, the dense [16, nb, 128] gradient, written once (K3
+    stores every row of it). With ``library``, ``k3_library_ms``; without
+    ``time_plain`` the plain version is run once, not timed."""
     from f2nerf_torch.fields import hash_block as hb
 
     def run(fn):
@@ -567,26 +625,74 @@ def scatter_case(calls: list, label: str) -> dict:
         return d
 
     d_k, d_p = run(hb.hash_block_bwd), run(hb.hash_block_bwd_plain)
+    d_again = run(hb.hash_block_bwd)
     torch.cuda.synchronize()
-    err = (d_k - d_p).abs().max().item()
+    err = max((d_k - d_p).abs().max().item(), (d_k - d_again).abs().max().item())
+    same, repeat = bits_equal(d_k, d_p), bits_equal(d_k, d_again)
+    differ = int((d_k.view(torch.int32) != d_p.view(torch.int32)).sum())
     scale = d_p.abs().max().item()
-    del d_k, d_p
+    del d_k, d_p, d_again
     ms = cuda_time(lambda: run(hb.hash_block_bwd))
-    plain_ms = cuda_time(lambda: run(hb.hash_block_bwd_plain))
+    plain_ms = cuda_time(lambda: run(hb.hash_block_bwd_plain)) if time_plain else None
     _, prim, bias, _, _, l2t, shape = calls[0]
     pts = torch.cat([p for a in calls for p in hb._segments(a[3])])
     vol = torch.cat([v for a in calls for v in hb._segments(a[4])])
     n, rows = pts.shape[0], touched_rows(prim, bias, pts, vol, l2t)
     bound = bound_ms(n * (128 + 12 + 4) + len(calls) * 4 * int(np.prod(shape)))
+    lib_ms = k3_library_ms(calls) if library else None
     log(f"[kernels] K3 hash_block_bwd {label}: n={n} in {len(calls)} call(s), "
-        f"{rows} rows touched: max_abs_err {err:.3e} (tol {TOL_SCATTER_REL:g} x "
-        f"max|grad| {scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it)")
-    if not (np.isfinite(err) and err <= TOL_SCATTER_REL * scale):
-        raise AssertionError(f"hash_block_bwd disagrees with its plain version "
-                             f"({label}): {err}")
+        f"{rows} rows touched: bit for bit its plain version {same} ({differ} entries "
+        f"differ; max|grad| {scale:.3e}), a second run bit for bit {repeat}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms if plain_ms is None else round(plain_ms, 4)} ms, "
+        f"bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it)"
+        + (f"; index_add_ of the dense rows, deterministic {lib_ms:.4f} ms" if library else ""))
+    if not (same and repeat):
+        raise AssertionError(f"hash_block_bwd ({label}): bit for bit its plain version "
+                             f"{same} ({differ} entries differ), a second run {repeat}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, n=n,
-                rows=rows)
+                rows=rows, library_ms=lib_ms)
+
+
+def k3_uniform_args(gen, n: int = 393216, nv: int = 431, l2t: int = 19) -> tuple:
+    """K3's uniform shape: n uniform points, a uniformly random volume of
+    nv per sample (the worst case for row locality), g ~ N(0, 1), at
+    log2_table_size l2t: hash_block_bwd's arguments."""
+    from f2nerf_torch.fields import hash_block as hb
+    from f2nerf_torch.fields.hash_encoding import _random_primes
+    dev = torch.device(DEV)
+    seeds = torch.randint(1 << 28, 1 << 30, (16 * nv * 3,), generator=gen, device=dev)
+    prim = torch.from_numpy(_random_primes(seeds.cpu().numpy()).astype(np.int32)
+                            .reshape(16, nv, 3)).to(dev)
+    bias = torch.rand((16, nv, 3), generator=gen, device=dev) * 1000.0 + 100.0
+    pts = torch.rand((n, 3), generator=gen, device=dev)
+    vol = torch.randint(0, nv, (n,), generator=gen, device=dev).to(torch.int32)
+    g = torch.randn((n, 32), generator=gen, device=dev)
+    return g, prim, bias, pts, vol, l2t, (16, hb.n_blocks(l2t), hb.LANES)
+
+
+def k3_skew_args(gen, n: int = 1 << 18) -> tuple:
+    """K3's skewed case: every sample within 1e-7 of one point in one
+    volume, so each level has one row holding all n samples (the coarse
+    levels' skew taken to its end; 4,096 windows of that row)."""
+    g, prim, bias, _, _, l2t, shape = k3_uniform_args(gen, n)
+    pts = torch.tensor([0.31, 0.62, 0.27], device=DEV) + \
+        torch.rand((n, 3), generator=gen, device=DEV) * 1e-7
+    vol = torch.full((n,), 7, dtype=torch.int32, device=DEV)
+    return g, prim, bias, pts, vol, l2t, shape
+
+
+def k3_extra_cases(gen) -> dict:
+    """K3 bit for bit its plain version and a second run of itself where
+    the sort and the windows are large: ``n2e20`` (2^20 uniform samples:
+    many waves of every launch) and ``l2t20`` (log2_table_size 20, 32,768
+    rows a level, as confs/wanjinyou_big.yaml)."""
+    out = {}
+    for name, args in (("n2e20", k3_uniform_args(gen, n=1 << 20)),
+                       ("l2t20", k3_uniform_args(gen, l2t=20))):
+        out[name] = scatter_case([args], name, time_plain=False)
+        del args
+        torch.cuda.empty_cache()
+    return out
 
 
 def hash3d_entries(prim, bias, pts, vol, l2t: int) -> int:
@@ -1349,93 +1455,69 @@ def votes_uniform_args(tr, seed: int, special: bool, R: int = 2048, per: int = 1
     return (tr.tree, *(torch.from_numpy(x).to(DEV) for x in (node, rid, w, a)), R)
 
 
-def baseline_keep(root: str, first: bool = False):
-    """ROOT's K13 (csrc/compact.cu: no segments) and offsets launch
-    (csrc/segment.cu: offsets, counts and local indices), built alone with
-    nvcc (the package's flags) into one library under
-    f2nerf_torch/_build/baseline/. Returns a function of compact_keep's
-    arguments that launches ROOT's K13 and then ROOT's offsets launch on
-    B's ray ids (``first``: and first_flags_from_ray_id, as ROOT's
-    renderer took B's first flags), and returns B's fields, rid, ok, idx
-    and B's segments, as this tree's compact_keep does."""
+def baseline_k3(root: str):
+    """ROOT's K3 (its csrc/hash_block.cu: the parent's float atomics into a
+    table that its wrapper zero-filled), built alone with nvcc (the
+    package's flags) into f2nerf_torch/_build/baseline/. Returns a function
+    of hash_block_bwd's arguments that zero-fills the table and launches
+    ROOT's K3 into it, as ROOT's wrapper did."""
     from f2nerf_torch import kernels
-    from f2nerf_torch.ops import segment as sg
-    from f2nerf_torch.render import renderer as rd
+    from f2nerf_torch.fields import hash_block as hb
+    from f2nerf_torch.fields.hash_encoding import _scales
     out = os.path.join(kernels.BUILD_DIR, "baseline")
     os.makedirs(out, exist_ok=True)
-    srcs = [os.path.join(os.path.abspath(root), "f2nerf_torch", "csrc", f)
-            for f in ("compact.cu", "segment.cu")]
-    so = os.path.join(out, "libbaseline_keep.so")
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, *srcs],
+    src = os.path.join(os.path.abspath(root), "f2nerf_torch", "csrc", "hash_block.cu")
+    so = os.path.join(out, "libbaseline_k3.so")
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, src],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {srcs}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     lib = ctypes.CDLL(so)
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, types in (("f2_compact_keep", [vp] * 18 + [ll, ll, i, vp]),
-                        ("f2_compact_keep_max_blocks", []),
-                        ("f2_ray_offsets", [vp] * 4 + [ll, i, vp])):
-        getattr(lib, name).argtypes = types
-        getattr(lib, name).restype = ctypes.c_int
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.f2_hash_block_bwd.argtypes = [vp, vp, vp, i, vp, vp, vp, i, vp, vp, vp, vp, i, i, vp]
+    lib.f2_hash_block_bwd.restype = ctypes.c_int
 
-    def run(keep, cap, fields, rid_src, n_rays):
-        f32 = dict(dtype=torch.float32, device=DEV)
-        i32 = dict(dtype=torch.int32, device=DEV)
-        outs = [torch.empty((cap,) if c == 1 else (cap, c), dtype=dt, device=DEV)
-                for _, dt, c in rd.KEEP_FIELDS]
-        outs += [torch.empty((cap,), **i32), torch.empty((cap,), dtype=torch.bool, device=DEV),
-                 torch.empty((cap,), dtype=torch.int64, device=DEV)]
-        ins = [keep, *(fields[k].contiguous() for k, _, _ in rd.KEEP_FIELDS), rid_src]
-        stream = kernels.stream_ptr(DEV)
-        counts = torch.empty((lib.f2_compact_keep_max_blocks(),), **i32)
-        kernels.check(lib.f2_compact_keep(*(x.data_ptr() for x in (*ins, *outs, counts)),
-                                          keep.shape[0], cap, n_rays, stream),
-                      "baseline compact_keep")
-        seg = [torch.empty((n_rays + 1,), **i32), torch.empty((n_rays,), **f32),
-               torch.empty((cap,), **i32)]
-        kernels.check(lib.f2_ray_offsets(outs[6].data_ptr(), *(x.data_ptr() for x in seg),
-                                         cap, n_rays, stream), "baseline ray_offsets")
-        if first:
-            seg.append(sg.first_flags_from_ray_id(outs[6], n_rays))
-        return outs + seg
+    def run(g, prim, bias, pts, vol, l2t, shape):
+        segs = [(gk.contiguous(), pk.contiguous(), vk.contiguous())
+                for gk, pk, vk in zip(hb._segments(g), hb._segments(pts), hb._segments(vol))]
+        ptrs = [(gk.data_ptr(), pk.data_ptr(), vk.data_ptr(), vk.shape[0])
+                for gk, pk, vk in segs] + [(None, None, None, 0)]
+        d = torch.zeros(shape, dtype=torch.float32, device=DEV)
+        kernels.check(lib.f2_hash_block_bwd(
+            *ptrs[0], *ptrs[1], prim.data_ptr(), bias.data_ptr(), _scales(DEV).data_ptr(),
+            d.data_ptr(), prim.shape[1], hb.n_blocks(l2t), kernels.stream_ptr(DEV)),
+            "baseline hash_block_bwd")
+        return d
     return run
 
 
-def baseline_turns(root: str, calls: dict) -> dict:
-    """--baseline ROOT: ROOT's K13 with its offsets launch on B (and again
-    with the first flags' torch ops; ``baseline_keep``) and this tree's
-    K13, which writes B's segments itself, at the slice step's own inputs,
-    timed in turns (ROOT, this, this, ROOT, ...; cuda_time_turns), ROOT's
-    outputs held bit for bit to this tree's."""
-    from f2nerf_torch.render import renderer as rd
-    (k_args,) = calls["compact_keep"]
-    theirs_fn, theirs_first = baseline_keep(root), baseline_keep(root, first=True)
-
-    def keep_out():
-        b, rid, ok, idx, seg = rd.compact_keep(*k_args)
-        return [b[k] for k, _, _ in rd.KEEP_FIELDS] + [rid, ok, idx, *seg]
-    mine, theirs = keep_out(), theirs_first(*k_args)
-    torch.cuda.synchronize()
-    differ = {i: int((x.view(torch.int32) != y.view(torch.int32)).sum())
-              if x.dtype == y.dtype == torch.float32 else int((x != y).sum())
-              for i, (x, y) in enumerate(zip(theirs, mine)) if not bits_equal(x, y)}
-    if differ:
-        raise AssertionError(f"the baseline's compact_keep differs from this tree's: outputs "
-                             f"{differ} differ (elements); "
-                             f"{[(tuple(x.shape), x.dtype) for x in theirs]} against "
-                             f"{[(tuple(x.shape), x.dtype) for x in mine]}")
-    del mine, theirs
-    t = cuda_time_turns({"baseline": lambda: theirs_fn(*k_args), "this tree": keep_out,
-                         "baseline_with_first": lambda: theirs_first(*k_args)})
-    log(f"[kernels] compact_keep at the slice step's own inputs, in turns with {root}: "
-        f"baseline K13 + offsets launch {t['baseline']:.4f} ms (with the first flags' torch "
-        f"ops {t['baseline_with_first']:.4f} ms), this tree {t['this tree']:.4f} ms (outputs "
-        f"bit for bit the same)")
-    return {"compact_keep": dict(baseline_ms=t["baseline"], ms=t["this tree"],
-                                 baseline_with_first_ms=t["baseline_with_first"])}
+def baseline_k3_turns(root: str, cases: dict) -> dict:
+    """--baseline ROOT: ROOT's K3 with its zero-fill (``baseline_k3``) and
+    this tree's K3, timed in turns (ROOT, this, this, ROOT, ...;
+    cuda_time_turns) on each case's one call, ROOT's gradient held to this
+    tree's within TOL_SCATTER_REL of the largest entry (ROOT's atomics sum
+    in no fixed order)."""
+    from f2nerf_torch.fields import hash_block as hb
+    theirs = baseline_k3(root)
+    out = {}
+    for name, (args,) in cases.items():
+        mine, old = hb.hash_block_bwd(*args), theirs(*args)
+        torch.cuda.synchronize()
+        err, scale = (mine - old).abs().max().item(), mine.abs().max().item()
+        del mine, old
+        if not (np.isfinite(err) and err <= TOL_SCATTER_REL * scale):
+            raise AssertionError(f"the baseline's K3 differs from this tree's ({name}): {err}")
+        t = cuda_time_turns({"baseline": lambda: theirs(*args),
+                             "this tree": lambda: hb.hash_block_bwd(*args)})
+        log(f"[kernels] K3 {name}, in turns with {root}: baseline K3 with its zero-fill "
+            f"{t['baseline']:.4f} ms, this tree {t['this tree']:.4f} ms (max |diff| "
+            f"{err:.3e}, max|grad| {scale:.3e})")
+        out[name] = dict(baseline_ms=t["baseline"], turns_ms=t["this tree"],
+                         baseline_max_abs_err=err)
+    return out
 
 
-def warp_compact_occupancy_rows(calls: dict, tr, baseline: str | None = None) -> list[dict]:
+def warp_compact_occupancy_rows(calls: dict, tr) -> list[dict]:
     """K12 (compact_a_warp, sample_edges), K13 (compact_keep) and K14 (the
     votes and the fold), each at one slice step's own inputs (spied; the
     row's ms, plain_ms, bound_ms and library_ms) and beside them:
@@ -1450,11 +1532,7 @@ def warp_compact_occupancy_rows(calls: dict, tr, baseline: str | None = None) ->
       votes — uniform at the slice's shape with finite weights and with
           NaN, +-inf and -0.0 weights (``votes_uniform_args``), each with
           the offsets given and computed (``votes_case``);
-      fold — the uniform votes folded into the step's tree.
-    With ``baseline`` (the parent tree, whose K13 writes no segments),
-    that tree's K13 with its offsets launch, in turns at the step's own
-    inputs (``baseline_turns``: K13's row's ``baseline_ms``, ``turns_ms``
-    and ``baseline_with_first_ms``, with the first flags' torch ops too)."""
+      fold — the uniform votes folded into the step's tree."""
     from f2nerf_torch.sampler import device as dv
     gen = torch.Generator(device=DEV).manual_seed(12)
     (a_args,), (e_args,), (k_args,) = (calls["compact_a_warp"], calls["sample_edges"],
@@ -1505,17 +1583,12 @@ def warp_compact_occupancy_rows(calls: dict, tr, baseline: str | None = None) ->
                                          "f2nerf_tpu/sampler/device.py:667", LIBRARY_VOTES),
             "apply_occupancy_adders": ("f2nerf_torch/csrc/occupancy.cu",
                                        "f2nerf_tpu/sampler/device.py:719", NO_LIBRARY_FOLD)}
-    turns = baseline_turns(baseline, calls) if baseline else {}
     rows = []
     for name, cs in cases.items():
         source, replaces, library = meta[name]
         step = cs["step"]
-        extra = {}
-        if name in turns:
-            extra = dict(turns[name])
-            extra["turns_ms"] = extra.pop("ms")
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         library=library, bound_by="bytes", **extra,
+                         library=library, bound_by="bytes",
                          **{k: step[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
                          max_abs_err=max(r["max_abs_err"] for r in cs.values()),
                          **{f"{c}_{k}": v for c, r in cs.items() for k, v in r.items()}))
@@ -1670,7 +1743,7 @@ def march_parallel_extra_cases(step_args: tuple, trav_args: tuple) -> dict:
     return out
 
 
-def phase_kernels() -> list[dict]:
+def phase_kernels(baseline: str | None = None) -> list[dict]:
     from f2nerf_torch.fields import hash_block as hb
     from f2nerf_torch.fields.hash_encoding import _random_primes
     from f2nerf_torch.ops import fused_adam as fa
@@ -1762,14 +1835,26 @@ def phase_kernels() -> list[dict]:
                      bound_by="bytes", library_ms=None, library=NO_LIBRARY,
                      **{f"uniform_{k}": v for k, v in r2.items()},
                      **{k: r2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
-    r3 = scatter_case([(g, prim, bias, pts, vol, l2t, tuple(feat.shape))], "uniform")
+    k3_uniform = [(g, prim, bias, pts, vol, l2t, tuple(feat.shape))]
+    r3 = scatter_case(k3_uniform, "uniform", library=True)
+    skew = [k3_skew_args(gen)]
+    r3.update({f"skew_{k}": v for k, v in scatter_case(skew, "skew (2^18 samples in one "
+                                                             "row a level)",
+                                                             time_plain=False).items()})
+    r3.update({f"{case}_{k}": v for case, r in k3_extra_cases(gen).items()
+               for k, v in r.items()})
+    if baseline:
+        r3.update({f"{case}_{k}": v for case, r in baseline_k3_turns(
+            baseline, {"uniform": k3_uniform, "skew": skew}).items() for k, v in r.items()})
+    del skew
     rows.append(dict(name="hash_block_bwd", route="cuda",
                      source="f2nerf_torch/csrc/hash_block.cu",
                      replaces="f2nerf_tpu/fields/hash_block.py:191",
-                     bound_by="bytes", library_ms=None, library=NO_LIBRARY,
+                     bound_by="bytes", library=LIBRARY_K3,
                      **{f"uniform_{k}": v for k, v in r3.items()},
-                     **{k: r3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
-    del feat
+                     **{k: r3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "library_ms")}))
+    del feat, k3_uniform
 
     # ---- K5 / K6 at the same uniform shape, the Hash3DAnchored pool at
     # full width ([2^19 * 16, 2]); the slice's own inputs follow the
@@ -1832,7 +1917,10 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
       K2: A's points and volumes at cap1 (the prefilter's encode) from one
           more step of the slice's Trainer;
       K3: that step's table-gradient scatter: B at cap2 plus the edge
-          samples, with the step's own gradient;
+          samples, with the step's own gradient (``scatter_case``: bit
+          for bit its plain version and a second run, the library call;
+          the active pairs a row by level, ``k3_rows_histogram``; with
+          ``baseline``, ROOT's K3 in turns, ``baseline_k3_turns``);
       K4: that step's [cap1, 32] cache of A's encodings and its cap2 int64
           indices (increasing; the padding rows all at cap1 - 1). Also at
           the earlier stand-in for them (``standin_`` keys): a random
@@ -1870,7 +1958,17 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
                                            "bound_by")}))
     fwd = max(calls["hash_block_fwd"], key=lambda a: a[3].shape[0])
     r2 = encode_case(fwd, f"slice A at cap1 {fwd[3].shape[0]}")
-    r3 = scatter_case(calls["hash_block_bwd"], f"slice B at cap2 {cap2} + edges")
+    r3 = scatter_case(calls["hash_block_bwd"], f"slice B at cap2 {cap2} + edges",
+                      library=True)
+    hist = k3_rows_histogram(calls["hash_block_bwd"])
+    log("[kernels] K3's active pairs a row at the slice step's own inputs, by level "
+        "(pairs, rows touched, median, p99, max): " + "; ".join(
+            f"{l}: {h['pairs']}, {h['rows']}, {h['median']:g}, {h['p99']:g}, {h['max']}"
+            for l, h in hist.items()))
+    r3["rows_histogram"] = hist
+    if baseline:
+        r3.update({f"step_{k}": v for k, v in baseline_k3_turns(
+            baseline, {"step": calls["hash_block_bwd"]})["step"].items()})
     (cache, idx), = calls["row_gather"]
     r4 = gather_check(cache, idx, f"slice's own inputs (cap1 {cache.shape[0]}, "
                                   f"cap2 {idx.shape[0]})")
@@ -1881,7 +1979,7 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
     if firsts != [a_rows]:
         raise AssertionError(f"first_flags_from_ray_id ran on {firsts}, expected A's alone")
     seg = segment_step_cases(calls)
-    rows += warp_compact_occupancy_rows(calls, tr, baseline)
+    rows += warp_compact_occupancy_rows(calls, tr)
     del calls, fwd, cache, idx
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1989,7 +2087,46 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
                "segment_reduce": 5 * N_STEPS, "segment_scan": 3 * N_STEPS,
                **{k: N_STEPS for k in warp_need(1)}})
     sync_counts(tr)
+    step_twice(tr)
     return launches, tr, (m["cap1"], m["cap2"])
+
+
+def step_twice(tr) -> None:
+    """One slice step run twice from one state (``trainer_snapshot``) with
+    one set of draws, torch's deterministic algorithms off, as every run of
+    the port is: every gradient leaf, parameter, Adam state leaf and
+    occupancy counter must be bit for bit (K3 sums in a fixed order, so no
+    float sum of the step depends on timing). The trainer is left as it
+    was."""
+    from f2nerf_torch.utils.tree import named_leaves
+
+    tr.freeze_controller()                 # one bucket and one set of caps for both
+    snap = trainer_snapshot(tr)
+    n_rays = tr.cur_batch_size()
+    _, st = tr._get_step(n_rays)
+    draws = tr.draw(st, n_rays)
+    runs = []
+    for _ in range(2):
+        restore_snapshot(tr, snap)
+        tr.train_one(draws=draws)
+        torch.cuda.synchronize()
+        runs.append({
+            **{f"grad {k}": v.grad.detach().clone() for k, v in named_leaves(tr.params)
+               if v.grad is not None},
+            **{f"param {k}": v.detach().clone() for k, v in named_leaves(tr.params)},
+            **{f"adam {k}": v.clone() for k, v in named_leaves(tr.opt_state)},
+            **{f"occupancy {k}": getattr(tr.tree, k).clone() for k in OCC_FIELDS}})
+    restore_snapshot(tr, snap)
+    tr.freeze_controller(False)
+    a, b = runs
+    differ = {k: int((a[k] != b[k]).sum()) if a[k].dtype != torch.float32 else
+              int((a[k].view(torch.int32) != b[k].view(torch.int32)).sum())
+              for k in a if not bits_equal(a[k], b[k])}
+    log(f"[slice] one step twice from iteration {snap['iter_step']}, n_rays {n_rays}, torch "
+        f"deterministic off: {len(a)} leaves (gradients, params, Adam state, occupancy "
+        f"counters), {len(differ)} differ {differ}")
+    if differ or a.keys() != b.keys():
+        raise AssertionError(f"one step run twice from one state differs: {differ}")
 
 
 class SpanSyncCounter:
@@ -2372,8 +2509,9 @@ def phase_atomics(tr) -> dict:
     ran and how many times a step. Across the two runs, an op whose inputs
     are the same bits and whose outputs differ is printed too, and so is
     the first op whose inputs differ with no such op before it (where a
-    hand-written kernel's difference, K3's atomics, enters); each leaf's
-    gradient is compared bit for bit. Printed, not held."""
+    hand-written kernel's difference would enter); each leaf's gradient is
+    compared bit for bit. Printed, not held (the slice phase's
+    ``step_twice`` holds the leaves)."""
     import collections
     import warnings
     from f2nerf_torch.utils.tree import named_leaves
@@ -2832,12 +2970,15 @@ def chunk_parity(tr, k: int = BENCH_CHUNK) -> None:
     controller, held to
     STEP_TOL (the Adam first moments standing for the gradients, the k
     steps' learning rates summed as the step bound's unit) with equal
-    n_rays, caps and hit cap. The pair runs twice: under torch's
-    deterministic algorithms, then with them off, as every run of the port
-    is. Both are held: the segment ops sum in a fixed order (K10, K11), so
-    what differs is K3's atomics alone. (Before K10/K11, torch's float
-    atomics moved the second pair 20-191x past STEP_TOL's outlier bound
-    over 3 steps; PERF.md §6.)"""
+    n_rays, caps and hit cap, and bit for bit: every param, Adam first
+    moment and occupancy counter the same bits (the exact difference is
+    printed). The pair runs twice: under torch's deterministic
+    algorithms, then with them off, as every run of the port is. Both are
+    held: the segment ops (K10, K11) and the table-gradient scatter (K3)
+    sum in a fixed order. (Before K10/K11, torch's float atomics moved the
+    second pair 20-191x past STEP_TOL's outlier bound over 3 steps; before
+    K3's order-fixed redesign the pairs agreed only within STEP_TOL;
+    PERF.md §6.)"""
     import warnings
     from f2nerf_torch.utils.parity import STEP_TOL, step_agrees, step_errors
 
@@ -2866,18 +3007,26 @@ def chunk_parity(tr, k: int = BENCH_CHUNK) -> None:
         a, b = ends["train_many"], ends["train_one"]
         err = step_errors(a["last"]["loss"], b["last"]["loss"], a["mu"], b["mu"], a["params"],
                           b["params"], a["occ"], b["occ"], lr)
+        leaves = [(part, k) for part in ("params", "mu", "occ") for k in b[part]]
+        differ = [f"{part} {k}" for part, k in leaves if not bits_equal(a[part][k], b[part][k])]
+        exact = max(float((a[part][k].double() - b[part][k].double()).abs().max())
+                    for part, k in leaves)
         log(f"[bench] train_many({k}) vs {k} train_one from iteration {tr.iter_step - k}, "
             f"{'torch deterministic' if deterministic else 'torch atomics'}: "
             f"{ {f: a['last'][f] for f in statics} } vs { {f: b['last'][f] for f in statics} }; "
             f"mse {a['mse']} vs {b['mse']}; errors {err} (tolerances {STEP_TOL}); per leaf "
             f"(entries over param_atol, entries, max |diff|) "
-            f"{leaf_outliers(a['params'], b['params'])}; seconds {a['secs']:.3f} vs "
-            f"{b['secs']:.3f}")
+            f"{leaf_outliers(a['params'], b['params'])}; exact difference: {len(differ)} of "
+            f"{len(leaves)} leaves differ {differ}, max |diff| {exact!r}; seconds "
+            f"{a['secs']:.3f} vs {b['secs']:.3f}")
         if any(a["last"][f] != b["last"][f] for f in statics):
             raise AssertionError("train_many and train_one ran different statics")
         if not step_agrees(err):
             raise AssertionError(f"train_many and train_one disagree beyond STEP_TOL "
                                  f"(deterministic {deterministic})")
+        if differ:
+            raise AssertionError(f"train_many and train_one differ in {differ} "
+                                 f"(deterministic {deterministic}; max |diff| {exact!r})")
 
 
 def phase_bench(tmp: str) -> dict:
@@ -3527,9 +3676,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--baseline", default=None, metavar="ROOT",
-                    help="a checkout of an earlier tree: with the profile phase, its "
-                         "slice step's launches and steps/s beside this tree's, one "
-                         "process each, in turns (ROOT, this, this, ROOT)")
+                    help="a checkout of an earlier tree: its K3 (csrc/hash_block.cu, with "
+                         "the zero-fill its wrapper did) timed in turns with this tree's; "
+                         "with the profile phase, its slice step's launches and steps/s "
+                         "beside this tree's, one process each, in turns (ROOT, this, "
+                         "this, ROOT)")
     ap.add_argument("--package-root", default=None, metavar="ROOT",
                     help="import f2nerf_torch from ROOT (how --baseline runs an "
                          "earlier tree's launches phase)")
@@ -3550,7 +3701,7 @@ def main(argv=None) -> int:
     dev_info = timed("device", phase_device)   # raises without CUDA, before any result
     if "build" in phases:
         timed("build", phase_build)
-    rows = timed("kernels", phase_kernels) if "kernels" in phases else []
+    rows = timed("kernels", phase_kernels, args.baseline) if "kernels" in phases else []
     launches = {}
     paths = {}            # each further path's launches, by its key in the rows
     with tempfile.TemporaryDirectory(prefix="f2smoke_") as tmp:

@@ -4,9 +4,9 @@
 //   K2 hash_block_fwd  <- _encode_fwd_impl (:153-178)
 //   K3 hash_block_bwd  <- _hash_block_bwd  (:191-215), the backward of both
 //      hash_block_encode and hash_block_gather_cached. On the training step
-//      one K3 launch scatters both (fields/hash_block.py,
+//      one K3 call scatters both (fields/hash_block.py,
 //      hash_block_grad_pass): B's samples and the edge samples are two
-//      segments of one launch into one zero-filled gradient.
+//      segments of one call into one gradient.
 //
 // Index math (both kernels), exactly as hash_block.py:106-121:
 //   x = p*scale + bias (per axis), f = floor(x), b = f // 3, c = f - 3b,
@@ -20,51 +20,79 @@
 // so a corner's two channels are 8 contiguous bytes and a dz-pair of
 // corners 16 bytes, 16-byte aligned when cz is even.
 //
-// Layout of the work (both kernels). A block takes a tile of 32
-// consecutive samples and a group of G consecutive levels; warp w works
-// level G*group + w over the tile, one sample a lane, so a warp's lanes are
-// neighbours along a ray at one level. The grid runs the level groups one
-// after another (block = group * tiles + tile), so only G levels' rows are
-// in flight: 8.4 MB a level at 2^19, where all 16 levels (134 MB) do not
-// fit the 50 MB L2. K2 takes G = 4 (33.5 MB; a sample's 4 levels are 8
-// floats, one 32-byte sector of its output row, written whole). K3 takes
-// G = 2 (16.8 MB): on the card it was 13% faster than G = 4 and 3-10%
-// faster than G = 1 (chip_smoke.py's K3 at the uniform shape, H100 SXM);
-// all 16 levels in one block was 1.7x slower than G = 4.
+// K2. A block takes a tile of 32 consecutive samples and a group of G = 4
+// consecutive levels; warp w works level 4*group + w over the tile, one
+// sample a lane, so a warp's lanes are neighbours along a ray at one
+// level. The grid runs the level groups one after another (block = group *
+// tiles + tile), so only 4 levels' rows are in flight: 8.4 MB a level at
+// 2^19, where all 16 levels (134 MB) do not fit the 50 MB L2, and a
+// sample's 4 levels are 8 floats, one 32-byte sector of its output row,
+// written whole. Bound: the bytes it must move, points and volumes (16 B a
+// sample) and the touched rows (512 B each) read once, the output (128 B a
+// sample) written once: 187 MB at chip_smoke's uniform shape (n 393,216,
+// 255,537 rows), 0.056 ms at 3.35 TB/s; 148 MB at the slice's A (cap1
+// 327,680, 197,210 rows), 0.044 ms. An earlier kernel (one thread a
+// (sample, level), a warp = 2 samples x 16 levels) took 0.476 ms at the
+// uniform shape: the table did not fit L2, so rows were fetched from
+// memory again and again. Each lane reads a dz-pair as one float4 where aligned (else
+// two float2), sums the 8 corners in the order dx, dy, dz (bit for bit the
+// plain version), and the tile's [32, 8] output is staged in shared memory
+// and written 16 bytes a thread.
 //
-// K2. Bound: the bytes it must move, points and volumes (16 B a sample)
-// and the touched rows (512 B each) read once, the output (128 B a sample)
-// written once: 187 MB at chip_smoke's uniform shape (n 393,216, 255,537
-// rows), 0.056 ms at 3.35 TB/s; 148 MB at the slice's A (cap1 327,680,
-// 197,210 rows), 0.044 ms. PR 2's kernel (one thread a (sample, level), a
-// warp = 2 samples x 16 levels) took 0.476 ms at the uniform shape: the
-// table did not fit L2, so rows were fetched from memory again and again.
-// Each lane reads a dz-pair as one float4 where aligned (else two float2),
-// sums the 8 corners in the order dx, dy, dz (bit for bit the plain
-// version), and the tile's [32, 8] output is staged in shared memory and
-// written 16 bytes a thread.
+// K3. The dense [16, nb, 128] gradient, each row stored exactly once (rows
+// no sample touches as zeros: the caller does not zero-fill it), its sums
+// taken in an order that the inputs alone fix, so every run gives the same
+// bits. No float atomic: the only atomics are the histograms' integer
+// counts in shared memory, and a count does not depend on the order of its
+// additions.
 //
-// K3. Bound: g (128 B a sample), points and volumes (16 B) read once and
-// the output, the dense [16, nb, 128] gradient (134 MB at 2^19, zero-filled
-// by the wrapper), written once: 191 MB / 0.057 ms at the uniform shape;
-// 174 MB / 0.052 ms at the slice's B + edges (278,528 samples). PR 2's kernel took 1.886 ms there and 4.946 ms at the slice (two
-// launches plus the add): 16 scalar atomicAdds a (sample, level), piling
-// onto a few addresses where samples share a cell. Here:
-//  - lanes are keyed by (row, cell) and grouped with __match_any_sync; a
-//    group's 16 weighted values are summed through shared memory by its
-//    lowest lane, which alone issues the group's atomics (at fine levels
-//    groups are single lanes, and the cost is the one match);
-//  - a dz-pair of corners is one float4 atomicAdd when 16-byte aligned
-//    (cz even), else two float2 (a corner's two channels): 4 to 8 atomic
-//    instructions a (sample, level) instead of 16; an all-zero vector
-//    (g = 0 on padding rows) is not issued;
-//  - the level groups keep the atomics' rows in L2.
-// The merge costs max(m, 16) shared-memory steps for a group of m lanes
-// (each lane sums the values of index rank, rank + m, ... over the group),
-// not 16 m: at the slice, before zero-gradient lanes were dropped and the
-// sum spread over the lanes, merging made K3 slower than no merging.
-// Atomics sum in no fixed order, so K3 agrees with its plain version to
-// rounding (chip_smoke.py holds it to 1e-5 of the largest entry).
+// The order. Per level, the active (sample, level) pairs (g != 0 at that
+// level: the grad pass's padding rows drop out) are listed by row and,
+// within a row, in sample order: segment 0's samples, then segment 1's.
+// The list is cut into windows of kWindow = 64 consecutive positions. An
+// entry of row r is ((+0 + P_a) + P_a+1) + ... + P_b over the windows a..b
+// that r's run of the list meets, in window order, where P_w adds r's
+// entries inside window w to +0 one at a time in list order; an entry adds
+// g_ch * ((wx * wy) * wz) to each of its 8 corners' channel ch. An entry
+// that no active pair touches is +0.0. Where a window cuts a row depends
+// on the other rows' counts, which the inputs fix; nothing depends on the
+// grid, the tiles or the scheduling. hash_block_bwd_plain
+// (fields/hash_block.py) sums in this order: K3 is bit for bit its plain
+// version on the card, NaN and inf included.
+//
+// The launches, queued by one C call after a memset of the rows' states
+// (every size from n and nb; no count is read back, so the call can be
+// captured in a CUDA graph):
+//  1. keys: a block of 16 warps (a level each) over 64 samples locates
+//     each pair (the rounding above) and writes its row, or kInactive, to
+//     keys [16, n];
+//  2. a counting sort of each level's keys by row, stable, in two passes
+//     of 8 bits (low, then high: nb <= 65,536), each a histogram launch (a
+//     block a (sort tile of 4,096 records, level): its digit counts), a
+//     scan launch (a warp a (level, digit): its counts over the tiles, and
+//     its total) and a scatter launch (a block a (tile, level): a warp
+//     ranks its 512 records in order, each one's peers from 9 ballots, the
+//     8 warps' counts are scanned per digit, the level's digits' totals too (the
+//     first pass's tile 0 writes the level's active count), the tile is
+//     staged in shared memory in digit order and written out so, a
+//     digit's records to consecutive positions);
+//  3. reduce: a warp a window: each lane locates 2 of its entries (every
+//     load issued first) and stages, for each of the 8 lanes an entry
+//     meets, the float4 that lane adds (9 float4s an entry: no bank
+//     conflict); then the warp walks the window in order, a run at a time
+//     (the runs' starts from ballots), lane k adding into the row's floats
+//     4k..4k+3 with no branch an entry. A run that the
+//     window holds whole is stored to the gradient; a run cut by the
+//     window's start (slot 0) or only by its end (slot 1) goes to the
+//     window's partial slots, and the row's state, first and last window
+//     are noted (plain stores: one window writes each);
+//  4. finish: a warp a 32 rows: a row with no pair is stored as zeros, a
+//     row cut by windows as its slots summed in window order.
+// Bound: g (128 B a sample), points and volumes (16 B) read once and the
+// dense gradient (134 MB at 2^19) written once: 191 MB / 0.057 ms at the
+// uniform shape; 174 MB / 0.052 ms at the slice's B + edges (278,528
+// samples). The keys, the two passes' records and the sorted list add
+// ~4 x 4 B written and read a pair (PERF.md §6 has the times).
 //
 // 64-bit offsets throughout; each entry point returns cudaGetLastError().
 
@@ -76,8 +104,6 @@ namespace {
 constexpr int kLevels = 16;
 constexpr int kLanes = 128;
 constexpr int kTile = 32;        // samples a block, one a lane
-constexpr int kValStride = 20;   // a lane's 16 staged values, padded: float4
-                                 // accesses of 8 lanes hit distinct banks
 
 // A block's share of the levels: G consecutive levels, one warp each.
 template <int G>
@@ -91,9 +117,8 @@ struct LevelGroup {
                                                   // conflicts at most
   static_assert(kLevels % G == 0, "G levels: 1, 2, 4, 8 or 16");
 };
-// Level group widths (see the notes at the top).
+// K2's level group width (see the notes at the top).
 constexpr int kFwdGroup = 4;
-constexpr int kBwdGroup = 2;
 
 struct Corner {
   long long row;  // offset of the level's row in floats
@@ -111,24 +136,22 @@ __device__ __forceinline__ float tent(float lane, float t) {
   return fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(lane, t))));
 }
 
-__device__ __forceinline__ void locate(const float* p, int vi,
-                                       const int* __restrict__ prim,
-                                       const float* __restrict__ bias,
-                                       const float* __restrict__ scales, int l,
-                                       int nv, int nb, Corner* c) {
-  const float scale = scales[l];
-  const long long pb = ((long long)l * nv + vi) * 3;
+// The index math on loaded values: p the point, pr and bi the level's
+// primes and bias of its volume.
+__device__ __forceinline__ void locate_at(const float* p, const int* pr,
+                                          const float* bi, float scale, int l,
+                                          int nb, Corner* c) {
   uint32_t h = 0;
   int cs[3];
   float ts[3];
   for (int ax = 0; ax < 3; ++ax) {
-    const float x = __fadd_rn(__fmul_rn(p[ax], scale), bias[pb + ax]);
+    const float x = __fadd_rn(__fmul_rn(p[ax], scale), bi[ax]);
     const float f = floorf(x);
     const int fi = (int)f;
     const int b = floor_div3(fi);
     cs[ax] = fi - 3 * b;
     ts[ax] = __fadd_rn((float)cs[ax], __fsub_rn(x, f));
-    h ^= (uint32_t)b * (uint32_t)prim[pb + ax];
+    h ^= (uint32_t)b * (uint32_t)pr[ax];
   }
   c->row = ((long long)l * nb + (long long)(h & (uint32_t)(nb - 1))) * kLanes;
   c->cx = cs[0];
@@ -139,6 +162,17 @@ __device__ __forceinline__ void locate(const float* p, int vi,
     c->wy[d] = tent((float)(cs[1] + d), ts[1]);
     c->wz[d] = tent((float)(cs[2] + d), ts[2]);
   }
+}
+
+__device__ __forceinline__ void locate(const float* p, int vi,
+                                       const int* __restrict__ prim,
+                                       const float* __restrict__ bias,
+                                       const float* __restrict__ scales, int l,
+                                       int nv, int nb, Corner* c) {
+  const long long pb = ((long long)l * nv + vi) * 3;
+  const int pr[3] = {prim[pb], prim[pb + 1], prim[pb + 2]};
+  const float bi[3] = {bias[pb], bias[pb + 1], bias[pb + 2]};
+  locate_at(p, pr, bi, scales[l], l, nb, c);
 }
 
 // Offset in the row of the dz-pair (dx, dy): 4 floats, corner dz=0's two
@@ -215,124 +249,514 @@ hash_block_fwd_kernel(const float* __restrict__ feat,
   }
 }
 
-// One run of samples scattered by a K3 launch.
-struct Segment {
-  const float* g;    // [n, 32]
-  const float* pts;  // [n, 3]
-  const int* vol;    // [n]
-  long long n, tiles;
+// ---------------------------------------------------------------- K3
+
+// The samples of one K3 call: segment 0 then segment 1 (the grad pass's B,
+// then its edge samples), indexed 0 .. n-1 in that order.
+struct Samples {
+  const float* g0;    // [n0, 32]
+  const float* pts0;  // [n0, 3]
+  const int* vol0;    // [n0]
+  const float* g1;
+  const float* pts1;
+  const int* vol1;
+  long long n0, n;
 };
 
-__device__ __forceinline__ bool any_nonzero(float4 a) {
-  return a.x != 0.0f || a.y != 0.0f || a.z != 0.0f || a.w != 0.0f;
+// Sample i's rows of g, pts and vol.
+__device__ __forceinline__ void sample_at(const Samples& s, long long i,
+                                          const float** g, const float** p,
+                                          int* vol) {
+  if (i < s.n0) {
+    *g = s.g0 + i * (2 * kLevels);
+    *p = s.pts0 + i * 3;
+    *vol = s.vol0[i];
+  } else {
+    i -= s.n0;
+    *g = s.g1 + i * (2 * kLevels);
+    *p = s.pts1 + i * 3;
+    *vol = s.vol1[i];
+  }
 }
 
-template <int G>
-__global__ void __launch_bounds__(LevelGroup<G>::kThreads)
-hash_block_bwd_kernel(Segment s0, Segment s1, const int* __restrict__ prim,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ scales,
-                      float* __restrict__ d_feat, int nv, int nb) {
-  using LG = LevelGroup<G>;
-  __shared__ float spts[kTile * 3];
-  __shared__ int svol[kTile];
-  __shared__ __align__(16) float sg[kTile * LG::kRowStride];
-  __shared__ __align__(16) float sval[G][32][kValStride];
-  const long long tiles = s0.tiles + s1.tiles;
-  const int group = (int)(blockIdx.x / tiles);
-  const long long tile = blockIdx.x % tiles;
-  const bool first = tile < s0.tiles;
-  const float* g = first ? s0.g : s1.g;
-  const long long base = (first ? tile : tile - s0.tiles) * kTile;
-  const int cnt = (int)min((long long)kTile, (first ? s0.n : s1.n) - base);
-  load_points(first ? s0.pts : s1.pts, first ? s0.vol : s1.vol, base, cnt,
-              spts, svol);
-  // each sample's gradient floats of this level group, a level's two a
-  // thread
-  if (threadIdx.x < cnt * G) {
-    const int i = threadIdx.x / G, j = threadIdx.x % G;
-    reinterpret_cast<float2*>(sg + i * LG::kRowStride)[j] =
-        reinterpret_cast<const float2*>(g + (base + i) * (2 * kLevels) +
-                                        group * LG::kFloats)[j];
-  }
-  __syncthreads();
+constexpr unsigned kInactive = 0xffffffffu;  // a pair with g = 0: no key
+constexpr int kDigitBits = 8;                // two passes: rows < 2^16
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kSortTile = 4096;              // records a scatter block
+constexpr int kScatterWarps = 8;             // 512 records a warp
+constexpr int kRounds = kSortTile / (32 * kScatterWarps);
+constexpr int kKeySamples = 64;              // samples a keys block
+constexpr int kScanWarps = 8;                // (level, digit) pairs a scan block
+constexpr int kWindow = 64;                  // positions a window: the order
+constexpr int kReduceWarps = 4;              // windows a reduce block
+constexpr int kFinishWarps = 8;              // 32 rows a warp
+static_assert(kDigits == kScatterWarps * 32, "a scatter thread a digit");
+static_assert(kWindow % 32 == 0, "whole rounds of 32 lanes");
+constexpr int kPerLane = kWindow / 32;       // a reduce lane's entries
 
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  // a lane with g = 0 (the grad pass's padding rows) adds nothing
-  bool active = false;
-  float2 gl;
-  if (lane < cnt) {
-    gl = *reinterpret_cast<const float2*>(sg + lane * LG::kRowStride + 2 * w);
-    active = gl.x != 0.0f || gl.y != 0.0f;
+// K3 scratch, one buffer cut into these pieces (entries of 4 bytes).
+struct Scratch {
+  int* state;       // [16, nb] 0: no pair, 1: stored whole, 2: cut by windows
+                    // (zeroed by the call)
+  int* first;       // [16, nb] a cut row's first window
+  int* last;        // [16, nb] a cut row's last window
+  int* hist1;       // [16, 256, tiles] pass 1's histogram
+  int* hist2;       // [16, 256, tiles] pass 2's histogram
+  int* totals;      // [16, 256] a pass's records of each digit
+  unsigned* keys;   // [16, n] rows of pass 1's input, then pass 2's output
+  unsigned* k1;     // [16, n] pass 1's output
+  int* i1;          // [16, n] its sample indices
+  int* idx;         // [16, n] the sorted list's sample indices
+  int* active;      // [16] entries a level
+  float* part;      // [16, windows, 2, 128] partial runs
+};
+
+// entries of 4 bytes, rounded up to whole 256-byte pieces
+long long up256(long long entries) { return (entries + 63) / 64 * 64; }
+
+// The pieces of the scratch buffer at ``base`` (nullptr: only the size);
+// returns its size in bytes. The zeroed piece (state) comes first.
+long long scratch_layout(void* base, long long n, int nb, Scratch* s) {
+  const long long tiles = (n + kSortTile - 1) / kSortTile;
+  const long long windows = (n + kWindow - 1) / kWindow;
+  const long long rows = kLevels * (long long)nb;
+  const long long sizes[] = {up256(rows), up256(rows), up256(rows),
+                             up256(kLevels * kDigits * tiles),
+                             up256(kLevels * kDigits * tiles), up256(kLevels * kDigits),
+                             up256(kLevels * n), up256(kLevels * n),
+                             up256(kLevels * n), up256(kLevels * n), up256(kLevels),
+                             up256(kLevels * windows * 2 * kLanes)};
+  long long at = 0, off[12];
+  for (int k = 0; k < 12; ++k) {
+    off[k] = at;
+    at += sizes[k];
   }
-  Corner c;
-  float v[16];  // pair (dx, dy) = v[4*(2dx+dy) .. +3], as the row holds it
-  unsigned long long key = ~0ull;  // never a real (row, cell) key
-  if (active) {
-    locate(spts + lane * 3, svol[lane], prim, bias, scales, group * G + w, nv,
-           nb, &c);
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx)
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-        for (int dz = 0; dz < 2; ++dz) {
-          const float wt = __fmul_rn(__fmul_rn(c.wx[dx], c.wy[dy]), c.wz[dz]);
-          v[4 * (2 * dx + dy) + 2 * dz] = __fmul_rn(gl.x, wt);
-          v[4 * (2 * dx + dy) + 2 * dz + 1] = __fmul_rn(gl.y, wt);
-        }
-    // a row offset is a multiple of 128: the cell fits in its low bits
-    key = (unsigned long long)c.row | (unsigned long long)(c.cx * 16 + c.cy * 4 + c.cz);
+  if (base && s) {
+    int* b = static_cast<int*>(base);
+    s->state = b + off[0];
+    s->first = b + off[1];
+    s->last = b + off[2];
+    s->hist1 = b + off[3];
+    s->hist2 = b + off[4];
+    s->totals = b + off[5];
+    s->keys = reinterpret_cast<unsigned*>(b + off[6]);
+    s->k1 = reinterpret_cast<unsigned*>(b + off[7]);
+    s->i1 = b + off[8];
+    s->idx = b + off[9];
+    s->active = b + off[10];
+    s->part = reinterpret_cast<float*>(b + off[11]);
   }
-  // lanes on one (row, cell) add into its lowest lane's values: value k is
-  // summed over the group's lanes, in lane order, by the lane of rank
-  // k mod (group size), so a group of m lanes takes max(m, 16) steps
-  const unsigned grp = __match_any_sync(0xffffffffu, key);
-  const int m = __popc(grp), leader = __ffs(grp) - 1;
-  const bool merge = active && m > 1;
-  float* mine = sval[w][lane];
-  if (merge) {
+  return at * 4;
+}
+
+// 1. keys: warp w is level w, a lane a sample, 2 samples a lane, every
+// load issued before the arithmetic.
+__global__ void __launch_bounds__(32 * kLevels)
+k3_keys_kernel(Samples s, const int* __restrict__ prim,
+               const float* __restrict__ bias, const float* __restrict__ scales,
+               unsigned* __restrict__ keys, int nv, int nb) {
+  constexpr int kPer = kKeySamples / 32;
+  const int lane = threadIdx.x & 31, l = threadIdx.x >> 5;
+  const long long base = (long long)blockIdx.x * kKeySamples;
+  float2 gl[kPer];
+  float pt[kPer][3], bi[kPer][3];
+  int pr[kPer][3];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      reinterpret_cast<float4*>(mine)[q] =
-          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  }
-  __syncwarp();
-  if (merge) {
-    for (int k = __popc(grp & ((1u << lane) - 1)); k < 16; k += m) {
-      float sum = 0.0f;
-      for (unsigned b = grp; b; b &= b - 1) sum = __fadd_rn(sum, sval[w][__ffs(b) - 1][k]);
-      sval[w][leader][k] = sum;   // only this lane reads or writes index k
-    }
-  }
-  __syncwarp();
-  if (!active || lane != leader) return;
-  if (m > 1) {
+  for (int r = 0; r < kPer; ++r) {
+    const long long i = base + r * 32 + lane;
+    if (i < s.n) {
+      const float* g;
+      const float* p;
+      int vi;
+      sample_at(s, i, &g, &p, &vi);
+      gl[r] = *reinterpret_cast<const float2*>(g + 2 * l);
+      const long long pb = ((long long)l * nv + vi) * 3;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 a = reinterpret_cast<const float4*>(mine)[q];
-      v[4 * q] = a.x;
-      v[4 * q + 1] = a.y;
-      v[4 * q + 2] = a.z;
-      v[4 * q + 3] = a.w;
-    }
-  }
-  float* row = d_feat + c.row;
-#pragma unroll
-  for (int dx = 0; dx < 2; ++dx)
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const int q = 2 * dx + dy;
-      const float4 a = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-      if (!any_nonzero(a)) continue;
-      float* p = row + pair_lane(c, dx, dy);
-      if ((c.cz & 1) == 0) {
-        atomicAdd(reinterpret_cast<float4*>(p), a);
-      } else {
-        atomicAdd(reinterpret_cast<float2*>(p), make_float2(a.x, a.y));
-        atomicAdd(reinterpret_cast<float2*>(p + 2), make_float2(a.z, a.w));
+      for (int ax = 0; ax < 3; ++ax) {
+        pt[r][ax] = p[ax];
+        pr[r][ax] = prim[pb + ax];
+        bi[r][ax] = bias[pb + ax];
       }
     }
+  }
+  const float scale = scales[l];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const long long i = base + r * 32 + lane;
+    if (i < s.n) {
+      unsigned key = kInactive;
+      if (gl[r].x != 0.0f || gl[r].y != 0.0f) {
+        Corner c;
+        locate_at(pt[r], pr[r], bi[r], scale, l, nb, &c);
+        key = (unsigned)(c.row / kLanes - (long long)l * nb);
+      }
+      keys[(long long)l * s.n + i] = key;
+    }
+  }
+}
+
+// 2. scan: a warp a (level, digit): the digit's counts over the tiles,
+// exclusive, in place, and its total.
+__global__ void __launch_bounds__(32 * kScanWarps)
+k3_scan_kernel(int* __restrict__ hist, long long tiles, int* __restrict__ totals) {
+  const int lane = threadIdx.x & 31;
+  const long long ld = (long long)blockIdx.x * kScanWarps + (threadIdx.x >> 5);
+  if (ld >= kLevels * kDigits) return;
+  int* h = hist + ld * tiles;
+  int carry = 0;
+  for (long long t0 = 0; t0 < tiles; t0 += 32) {
+    const long long t = t0 + lane;
+    const int v = t < tiles ? h[t] : 0;
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (t < tiles) h[t] = carry + incl - v;
+    carry += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  if (lane == 0) totals[ld] = carry;
+}
+
+// Exclusive scan of v over the 256 threads of a block (thread order);
+// ``wsum`` is kScatterWarps ints of shared memory. Returns the total too.
+__device__ __forceinline__ int block_scan256(int v, int* wsum, int* total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) wsum[w] = incl;
+  __syncthreads();
+  int excl = incl - v, all = 0;
+#pragma unroll
+  for (int k = 0; k < kScatterWarps; ++k) {
+    if (k < w) excl += wsum[k];
+    all += wsum[k];
+  }
+  __syncthreads();
+  *total = all;
+  return excl;
+}
+
+// 3. scatter: one stable counting sort pass over sort tile t of level l.
+// Records are kin[l][p] for p < end (end: n, or the level's active count),
+// with sample index iin[l][p] (or p itself when iin is null); the digit is
+// (key >> shift) & 255; ``offs`` holds each (digit, tile)'s records in the
+// earlier tiles, ``totals`` each digit's in the level (the scan's). Warp w
+// ranks records w*512 .. +512 of the tile in order (a record's peers from
+// 9 ballots: __match_any_sync slows with the number of distinct digits);
+// the tile is staged in
+// shared memory in digit order and written out in that order, a digit's
+// records to consecutive positions. With ``active_out``, block (l, 0)
+// writes the level's record count.
+__global__ void __launch_bounds__(32 * kScatterWarps)
+k3_scatter_kernel(const unsigned* __restrict__ kin, const int* __restrict__ iin,
+                  const int* __restrict__ active, long long n, long long tiles,
+                  int shift, const int* __restrict__ offs,
+                  const int* __restrict__ totals, unsigned* __restrict__ kout,
+                  int* __restrict__ iout, int* __restrict__ active_out) {
+  __shared__ int wcnt[kScatterWarps][kDigits];
+  __shared__ int gbase[kDigits];
+  __shared__ int wsum[kScatterWarps];
+  __shared__ unsigned skey[kSortTile];
+  __shared__ int sidx[kSortTile];
+  const int l = (int)(blockIdx.x / tiles);
+  const long long t = blockIdx.x % tiles;
+  const long long end = active ? active[l] : n;
+  const long long t0 = t * kSortTile;
+  if (t0 >= end) return;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int k = threadIdx.x; k < kScatterWarps * kDigits; k += blockDim.x)
+    (&wcnt[0][0])[k] = 0;
+  const long long lb = (long long)l * n;
+  const long long wbase = t0 + (long long)w * 32 * kRounds;
+  unsigned key[kRounds];
+  int rank[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const long long p = wbase + r * 32 + lane;
+    key[r] = p < end ? kin[lb + p] : kInactive;
+  }
+  __syncthreads();
+  // each record's rank among the warp's earlier records of its digit
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int d = key[r] == kInactive ? kDigits : (int)((key[r] >> shift) & (kDigits - 1));
+    // the lanes of the same digit (kDigits: inactive), from one ballot a bit
+    unsigned peers = 0xffffffffu;
+#pragma unroll
+    for (int b = 0; b <= kDigitBits; ++b) {
+      const unsigned bal = __ballot_sync(0xffffffffu, (d >> b) & 1);
+      peers &= ((d >> b) & 1) ? bal : ~bal;
+    }
+    const int leader = __ffs(peers) - 1;
+    int before = 0;
+    if (lane == leader && d < kDigits) {
+      before = wcnt[w][d];
+      wcnt[w][d] = before + __popc(peers);
+    }
+    rank[r] = __shfl_sync(0xffffffffu, before, leader) + __popc(peers & ((1u << lane) - 1));
+    __syncwarp();
+  }
+  __syncthreads();
+  // thread d: its digit's first record in the tile (the tile's digits
+  // before it) and in the level (the level's digits before it plus the
+  // earlier tiles'), then each warp's first
+  const int d = threadIdx.x;
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < kScatterWarps; ++k) count += wcnt[k][d];
+  const int all_d = totals[(long long)l * kDigits + d];
+  int total, level_total;
+  int start = block_scan256(count, wsum, &total);
+  const int level_start = block_scan256(all_d, wsum, &level_total);
+  gbase[d] = level_start + offs[((long long)l * kDigits + d) * tiles + t] - start;
+  if (active_out && t == 0 && d == 0) active_out[l] = level_total;
+  for (int k = 0; k < kScatterWarps; ++k) {
+    const int c = wcnt[k][d];
+    wcnt[k][d] = start;
+    start += c;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r)
+    if (key[r] != kInactive) {
+      const long long p = wbase + r * 32 + lane;
+      const int at = wcnt[w][(key[r] >> shift) & (kDigits - 1)] + rank[r];
+      skey[at] = key[r];
+      sidx[at] = iin ? iin[lb + p] : (int)p;
+    }
+  __syncthreads();
+  for (int j = threadIdx.x; j < total; j += blockDim.x) {
+    const unsigned k = skey[j];
+    const long long pos = gbase[(k >> shift) & (kDigits - 1)] + j;
+    kout[lb + pos] = k;
+    iout[lb + pos] = sidx[j];
+  }
+}
+
+// A pass's histogram: tile t of level l's records (p < end: n, or the
+// level's active count), by digit; inactive keys are not counted. A
+// thread loads its 16 keys before it counts them.
+__global__ void __launch_bounds__(kDigits)
+k3_hist_kernel(const unsigned* __restrict__ kin, const int* __restrict__ active,
+               long long n, long long tiles, int shift, int* __restrict__ hist) {
+  constexpr int kPer = kSortTile / kDigits;
+  __shared__ int h[kDigits];
+  const int l = (int)(blockIdx.x / tiles);
+  const long long t = blockIdx.x % tiles;
+  const long long end = min(active ? (long long)active[l] : n, (t + 1) * kSortTile);
+  h[threadIdx.x] = 0;
+  unsigned key[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const long long p = t * kSortTile + r * kDigits + threadIdx.x;
+    key[r] = p < end ? kin[(long long)l * n + p] : kInactive;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kPer; ++r)
+    if (key[r] != kInactive) atomicAdd(h + ((key[r] >> shift) & (kDigits - 1)), 1);
+  __syncthreads();
+  hist[((long long)l * kDigits + threadIdx.x) * tiles + t] = h[threadIdx.x];
+}
+
+__device__ __forceinline__ void add4(float4& acc, float a, float b, float c, float d) {
+  acc.x = __fadd_rn(acc.x, a);
+  acc.y = __fadd_rn(acc.y, b);
+  acc.z = __fadd_rn(acc.z, c);
+  acc.w = __fadd_rn(acc.w, d);
+}
+
+// 4. reduce: warp w takes window win of level l (positions
+// win*kWindow .. +kWindow of the level's list). Lane k of the warp holds
+// the row's floats 4k .. 4k+3: corner (lx, ly) = (k >> 3, (k >> 1) & 3),
+// lz 2m and 2m+1 (m = k & 1), two channels each. An entry at corner
+// (cx, cy, cz) meets lanes (cx + dx, cy + dy, m) for dx, dy, m in {0, 1};
+// step 1 stages, for each of those 8 lanes, the float4 it adds (+0.0 in
+// the floats it does not meet: adding +0.0 changes no sum, which starts
+// at +0.0 and so is never -0.0), so that step 2 branches on no corner.
+__global__ void __launch_bounds__(32 * kReduceWarps)
+k3_reduce_kernel(Samples s, const int* __restrict__ prim,
+                 const float* __restrict__ bias, const float* __restrict__ scales,
+                 const unsigned* __restrict__ krow, const int* __restrict__ sidx,
+                 const int* __restrict__ active, float* __restrict__ d_feat,
+                 float* __restrict__ part, int* __restrict__ state,
+                 int* __restrict__ first, int* __restrict__ last, long long windows,
+                 int nv, int nb) {
+  // 9 float4s an entry: 8 used, the pad puts lanes k and k + 1 on other
+  // banks when each stages its own entry
+  __shared__ __align__(16) float4 sval[kReduceWarps][kWindow][9];
+  __shared__ __align__(16) unsigned srow[kReduceWarps][kWindow];
+  __shared__ __align__(16) int sbase[kReduceWarps][kWindow];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long gw = (long long)blockIdx.x * kReduceWarps + w;
+  const int l = (int)(gw / windows);
+  const long long win = gw % windows;
+  if (l >= kLevels) return;
+  const long long count = active[l], p0 = win * kWindow;
+  if (p0 >= count) return;
+  const int cnt = (int)min((long long)kWindow, count - p0);
+  const unsigned* kr = krow + (long long)l * s.n + p0;
+  const int* si = sidx + (long long)l * s.n + p0;
+  // step 1: the lane's entries lane, lane + 32, ...; every load issued
+  // before the arithmetic
+  int idx[kPerLane], vi[kPerLane];
+  const float* gp[kPerLane];
+  const float* pp[kPerLane];
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int k = lane + 32 * j;
+    idx[j] = k < cnt ? si[k] : -1;
+    if (k < cnt) srow[w][k] = kr[k];
+  }
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j)
+    if (idx[j] >= 0) sample_at(s, idx[j], &gp[j], &pp[j], &vi[j]);
+  float pt[kPerLane][3], bi[kPerLane][3];
+  int pr[kPerLane][3];
+  float2 gl[kPerLane];
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j)
+    if (idx[j] >= 0) {
+      const long long pb = ((long long)l * nv + vi[j]) * 3;
+      gl[j] = *reinterpret_cast<const float2*>(gp[j] + 2 * l);
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        pt[j][ax] = pp[j][ax];
+        pr[j][ax] = prim[pb + ax];
+        bi[j][ax] = bias[pb + ax];
+      }
+    }
+  const float scale = scales[l];
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j)
+    if (idx[j] >= 0) {
+      const int k = lane + 32 * j;
+      Corner c;
+      locate_at(pt[j], pr[j], bi[j], scale, l, nb, &c);
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy) {
+          const float wxy = __fmul_rn(c.wx[dx], c.wy[dy]);
+          const float w0 = __fmul_rn(wxy, c.wz[0]), w1 = __fmul_rn(wxy, c.wz[1]);
+          // the pair (dx, dy): dz 0's two channels at lz cz, dz 1's at cz + 1
+          const float4 q = make_float4(__fmul_rn(gl[j].x, w0), __fmul_rn(gl[j].y, w0),
+                                       __fmul_rn(gl[j].x, w1), __fmul_rn(gl[j].y, w1));
+          const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          float4 a, b;  // what lanes m = 0 (lz 0, 1) and m = 1 (lz 2, 3) add
+          if (c.cz == 0) {
+            a = q;
+            b = z;
+          } else if (c.cz == 2) {
+            a = z;
+            b = q;
+          } else {
+            a = make_float4(0.0f, 0.0f, q.x, q.y);
+            b = make_float4(q.z, q.w, 0.0f, 0.0f);
+          }
+          sval[w][k][4 * dx + 2 * dy] = a;
+          sval[w][k][4 * dx + 2 * dy + 1] = b;
+        }
+      sbase[w][k] = c.cx * 8 + c.cy * 2;  // the lane of (cx, cy, m = 0)
+    }
+  const unsigned prev = p0 > 0 ? kr[-1] : kInactive;
+  const unsigned next = p0 + cnt < count ? kr[cnt] : kInactive;
+  __syncwarp();
+  // the runs: an entry starts one where its row differs from the entry
+  // before it (one ballot a 32 entries)
+  unsigned starts[kPerLane];
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int k = lane + 32 * j;
+    starts[j] = __ballot_sync(0xffffffffu,
+                              k < cnt && (k == 0 || srow[w][k] != srow[w][k - 1]));
+  }
+  // step 2: the runs in order, each walked with no branch an entry
+  float* dst = d_feat + (long long)l * nb * kLanes + 4 * lane;
+  float* pw = part + ((long long)l * windows + win) * 2 * kLanes + 4 * lane;
+  const long long rb = (long long)l * nb;
+  for (int k = 0; k < cnt;) {
+    int e = cnt;  // the next run's first entry
+#pragma unroll
+    for (int j = kPerLane - 1; j >= 0; --j) {
+      const int from = k + 1 - 32 * j;
+      const unsigned later = from <= 0 ? starts[j] : from >= 32 ? 0u : starts[j] & (~0u << from);
+      if (later) e = 32 * j + __ffs(later) - 1;
+    }
+    const unsigned row = srow[w][k];
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+    for (int kk = k; kk < e; ++kk) {
+      // this lane relative to the entry: 8 dx + 2 dy + m for a lane it meets
+      const int rel = lane - sbase[w][kk];
+      if ((unsigned)rel < 12u && (rel & 4) == 0) {
+        const float4 a = sval[w][kk][(rel & 3) | ((rel >> 1) & 4)];
+        add4(acc, a.x, a.y, a.z, a.w);
+      }
+    }
+    // the run k .. e-1: whole (stored; state 1), cut by the window's start
+    // (slot 0; the row's last window unless cut by its end too) or only by
+    // its end (slot 1; the row's first window; state 2)
+    const bool cut_start = k == 0 && row == prev, cut_end = e == cnt && row == next;
+    float* out = !cut_start && !cut_end ? dst + (long long)row * kLanes
+                                        : pw + (cut_start ? 0 : kLanes);
+    *reinterpret_cast<float4*>(out) = acc;
+    if (lane == 0) {
+      if (!cut_start) state[rb + row] = cut_end ? 2 : 1;
+      if (!cut_start && cut_end) first[rb + row] = (int)win;
+      if (cut_start && !cut_end) last[rb + row] = (int)win;
+    }
+    k = e;
+  }
+}
+
+// 5. finish: a warp takes 32 rows (of all levels, row-major). A row with
+// no pair (state 0) is stored as zeros; a row cut by windows (state 2) is
+// the sum, from +0 in window order, of its first window's slot 1, the
+// middle windows' slot 0 and its last window's slot 0 (16 loads in
+// flight).
+__global__ void __launch_bounds__(32 * kFinishWarps)
+k3_finish_kernel(const int* __restrict__ state, const int* __restrict__ first,
+                 const int* __restrict__ last, const float* __restrict__ part,
+                 float* __restrict__ d_feat, long long rows, long long windows, int nb) {
+  constexpr int kInFlight = 16;
+  const int lane = threadIdx.x & 31;
+  const long long r0 = ((long long)blockIdx.x * kFinishWarps + (threadIdx.x >> 5)) * 32;
+  if (r0 >= rows) return;
+  const int my_state = state[r0 + lane];
+  const int my_first = my_state == 2 ? first[r0 + lane] : 0;
+  const int my_last = my_state == 2 ? last[r0 + lane] : 0;
+  for (int j = 0; j < 32; ++j) {
+    const int st = __shfl_sync(0xffffffffu, my_state, j);
+    const long long w0 = __shfl_sync(0xffffffffu, my_first, j);
+    const long long w1 = __shfl_sync(0xffffffffu, my_last, j);
+    float4* dst = reinterpret_cast<float4*>(d_feat + (r0 + j) * kLanes) + lane;
+    if (st == 0) {
+      *dst = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    if (st == 1) continue;  // the reduce stored it
+    const long long l = (r0 + j) / nb;
+    // window wi's slot: its float4 for this lane
+    const float4* pw = reinterpret_cast<const float4*>(part + l * windows * 2 * kLanes) + lane;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (long long wi = w0; wi <= w1; wi += kInFlight) {
+      float4 a[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (wi + u <= w1) a[u] = pw[((wi + u) * 2 + (wi + u == w0 ? 1 : 0)) * (kLanes / 4)];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (wi + u <= w1) add4(acc, a[u].x, a[u].y, a[u].z, a[u].w);
+    }
+    *dst = acc;
+  }
 }
 
 long long tiles_of(long long n) { return (n + kTile - 1) / kTile; }
@@ -354,23 +778,74 @@ extern "C" int f2_hash_block_fwd(const void* feat, const void* prim,
   return (int)cudaGetLastError();
 }
 
-// Two segments of samples (n1 may be 0) into one gradient d_feat.
+// Bytes of the scratch buffer that f2_hash_block_bwd takes for n samples.
+extern "C" long long f2_hash_block_bwd_scratch_bytes(long long n, int nb) {
+  return scratch_layout(nullptr, n, nb, nullptr);
+}
+
+#define K3_LAUNCHED()                           \
+  do {                                          \
+    const cudaError_t e = cudaGetLastError();   \
+    if (e != cudaSuccess) return (int)e;        \
+  } while (0)
+
+// Two segments of samples (n1 may be 0) into one gradient d_feat, every
+// row of it stored once; ``scratch`` holds f2_hash_block_bwd_scratch_bytes.
 extern "C" int f2_hash_block_bwd(const void* g0, const void* pts0,
                                  const void* vol0, int n0, const void* g1,
                                  const void* pts1, const void* vol1, int n1,
                                  const void* prim, const void* bias,
-                                 const void* scales, void* d_feat, int nv,
-                                 int nb, void* stream) {
-  const Segment s0{(const float*)g0, (const float*)pts0, (const int*)vol0,
-                   n0, tiles_of(n0 > 0 ? n0 : 0)};
-  const Segment s1{(const float*)g1, (const float*)pts1, (const int*)vol1,
-                   n1, tiles_of(n1 > 0 ? n1 : 0)};
-  const long long tiles = s0.tiles + s1.tiles;
-  if (tiles == 0) return 0;
-  using LG = LevelGroup<kBwdGroup>;
-  hash_block_bwd_kernel<kBwdGroup><<<(unsigned)(tiles * LG::kCount),
-                                     LG::kThreads, 0, (cudaStream_t)stream>>>(
-      s0, s1, (const int*)prim, (const float*)bias, (const float*)scales,
-      (float*)d_feat, nv, nb);
-  return (int)cudaGetLastError();
+                                 const void* scales, void* d_feat,
+                                 void* scratch, int nv, int nb, void* stream) {
+  const long long m0 = n0 > 0 ? n0 : 0, n = m0 + (n1 > 0 ? n1 : 0);
+  if (n == 0) return 0;
+  if (nb > (1 << (2 * kDigitBits))) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Samples s{(const float*)g0, (const float*)pts0, (const int*)vol0,
+                  (const float*)g1, (const float*)pts1, (const int*)vol1,
+                  m0, n};
+  const int* pr = (const int*)prim;
+  const float* bi = (const float*)bias;
+  const float* sc = (const float*)scales;
+  float* d = (float*)d_feat;
+  Scratch x;
+  scratch_layout(scratch, n, nb, &x);
+  const long long tiles = (n + kSortTile - 1) / kSortTile;
+  const long long windows = (n + kWindow - 1) / kWindow;
+  const long long rows = kLevels * (long long)nb;
+  const cudaError_t z = cudaMemsetAsync(x.state, 0, 4 * rows, st);
+  if (z != cudaSuccess) return (int)z;
+  const unsigned sort_blocks = (unsigned)(tiles * kLevels);
+  k3_keys_kernel<<<(unsigned)((n + kKeySamples - 1) / kKeySamples), 32 * kLevels, 0, st>>>(
+      s, pr, bi, sc, x.keys, nv, nb);
+  K3_LAUNCHED();
+  // keyed: sort each level's pairs by row, low digit then high digit
+  const unsigned scan_blocks = kLevels * kDigits / kScanWarps;
+  k3_hist_kernel<<<sort_blocks, kDigits, 0, st>>>(x.keys, nullptr, n, tiles, 0, x.hist1);
+  K3_LAUNCHED();
+  k3_scan_kernel<<<scan_blocks, 32 * kScanWarps, 0, st>>>(x.hist1, tiles, x.totals);
+  K3_LAUNCHED();
+  k3_scatter_kernel<<<sort_blocks, 32 * kScatterWarps, 0, st>>>(
+      x.keys, nullptr, nullptr, n, tiles, 0, x.hist1, x.totals, x.k1, x.i1, x.active);
+  K3_LAUNCHED();
+  k3_hist_kernel<<<sort_blocks, kDigits, 0, st>>>(x.k1, x.active, n, tiles, kDigitBits,
+                                                  x.hist2);
+  K3_LAUNCHED();
+  k3_scan_kernel<<<scan_blocks, 32 * kScanWarps, 0, st>>>(x.hist2, tiles, x.totals);
+  K3_LAUNCHED();
+  k3_scatter_kernel<<<sort_blocks, 32 * kScatterWarps, 0, st>>>(
+      x.k1, x.i1, x.active, n, tiles, kDigitBits, x.hist2, x.totals, x.keys, x.idx,
+      nullptr);
+  K3_LAUNCHED();
+  // bucketed: the windows, then the rows
+  k3_reduce_kernel<<<(unsigned)((kLevels * windows + kReduceWarps - 1) / kReduceWarps),
+                     32 * kReduceWarps, 0, st>>>(s, pr, bi, sc, x.keys, x.idx, x.active, d,
+                                                 x.part, x.state, x.first, x.last, windows,
+                                                 nv, nb);
+  K3_LAUNCHED();
+  k3_finish_kernel<<<(unsigned)((rows / 32 + kFinishWarps - 1) / kFinishWarps),
+                     32 * kFinishWarps, 0, st>>>(x.state, x.first, x.last, x.part, d, rows,
+                                                 windows, nb);
+  K3_LAUNCHED();
+  return 0;
 }

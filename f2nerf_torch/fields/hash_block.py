@@ -18,8 +18,8 @@ kernels in csrc/hash_block.cu or raise.
 
 The training step's grad pass has two table-gradient sources, B's cached
 encodings and the edge samples' encode; ``hash_block_grad_pass`` makes
-them one autograd node whose backward is one K3 launch over both, into one
-zero-filled gradient.
+them one autograd node whose backward is one K3 call over both, into one
+gradient that K3 stores whole.
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ BLOCK_CELLS = 3
 BLOCK_LAT = 4
 LANES = BLOCK_LAT ** 3 * N_CHANNELS  # = 128
 _M32 = 0xFFFFFFFF
+K3_WINDOW = 64   # positions a K3 window (csrc/hash_block.cu kWindow): part of its order
+K3_MAX_ROWS = 1 << 16   # rows a level K3's two 8-bit sort passes order
 
 
 def n_blocks(log2_table_size: int) -> int:
@@ -123,23 +125,79 @@ def _segments(x) -> list:
     return list(x) if isinstance(x, (tuple, list)) else [x]
 
 
+def k3_list(g, prim, bias, pts, vol, nb: int, level: int):
+    """One level's list in K3's order: the active samples (g != 0 at this
+    level) sorted by row, in sample order within a row. Returns (rows,
+    sample indices, per-axis (c, (w0, w1)) of those samples)."""
+    row, axes = _locate(pts, prim[level, vol], bias[level, vol],
+                        float(level_scales()[level]), nb)
+    gl = g[:, 2 * level:2 * level + 2]
+    act = ((gl[:, 0] != 0) | (gl[:, 1] != 0)).nonzero()[:, 0]
+    order = act[torch.sort(row[act], stable=True).indices]
+    return row[order], order, [(c[order], [w[order] for w in ws]) for c, ws in axes]
+
+
+def _runs(key):
+    """(run id of each entry, each run's first entry) of a sorted key."""
+    new = torch.ones(key.shape, dtype=torch.bool, device=key.device)
+    new[1:] = key[1:] != key[:-1]
+    return torch.cumsum(new, 0) - 1, new.nonzero()[:, 0]
+
+
+def _in_order(rank):
+    """Index sets of the entries of rank 0, 1, ... (in entry order)."""
+    order = torch.argsort(rank, stable=True)
+    return torch.split(order, torch.bincount(rank).tolist())
+
+
+def k3_entries(g, prim, bias, pts, vol, nb: int, window: int = K3_WINDOW):
+    """Every level's list (``k3_list``) in level order, as K3 sums it: per
+    entry an int64 key (level row << 32 | window), its 16 lanes and the 16
+    values g_ch * ((wx * wy) * wz) that it adds there."""
+    dev = g.device
+    keys, lanes, vals = [], [], []
+    for l in range(N_LEVELS):
+        row, idx, axes = k3_list(g, prim, bias, pts, vol, nb, l)
+        pos = torch.arange(row.numel(), device=dev)
+        keys.append(((l * nb + row) << 32) | (pos // window))
+        lane, val = [], []
+        for ln, w in _corners(axes):
+            for ch in range(N_CHANNELS):
+                lane.append(ln + ch)
+                val.append(g[idx, N_CHANNELS * l + ch] * w)
+        lanes.append(torch.stack(lane, 1))
+        vals.append(torch.stack(val, 1))
+    return torch.cat(keys), torch.cat(lanes), torch.cat(vals)
+
+
 def hash_block_bwd_plain(g, prim, bias, pts, vol, log2_table_size: int,
-                         table_shape):
-    """Plain PyTorch version of K3: table gradient [N_LEVELS, nb, 128].
-    ``g``, ``pts``, ``vol`` may be sequences of segments, as for K3."""
+                         table_shape, window: int = K3_WINDOW):
+    """Plain PyTorch version of K3: table gradient [N_LEVELS, nb, 128],
+    summed in K3's order (csrc/hash_block.cu): per level, the active pairs
+    listed by row and within a row in sample order (``k3_list``) are cut
+    into windows of ``window`` positions; a row's entries are added to +0
+    one at a time within each window, and its windows' sums to +0 in
+    window order. ``g``, ``pts``, ``vol`` may be sequences of segments, as
+    for K3 (their concatenation, in order)."""
     g, pts = torch.cat(_segments(g)), torch.cat(_segments(pts))
     vol = torch.cat(_segments(vol)).long()
     nb = n_blocks(log2_table_size)
-    scales = level_scales()
-    d = torch.zeros(int(np.prod(table_shape)), dtype=torch.float32,
-                    device=g.device)
-    for l in range(N_LEVELS):
-        row, axes = _locate(pts, prim[l, vol], bias[l, vol], float(scales[l]), nb)
-        base = (l * nb + row) * LANES
-        g0, g1 = g[:, 2 * l], g[:, 2 * l + 1]
-        for lane, w in _corners(axes):
-            d.index_add_(0, base + lane, g0 * w)
-            d.index_add_(0, base + lane + 1, g1 * w)
+    dev = g.device
+    key, lane, val = k3_entries(g, prim, bias, pts, vol, nb, window)
+    d = torch.zeros((N_LEVELS * nb, LANES), dtype=torch.float32, device=dev)
+    if key.numel():
+        run, first = _runs(key)                  # a run: one row in one window
+        part = torch.zeros(first.numel() * LANES, dtype=torch.float32, device=dev)
+        flat = run[:, None] * LANES + lane       # each entry's 16 floats of its run
+        # the k-th entries of all runs at once: no float is added twice
+        for sel in _in_order(torch.arange(key.numel(), device=dev) - first[run]):
+            f = flat[sel].reshape(-1)
+            part[f] = part[f] + val[sel].reshape(-1)
+        part = part.reshape(-1, LANES)
+        prow = key[first] >> 32
+        prun, pfirst = _runs(prow)
+        for sel in _in_order(torch.arange(prow.numel(), device=dev) - pfirst[prun]):
+            d[prow[sel]] = d[prow[sel]] + part[sel]
     return d.reshape(table_shape)
 
 
@@ -177,11 +235,12 @@ hash_block_fwd.launches = 0
 
 
 def hash_block_bwd(g, prim, bias, pts, vol, log2_table_size: int, table_shape):
-    """K3 table-gradient scatter: [N_LEVELS, nb, 128] f32 (atomics on the
-    card, so the summation order is not fixed). ``g`` [n, 32], ``pts``
-    [n, 3] and ``vol`` [n] are one tensor each, or sequences of one or two
-    segments (the grad pass's B and edge samples) scattered by one launch
-    into one gradient."""
+    """K3 table-gradient scatter: [N_LEVELS, nb, 128] f32, summed in the
+    order that ``hash_block_bwd_plain`` states (the same bits on every
+    run). ``g`` [n, 32], ``pts`` [n, 3] and ``vol`` [n] are one tensor
+    each, or sequences of one or two segments (the grad pass's B and edge
+    samples) scattered by one call into one gradient, which K3 stores
+    whole (its rows no sample touches as zeros)."""
     gs, ps, vs = _segments(g), _segments(pts), _segments(vol)
     if ps[0].device.type == "cpu":
         return hash_block_bwd_plain(gs, prim, bias, ps, vs, log2_table_size,
@@ -194,6 +253,9 @@ def hash_block_bwd(g, prim, bias, pts, vol, log2_table_size: int, table_shape):
     nb = n_blocks(log2_table_size)
     if tuple(table_shape) != (N_LEVELS, nb, LANES):
         raise ValueError(f"hash_block_bwd: table shape {tuple(table_shape)}")
+    if nb > K3_MAX_ROWS:
+        raise ValueError(f"hash_block_bwd: {nb} rows a level; K3 sorts rows of "
+                         f"at most 16 bits (log2_table_size <= 21)")
     segs = []
     for gk, pk, vk in zip(gs, ps, vs):
         gk, pk, vk = gk.contiguous(), pk.contiguous(), vk.contiguous()
@@ -206,13 +268,17 @@ def hash_block_bwd(g, prim, bias, pts, vol, log2_table_size: int, table_shape):
     ptrs = [(gk.data_ptr(), pk.data_ptr(), vk.data_ptr(), vk.shape[0])
             for gk, pk, vk in segs] + [(None, None, None, 0)]
     dev = ps[0].device
-    d = torch.zeros(tuple(table_shape), dtype=torch.float32, device=dev)
-    if sum(p[3] for p in ptrs) == 0:
-        return d
-    code = kernels.library().f2_hash_block_bwd(
+    n = sum(p[3] for p in ptrs)
+    if n == 0:
+        return torch.zeros(tuple(table_shape), dtype=torch.float32, device=dev)
+    d = torch.empty(tuple(table_shape), dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    scratch = torch.empty((lib.f2_hash_block_bwd_scratch_bytes(n, nb),),
+                          dtype=torch.uint8, device=dev)
+    code = lib.f2_hash_block_bwd(
         *ptrs[0], *ptrs[1], prim.data_ptr(), bias.data_ptr(),
-        _scales(str(dev)).data_ptr(), d.data_ptr(), prim.shape[1], nb,
-        kernels.stream_ptr(dev))
+        _scales(str(dev)).data_ptr(), d.data_ptr(), scratch.data_ptr(),
+        prim.shape[1], nb, kernels.stream_ptr(dev))
     kernels.check(code, "hash_block_bwd")
     hash_block_bwd.launches += 1
     return d
@@ -273,8 +339,8 @@ def hash_block_grad_pass(feat_tables, prim_pool, bias_pool, points01, vol_idx,
     ``(cached_feat[src_idx], hash_block_encode(edge_points01, ...))``, where
     the cache already holds the encodings of ``points01`` (K4 and K2
     forwards). Its backward scatters both table gradients with one K3
-    launch into one gradient, where two autograd nodes would take two
-    launches, two zero-filled tables and autograd's add of them."""
+    call into one gradient, where two autograd nodes would take two
+    calls, two tables and autograd's add of them."""
     return _GradPass.apply(feat_tables, prim_pool, bias_pool, points01,
                            vol_idx, log2_table_size, cached_feat, src_idx,
                            edge_points01, edge_vol_idx)

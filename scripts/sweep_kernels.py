@@ -1,30 +1,33 @@
-"""Sweep the launch shapes and variants of K8-K14 (K14: the votes) and the
-offsets launch, and show what their time is made of, on one CUDA card.
+"""Sweep the launch shapes and variants of K3, K8-K14 (K14: the votes) and
+the offsets launch, and show what their time is made of, on one CUDA card.
 
-    python scripts/sweep_kernels.py [--kernels k8,k9,k10,k11,offsets,k12,k13,k14]
+    python scripts/sweep_kernels.py [--kernels k3,k8,k9,k10,k11,offsets,k12,k13,k14]
         [--baseline ROOT] [--out results.json]
 
-Each variant is a copy of a source in f2nerf_torch/csrc/ (traverse.cu,
-march_parallel.cu, segment.cu, warp.cu, compact.cu or occupancy.cu) with a few text
-edits, built alone with nvcc (the package's flags) into a library of its
-own under f2nerf_torch/_build/sweep/, and timed on the same inputs as the
-unedited kernel, in turns (CUDA events after ~1 ms of a busy stream,
-median). Variants that keep the kernel's function are held to the
-unedited kernel's outputs bit for bit (K10's, which add in another order,
-to the plain version within 1e-5 of each ray's sum of |x|; K12's and
-K14's to their plain versions); diagnostic ones (``diag``) change the
-arithmetic or drop work to show what that work costs, and are only timed.
-The k13 sweep times K13 (``K13_VARIANTS``: 2, 4 and 8 rows a thread, 2
-or 4 rows' loads in flight, tiles from a ticket instead of the block
-index, padding blocks of 1,024-4,096 slots; diagnostics without the
-copies, the padding, the segments, and with only the loads, scans,
-look-back and waits) and, with ``--baseline ROOT`` (an earlier tree, e.g.
-a ``git archive`` of it, whose K13 writes no segments and whose offsets
-launch writes offsets, counts and local indices), ROOT's K13 followed by
-ROOT's offsets launch, that pair with the first flags' torch ops, each
-alone, and ROOT's K13 taken apart (``EARLIER_K13_VARIANTS``: no copies,
-no padding, neither (the launch, the flags, the barrier and the sums
-over the block counts), and that without the sums), in the same turns.
+Each variant is a copy of a source in f2nerf_torch/csrc/ (hash_block.cu,
+traverse.cu, march_parallel.cu, segment.cu, warp.cu, compact.cu or
+occupancy.cu) with a few text edits, built alone with nvcc (the package's
+flags) into a library of its own under f2nerf_torch/_build/sweep/, and
+timed on the same inputs as the unedited kernel, in turns (CUDA events
+after ~1 ms of a busy stream, median). Variants that keep the kernel's
+function are held to the unedited kernel's outputs bit for bit (K10's,
+which add in another order, to the plain version within 1e-5 of each
+ray's sum of |x|; K3's, K12's and K14's to their plain versions, K3's at
+the variant's window); diagnostic ones (``diag``) change the arithmetic or
+drop work to show what that work costs, and are only timed. The k13
+sweep times K13 (``K13_VARIANTS``: 2, 4 and 8 rows a thread, 2 or 4 rows'
+loads in flight, tiles from a ticket instead of the block index, padding
+blocks of 1,024-4,096 slots; diagnostics without the copies, the padding,
+the segments, and with only the loads, scans, look-back and waits). The
+k3 sweep times K3 (``K3_VARIANTS``: windows of 32, 64 and 128 positions,
+2 or 4 windows a block, sort tiles of 2,048, the finish with 4 or 8 loads
+in flight; diagnostics: the keys alone, the keys and the
+sort, no stores, the dense write alone, the samples read in position
+order, no walk) at a slice step's own call, the uniform shape and the skewed one,
+prints the step's active pairs a row by level, times the library call
+(index_add_ of the prebuilt dense rows, deterministic), and, with
+``--baseline ROOT`` (an earlier tree, e.g. a ``git archive`` of it),
+ROOT's K3 with the zero-fill its wrapper did, in the same turns.
 
 Inputs: K8 on the slice's tree (confs/wanjinyou.yaml at full width on the
 ball scene, 945 nodes) with 2,048 uniform rays (hit cap 64) and with the
@@ -162,25 +165,6 @@ K13_VARIANTS = {
                       (K13_STARTS, K13_STARTS.replace(" {", " if (p.n < 0) {")),
                       (K13_LOCAL, K13_LOCAL.replace(") {", " && p.n < 0) {")),
                       ("  const long long lo = max(s0, m);", "  const long long lo = s1;")],
-}
-# the earlier K13 (one cooperative launch: count, a grid barrier, every
-# block sums every block's count, then copies its rows; no segments)
-EARLIER_K13_SUM = "  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {"
-EARLIER_K13_COPY = "    if (kept && pos < p.cap) {"
-EARLIER_K13_PAD = ("  for (long long q = min(all, p.cap) + (long long)blockIdx.x * kThreads + "
-                   "threadIdx.x;")
-EARLIER_K13_VARIANTS = {
-    "base": [],
-    "diag_no_copy": [(EARLIER_K13_COPY, "    if (kept && pos < p.cap && p.n < 0) {")],
-    "diag_no_pad": [(EARLIER_K13_PAD, EARLIER_K13_PAD.replace("min(all, p.cap)", "p.cap"))],
-    # the launch, the flags read, the barrier and the sums over the counts
-    "diag_skeleton": [(EARLIER_K13_COPY, "    if (kept && pos < p.cap && p.n < 0) {"),
-                      (EARLIER_K13_PAD, EARLIER_K13_PAD.replace("min(all, p.cap)", "p.cap"))],
-    # ... without the sums
-    "diag_skeleton_no_sum": [
-        (EARLIER_K13_SUM, EARLIER_K13_SUM.replace("= threadIdx.x", "= gridDim.x")),
-        (EARLIER_K13_COPY, "    if (kept && pos < p.cap && p.n < 0) {"),
-        (EARLIER_K13_PAD, EARLIER_K13_PAD.replace("min(all, p.cap)", "p.cap"))],
 }
 K9_BOUNDS = "__global__ void __launch_bounds__(kMaxThreads, 4)"
 K9_ROW_LOAD = ("      const float4 r0 = __ldg(m4 + 8 * kq + 2 * kk), "
@@ -391,6 +375,53 @@ VOTES_VARIANTS = {
     # every block the card holds, as the earlier kernel launched
     "grid_resident": [(VOTES_GRID, "  const unsigned grid = (unsigned)resident[dev];")],
 }
+# K3 (csrc/hash_block.cu): the window (the reduce block sized so that its
+# staged entries fit 48 KB of shared memory; a window other than 64 is
+# another order, held to the plain version at that window), 2 windows a
+# block, sort tiles of 2,048 records, the finish with 4 or 8 loads in
+# flight, and diagnostics: the keys launch alone, the keys and the sort, the
+# call with the reduce storing nothing and no finish, the dense write
+# alone (the finish storing every row as zeros), the reduce reading its
+# entries' samples in position order instead of by their index (what
+# keeping the samples' data in the sorted list could save), and the reduce
+# without its walk (its loads, locates and staging)
+K3_WINDOW = "constexpr int kWindow = 64;"
+K3_WARPS = "constexpr int kReduceWarps = 4;"
+K3_TILE = "constexpr int kSortTile = 4096;"
+K3_IN_FLIGHT = "constexpr int kInFlight = 16;"
+K3_KEYED = "  // keyed: sort each level's pairs by row, low digit then high digit\n"
+K3_BUCKETED = "  // bucketed: the windows, then the rows\n"
+K3_STORE = "    *reinterpret_cast<float4*>(out) = acc;"
+K3_GATHER = "    idx[j] = k < cnt ? si[k] : -1;"
+K3_WALK = "    for (int kk = k; kk < e; ++kk) {"
+
+
+def k3_window(w: int, warps: int) -> list:
+    return [(K3_WINDOW, f"constexpr int kWindow = {w};"),
+            (K3_WARPS, f"constexpr int kReduceWarps = {warps};")]
+
+
+K3_VARIANTS = {
+    "base": [],
+    "window32": k3_window(32, 8),
+    "window128": k3_window(128, 2),
+    "warps2": [(K3_WARPS, "constexpr int kReduceWarps = 2;")],
+    "tile2048": [(K3_TILE, "constexpr int kSortTile = 2048;")],
+    "finish4": [(K3_IN_FLIGHT, "constexpr int kInFlight = 4;")],
+    "finish8": [(K3_IN_FLIGHT, "constexpr int kInFlight = 8;")],
+    "diag_keys": [(K3_KEYED, "  return 0;\n")],
+    "diag_keys_sort": [(K3_BUCKETED, "  return 0;\n")],
+    "diag_no_store": [(K3_STORE, "    if (acc.x == 1234.5f) " + K3_STORE.strip()),
+                      ("  k3_finish_kernel<<<", "  if (0) k3_finish_kernel<<<")],
+    "diag_dense_write": [(f"  k3_{k}_kernel<<<", f"  if (0) k3_{k}_kernel<<<")
+                         for k in ("keys", "hist", "scan", "scatter", "reduce")],
+    "diag_no_gather": [(K3_GATHER, "    idx[j] = k < cnt ? (int)((p0 + k) % s.n) : -1;")],
+    "diag_no_walk": [(K3_WALK, K3_WALK.replace("kk = k;", "kk = e;"))],
+}
+K3_WINDOWS = {"base": 64, "window32": 32, "window128": 128, "warps2": 64, "tile2048": 64,
+              "finish4": 64, "finish8": 64}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -693,21 +724,19 @@ def uniform_keep(seed: int = 18, n: int = 393216, cap: int = 262144, R: int = 20
     return keep, cap, fields, rid, R
 
 
-def keep_outputs(cap: int, n_rays: int, dev, segments: bool) -> list:
-    """K13's outputs: the six fields, rid, ok, idx, and with ``segments``
-    offsets, counts, local and first."""
+def keep_outputs(cap: int, n_rays: int, dev) -> list:
+    """K13's outputs: the six fields, rid, ok, idx, offsets, counts, local
+    and first."""
     from f2nerf_torch.render import renderer as rd
     outs = [torch.empty((cap,) if c == 1 else (cap, c), dtype=dt, device=dev)
             for _, dt, c in rd.KEEP_FIELDS]
-    outs += [torch.empty((cap,), dtype=torch.int32, device=dev),
-             torch.empty((cap,), dtype=torch.bool, device=dev),
-             torch.empty((cap,), dtype=torch.int64, device=dev)]
-    if segments:
-        outs += [torch.empty((n_rays + 1,), dtype=torch.int32, device=dev),
-                 torch.empty((n_rays,), dtype=torch.float32, device=dev),
-                 torch.empty((cap,), dtype=torch.int32, device=dev),
-                 torch.empty((cap,), dtype=torch.bool, device=dev)]
-    return outs
+    return outs + [torch.empty((cap,), dtype=torch.int32, device=dev),
+                   torch.empty((cap,), dtype=torch.bool, device=dev),
+                   torch.empty((cap,), dtype=torch.int64, device=dev),
+                   torch.empty((n_rays + 1,), dtype=torch.int32, device=dev),
+                   torch.empty((n_rays,), dtype=torch.float32, device=dev),
+                   torch.empty((cap,), dtype=torch.int32, device=dev),
+                   torch.empty((cap,), dtype=torch.bool, device=dev)]
 
 
 _K13_STATES: dict = {}
@@ -718,7 +747,7 @@ def new_keep(lib, keep, cap, fields, rid, n_rays):
     from f2nerf_torch.ops import segment as sg
     from f2nerf_torch.render import renderer as rd
     dev = keep.device
-    outs = keep_outputs(cap, n_rays, dev, True)
+    outs = keep_outputs(cap, n_rays, dev)
     stream = kernels.stream_ptr(dev)
     state = sg.zeroed_state(_K13_STATES, dev, stream, lib.f2_compact_keep_state_bytes(
         keep.shape[0]))
@@ -728,65 +757,16 @@ def new_keep(lib, keep, cap, fields, rid, n_rays):
     return outs
 
 
-def earlier_keep(lib, offsets_lib, keep, cap, fields, rid, n_rays, first=False):
-    """The earlier f2_compact_keep (no segments), then, given
-    ``offsets_lib``, the earlier offsets launch on B's ray ids (and with
-    ``first`` first_flags_from_ray_id): the parent step's B."""
-    from f2nerf_torch.ops import segment as sg
-    from f2nerf_torch.render import renderer as rd
-    dev = keep.device
-    outs = keep_outputs(cap, n_rays, dev, False)
-    counts = torch.empty((lib.f2_compact_keep_max_blocks(),), dtype=torch.int32, device=dev)
-    stream = kernels.stream_ptr(dev)
-    ins = (keep, *(fields[k] for k, _, _ in rd.KEEP_FIELDS), rid)
-    kernels.check(lib.f2_compact_keep(*(x.data_ptr() for x in (*ins, *outs, counts)),
-                                      keep.shape[0], cap, n_rays, stream), "sweep compact_keep")
-    if offsets_lib is not None:
-        seg = [torch.empty((n_rays + 1,), dtype=torch.int32, device=dev),
-               torch.empty((n_rays,), dtype=torch.float32, device=dev),
-               torch.empty((cap,), dtype=torch.int32, device=dev)]
-        kernels.check(offsets_lib.f2_ray_offsets(outs[6].data_ptr(),
-                                                 *(x.data_ptr() for x in seg), cap, n_rays,
-                                                 stream), "sweep ray_offsets")
-        outs += seg
-        if first:
-            outs.append(sg.first_flags_from_ray_id(outs[6], n_rays))
-    return outs
-
-
-def earlier_offsets(lib, rid, n_rays):
-    """The earlier offsets launch alone (offsets, counts, local)."""
-    dev = rid.device
-    seg = [torch.empty((n_rays + 1,), dtype=torch.int32, device=dev),
-           torch.empty((n_rays,), dtype=torch.float32, device=dev),
-           torch.empty(rid.shape, dtype=torch.int32, device=dev)]
-    kernels.check(lib.f2_ray_offsets(rid.data_ptr(), *(x.data_ptr() for x in seg), rid.shape[0],
-                                     n_rays, kernels.stream_ptr(dev)), "sweep ray_offsets")
-    return seg
-
-
-def sweep_k13(baseline: str | None) -> dict:
+def sweep_k13() -> dict:
     """K13 at the slice step's shapes and the uniform one: this tree's
-    launch shapes and diagnostics, and with --baseline the earlier K13 with its
-    offsets launch (and the first flags), each alone, and its diagnostics,
-    all timed in turns. Every non-diagnostic run is held bit for bit to
-    the plain version (the earlier pair to its first 12 outputs, with the
-    first flags to all 13)."""
+    launch shapes and diagnostics, timed in turns. Every non-diagnostic run
+    is held bit for bit to the plain version."""
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     libs = build("compact", K13_VARIANTS)
     for lib in libs.values():
         _sig(lib, "f2_compact_keep", [vp] * 22 + [ll, ll, i, vp])
         lib.f2_compact_keep_state_bytes.argtypes = [ll]
         lib.f2_compact_keep_state_bytes.restype = ll
-    old, old_off = {}, None
-    if baseline:
-        csrc = os.path.join(baseline, "f2nerf_torch", "csrc")
-        old = build("compact", EARLIER_K13_VARIANTS, csrc, "earlier_")
-        for lib in old.values():
-            _sig(lib, "f2_compact_keep", [vp] * 18 + [ll, ll, i, vp])
-            _sig(lib, "f2_compact_keep_max_blocks", [])
-        old_off = build("segment", {"base": []}, csrc, "earlier_")["base"]
-        _sig(old_off, "f2_ray_offsets", [vp] * 4 + [ll, i, vp])
     from f2nerf_torch.render import renderer as rd
     tree, _ = slice_tree()
     res = {}
@@ -797,20 +777,6 @@ def sweep_k13(baseline: str | None) -> dict:
         for name, lib in libs.items():
             _held("K13", name, new_keep(lib, *args), want, equal)
             fns[name] = lambda lib=lib, args=args: new_keep(lib, *args)
-        for name, lib in old.items():
-            if name == "base":
-                _held("K13", "earlier_with_offsets", earlier_keep(lib, old_off, *args), want[:12],
-                      equal)
-                _held("K13", "earlier_with_offsets_first",
-                      earlier_keep(lib, old_off, *args, first=True), want, equal)
-                fns["earlier_with_offsets"] = lambda lib=lib, args=args: earlier_keep(
-                    lib, old_off, *args)
-                fns["earlier_with_offsets_first"] = lambda lib=lib, args=args: earlier_keep(
-                    lib, old_off, *args, first=True)
-                fns["earlier_offsets_alone"] = lambda args=args, r=rid: earlier_offsets(
-                    old_off, r, args[4])
-            _held("K13", f"earlier_{name}", earlier_keep(lib, None, *args), want[:9], equal)
-            fns[f"earlier_{name}"] = lambda lib=lib, args=args: earlier_keep(lib, None, *args)
         t = in_turns(fns)
         kept = int(args[0].sum())
         res[case] = dict(ms=t, equal=equal, n=int(args[0].shape[0]), cap=args[1], kept=kept)
@@ -1089,9 +1055,120 @@ def uniform_votes(tree, R: int = 2048, per: int = 192, cap: int = 393216, seed: 
     return (tree, *t, R), sg.ray_offsets_plain(t[1], R)[0]
 
 
-SWEEPS = {"k8": sweep_k8, "k9": sweep_k9, "k10": sweep_k10, "k11": sweep_k11,
+def device_breakdown(fn, reps: int = 10) -> dict:
+    """Device milliseconds a call of fn, by activity name (kernels,
+    memsets), over reps calls after a warm-up (torch.profiler; a later
+    profiler session in a process may miss events, so this is printed, not
+    held)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0].strip()
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def k3_run(lib, g, prim, bias, pts, vol, l2t, shape):
+    """A built f2_hash_block_bwd on hash_block_bwd's arguments."""
+    from f2nerf_torch.fields import hash_block as hb
+    from f2nerf_torch.fields.hash_encoding import _scales
+    segs = [(gk.contiguous(), pk.contiguous(), vk.contiguous())
+            for gk, pk, vk in zip(hb._segments(g), hb._segments(pts), hb._segments(vol))]
+    ptrs = [(gk.data_ptr(), pk.data_ptr(), vk.data_ptr(), vk.shape[0])
+            for gk, pk, vk in segs] + [(None, None, None, 0)]
+    n, nb = sum(p[3] for p in ptrs), hb.n_blocks(l2t)
+    dev = segs[0][0].device
+    d = torch.empty(shape, dtype=torch.float32, device=dev)
+    scratch = torch.empty((lib.f2_hash_block_bwd_scratch_bytes(n, nb),), dtype=torch.uint8,
+                          device=dev)
+    kernels.check(lib.f2_hash_block_bwd(*ptrs[0], *ptrs[1], prim.data_ptr(), bias.data_ptr(),
+                                        _scales(str(dev)).data_ptr(), d.data_ptr(),
+                                        scratch.data_ptr(), prim.shape[1], nb,
+                                        kernels.stream_ptr(dev)), "sweep hash_block_bwd")
+    return d
+
+
+def step_k3_inputs() -> tuple:
+    """K3's call at a slice step (confs/wanjinyou.yaml at full width on the
+    ball scene, after 20 steps): B at cap2 plus the edge samples, with the
+    step's own gradient (chip_smoke.capture_calls)."""
+    import chip_smoke as cs
+    from f2nerf_torch.fields import hash_block as hb
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.config import compose
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    tmp = tempfile.mkdtemp(prefix="f2sweep_")
+    cfg = compose(os.path.join(REPO, "confs"), "wanjinyou", ["+train.fused_adam=true"])
+    tr = Trainer(cfg, os.path.join(tmp, "exp"), write_ball_dataset(os.path.join(tmp, "ball")),
+                 seed=2022, device="cuda")
+    for _ in range(20):
+        tr.train_one()
+    (args,) = cs.capture_calls(tr, {"hash_block_bwd": hb})["hash_block_bwd"]
+    return args
+
+
+def sweep_k3(baseline: str | None) -> dict:
+    """K3 at the slice step's own call, the uniform shape and the skewed
+    one (chip_smoke's k3_uniform_args, k3_skew_args): the active pairs a
+    row by level at the step, the windows and the diagnostics
+    (``K3_VARIANTS``), the library call (chip_smoke.k3_library_ms), and with
+    --baseline ROOT's K3 with its zero-fill (chip_smoke.baseline_k3), all
+    timed in turns. The variants that keep the function are held bit for
+    bit to the plain version at their window, and to a second run."""
+    import chip_smoke as cs
+    from f2nerf_torch.fields import hash_block as hb
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    libs = build("hash_block", K3_VARIANTS)
+    for lib in libs.values():
+        _sig(lib, "f2_hash_block_bwd", [vp, vp, vp, i, vp, vp, vp, i] + [vp] * 5 + [i, i, vp])
+        lib.f2_hash_block_bwd_scratch_bytes.argtypes = [ll, i]
+        lib.f2_hash_block_bwd_scratch_bytes.restype = ll
+    old = cs.baseline_k3(baseline) if baseline else None
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    step = step_k3_inputs()
+    hist = cs.k3_rows_histogram([step])
+    log("[K3] active pairs a row at the slice step, by level (pairs, rows, median, p99, max): "
+        + "; ".join(f"{l}: {h['pairs']}, {h['rows']}, {h['median']:g}, {h['p99']:g}, "
+                    f"{h['max']}" for l, h in hist.items()))
+    res = {"histogram": hist}
+    for case, args in (("step", step), ("uniform", cs.k3_uniform_args(gen)),
+                       ("skew", cs.k3_skew_args(gen))):
+        want = {w: hb.hash_block_bwd_plain(*args, window=w) for w in set(K3_WINDOWS.values())}
+        fns, equal = {}, {}
+        for name, lib in libs.items():
+            got = k3_run(lib, *args)
+            if name in K3_WINDOWS:
+                equal[name] = (same_bits([got], [want[K3_WINDOWS[name]]])
+                               and same_bits([k3_run(lib, *args)], [got]))
+                if not equal[name]:
+                    raise AssertionError(f"K3 {name} ({case}) differs from the plain version "
+                                         f"at window {K3_WINDOWS[name]} or from its repeat")
+            fns[name] = lambda lib=lib, args=args: k3_run(lib, *args)
+        if old is not None:
+            fns["baseline_with_zero_fill"] = lambda args=args: old(*args)
+        del want
+        t = in_turns(fns)
+        lib_ms = cs.k3_library_ms([args]) if case != "skew" else None
+        parts = device_breakdown(fns["base"])
+        res[case] = dict(ms=t, equal=equal, library_ms=lib_ms, base_launches_ms=parts)
+        log(f"[K3] {case}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+            + f"; library index_add_ {lib_ms}; bit for bit {equal}; base by launch: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+        torch.cuda.empty_cache()
+    return res
+
+
+SWEEPS = {"k3": sweep_k3, "k8": sweep_k8, "k9": sweep_k9, "k10": sweep_k10, "k11": sweep_k11,
           "offsets": sweep_offsets, "k12": sweep_k12, "k13": sweep_k13, "k14": sweep_k14}
-TAKES_BASELINE = ("k13",)
+TAKES_BASELINE = ("k3",)
 
 
 def main() -> int:
@@ -1100,9 +1177,9 @@ def main() -> int:
                     help="comma-separated sweeps to run, of " + ", ".join(SWEEPS))
     ap.add_argument("--out", default=os.path.join(SWEEP_DIR, "sweep_kernels.json"))
     ap.add_argument("--baseline", default=None, metavar="ROOT",
-                    help="an earlier tree (a git archive) whose K13 writes no segments: "
-                         "the k13 sweep also builds its csrc/compact.cu and csrc/segment.cu "
-                         "and times them in the same turns")
+                    help="an earlier tree (a git archive): the k3 sweep also builds its "
+                         "csrc/hash_block.cu and times its K3 with the zero-fill its "
+                         "wrapper did, in the same turns")
     args = ap.parse_args()
     chosen = args.kernels.split(",")
     unknown = [k for k in chosen if k not in SWEEPS]

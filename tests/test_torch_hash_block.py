@@ -11,10 +11,16 @@ Tolerances:
     the trilinear weights by ~1e-4; entries whose coordinates lie within
     1e-3 of a lattice plane may land in the neighbouring cell and are
     masked, as tests/test_hash_block.py does (rtol 2e-3, atol 1e-3);
-  * gradients: rtol 1e-5, atol 1e-6 — scatter-adds summed in another order.
+  * gradients: rtol 1e-5, atol 1e-6 — scatter-adds summed in another order
+    (K3's order cuts a row's list into windows of K3_WINDOW positions,
+    where JAX adds in sample order); with at most K3_WINDOW samples there
+    is one window a level and the gradient is JAX's op by op bit for bit.
 Points placed exactly on cell and block boundaries (bias 0, coordinates
 that scale to integers) must agree with the op-by-op JAX result exactly as
 above: both round per operation, so both pick the same cell.
+
+K3's order (csrc/hash_block.cu) is also written out with numpy float32
+scalars (``order_reference``) and the plain version held to it bit for bit.
 """
 
 import jax
@@ -211,6 +217,115 @@ def test_scatter_segments_sum_like_one_input(state):
     assert torch.equal(whole, split)
 
 
+def test_table_gradient_bit_for_bit_jax_op_by_op(state):
+    """At most K3_WINDOW samples: one window a level, so K3's order is JAX's
+    scatter order (rows in sample order) and the gradient is the same
+    bits."""
+    feat, prim, bias = state
+    pts, vol, g = inputs(17, thb.K3_WINDOW)
+    with jax.disable_jit():
+        gj = jax.grad(lambda f: jnp.sum(jhb.hash_block_encode(
+            f, prim, bias, jnp.asarray(pts), jnp.asarray(vol), L2T) * g))(feat)
+    tf, tp, tb = port(feat, prim, bias)
+    tf.requires_grad_(True)
+    out = thb.hash_block_encode(tf, tp, tb, torch.from_numpy(pts), torch.from_numpy(vol), L2T)
+    (out * torch.from_numpy(g)).sum().backward()
+    assert np.array_equal(tf.grad.numpy().view(np.int32), np.asarray(gj).view(np.int32))
+
+
+def order_inputs(case: str, n: int):
+    """(pts, vol, g) for the order checks: ``uniform`` points, ``one_row``
+    (every sample within 1e-7 of one point, one volume: one row a level),
+    each with a third of the samples' g zero (padding rows) and one
+    sample's g -0.0 (also no pair)."""
+    rng = np.random.RandomState(len(case) + n)
+    if case == "one_row":
+        pts = np.float32([0.31, 0.62, 0.27]) + rng.rand(n, 3) * 1e-7
+        vol = np.full(n, 1)
+    else:
+        pts, vol = rng.rand(n, 3), rng.randint(0, NV, n)
+    g = rng.randn(n, N_LEVELS * N_CHANNELS).astype(np.float32)
+    g[rng.rand(n) < 1 / 3] = 0.0
+    g[1] = -0.0
+    return pts.astype(np.float32), vol.astype(np.int32), g
+
+
+def order_reference(tp, tb, pts, vol, g, window: int) -> np.ndarray:
+    """K3's order with numpy float32 scalars, row by row: per level, the
+    pairs with g != 0 listed by row (numpy's stable argsort: sample order
+    within a row), cut into windows of ``window`` positions; a row's
+    entries added to +0 within each window in list order, its windows'
+    sums added to +0 in window order."""
+    nb = thb.n_blocks(L2T)
+    vol_t = torch.from_numpy(vol).long()
+    d = np.zeros((N_LEVELS * nb, thb.LANES), np.float32)
+    for l in range(N_LEVELS):
+        row, axes = thb._locate(torch.from_numpy(pts), tp[l, vol_t], tb[l, vol_t],
+                                float(level_scales()[l]), nb)
+        row = row.numpy()
+        corners = [(lane.numpy(), w.numpy()) for lane, w in thb._corners(axes)]
+        act = np.nonzero((g[:, 2 * l] != 0) | (g[:, 2 * l + 1] != 0))[0]
+        order = act[np.argsort(row[act], kind="stable")]
+        for r in np.unique(row[order]):
+            where = np.nonzero(row[order] == r)[0]
+            acc = np.zeros(thb.LANES, np.float32)
+            for win in np.unique(where // window):
+                part = np.zeros(thb.LANES, np.float32)
+                for pos in where[where // window == win]:
+                    i = order[pos]
+                    for lane, w in corners:
+                        for ch in range(N_CHANNELS):
+                            part[lane[i] + ch] = np.float32(part[lane[i] + ch]
+                                                            + g[i, 2 * l + ch] * w[i])
+                acc = (acc + part).astype(np.float32)
+            d[l * nb + r] = acc
+    return d.reshape(N_LEVELS, nb, thb.LANES)
+
+
+def test_k3_list_matches_numpy_stable_argsort(state):
+    """The plain version's keys and bucketing: each level's active pairs by
+    row, in sample order within a row, as numpy's stable argsort lists
+    them."""
+    _, tp, tb = port(*state)
+    pts, vol, g = order_inputs("uniform", 300)
+    nb = thb.n_blocks(L2T)
+    for l in range(N_LEVELS):
+        rows, idx, _ = thb.k3_list(torch.from_numpy(g), tp, tb, torch.from_numpy(pts),
+                                   torch.from_numpy(vol).long(), nb, l)
+        want_row, _ = thb._locate(torch.from_numpy(pts), tp[l, torch.from_numpy(vol).long()],
+                                  tb[l, torch.from_numpy(vol).long()],
+                                  float(level_scales()[l]), nb)
+        act = np.nonzero((g[:, 2 * l] != 0) | (g[:, 2 * l + 1] != 0))[0]
+        want = act[np.argsort(want_row.numpy()[act], kind="stable")]
+        assert np.array_equal(idx.numpy(), want)
+        assert np.array_equal(rows.numpy(), want_row.numpy()[want])
+
+
+@pytest.mark.parametrize("case,n,window,split", [
+    ("uniform", 300, thb.K3_WINDOW, 0), ("uniform", 300, 8, 0), ("one_row", 200, 16, 0),
+    ("one_row", 200, 16, 77), ("uniform", 240, 5, 150)])
+def test_plain_sums_in_k3_order(state, case, n, window, split):
+    """The plain version against ``order_reference`` bit for bit: windows
+    that hold whole rows and cut them, one row a level holding every
+    sample (``one_row``: the skew of the coarse levels), pairs with g = 0
+    or -0.0 left out (an entry no pair touches is +0.0), and two segments
+    (``split``: the grad pass's B then its edge samples) summed as their
+    concatenation in order."""
+    _, tp, tb = port(*state)
+    pts, vol, g = order_inputs(case, n)
+    shape = (N_LEVELS, thb.n_blocks(L2T), thb.LANES)
+    segs = (lambda x: (torch.from_numpy(x[:split]), torch.from_numpy(x[split:]))) if split \
+        else torch.from_numpy
+    got = thb.hash_block_bwd_plain(segs(g), tp, tb, segs(pts), segs(vol), L2T, shape,
+                                   window=window).numpy()
+    want = order_reference(tp, tb, pts, vol, g, window)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    # no -0.0: an entry is a sum from +0
+    assert not np.signbit(got[got == 0]).any()
+    if case == "one_row":       # one row a level carries it all
+        assert ((np.abs(got).sum(-1) > 0).sum(-1) == 1).all()
+
+
 def test_init_block_state_shapes_and_ranges():
     g = torch.Generator().manual_seed(0)
     feat, prim, bias = thb.init_block_state(g, L2T, 5)
@@ -234,6 +349,10 @@ def test_wrappers_refuse_other_devices(state):
                            L2T, tuple(feat.shape))
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -252,7 +371,7 @@ def test_kernels_match_plain_on_card(cuda, state):
     shape = tuple(feat.shape)
     d_k = thb.hash_block_bwd(g, prim, bias, pts, vol, L2T, shape)
     d_p = thb.hash_block_bwd_plain(g, prim, bias, pts, vol, L2T, shape)
-    assert float((d_k - d_p).abs().max()) <= 1e-5 * float(d_p.abs().max())
+    assert same_bits(d_k, d_p)
     assert (thb.hash_block_fwd.launches, thb.hash_block_bwd.launches) == (n0 + 1, n1 + 1)
 
 
@@ -265,10 +384,11 @@ def card_inputs(case: str):
     card tests of K2/K3, from a seed:
       ray_ordered: 16 rays x 300 samples stepping 1e-3 along each ray, one
         volume a ray (neighbours share cells at the coarse levels);
-      one_cell: 4,096 samples within 1e-7 of one point, one volume (every
-        lane of every warp merges, at every level);
+      one_cell: 4,096 samples within 1e-7 of one point, one volume (one
+        row a level holds every sample: 64 windows of it);
       cz_even / cz_odd: zero bias, level 0's z cell c in {0, 2} / {1} for
-        every sample (the float4 / float2 atomics);
+        every sample (a lane's aligned corner pair / pairs split across
+        two lanes);
       n0, n1, n33, n1000: sizes that are not a multiple of the 32-sample
         tile, down to 0 and 1;
       boundary: boundary_points() (lattice planes and block boundaries)."""
@@ -303,9 +423,10 @@ def card_inputs(case: str):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
 def test_kernels_match_plain_on_card_cases(cuda, state, case):
-    """K2 bit for bit and K3 within 1e-5 of the largest entry against the
-    plain versions, on inputs that stress the tiles, the same-cell merge
-    and both atomic widths; K3 also over two segments in one launch."""
+    """K2 and K3 bit for bit against the plain versions, on inputs that
+    stress the tiles, one cell holding every sample and both corner-pair
+    alignments; K3 also run again (the same bits) and over two segments in
+    one call (the plain version of their concatenation)."""
     pts_np, vol_np, g_np, zero_bias = card_inputs(case)
     feat, prim, bias = port(*state)
     if zero_bias:
@@ -321,16 +442,16 @@ def test_kernels_match_plain_on_card_cases(cuda, state, case):
     assert torch.equal(thb.hash_block_fwd(feat, prim, bias, pts, vol, L2T),
                        thb.hash_block_fwd_plain(feat, prim, bias, pts, vol, L2T))
     d_p = thb.hash_block_bwd_plain(g, prim, bias, pts, vol, L2T, shape)
-    tol = 1e-5 * float(d_p.abs().max()) if len(pts) else 0.0
     d_k = thb.hash_block_bwd(g, prim, bias, pts, vol, L2T, shape)
-    assert float((d_k - d_p).abs().max()) <= tol
+    assert same_bits(d_k, d_p)
+    assert same_bits(thb.hash_block_bwd(g, prim, bias, pts, vol, L2T, shape), d_k)
     h = len(pts) // 3
     d_2 = thb.hash_block_bwd((g[:h], g[h:]), prim, bias, (pts[:h], pts[h:]),
                              (vol[:h], vol[h:]), L2T, shape)
-    assert float((d_2 - d_p).abs().max()) <= tol
+    assert same_bits(d_2, d_p)
     launched = int(len(pts) > 0)        # no samples: nothing is launched
     assert (thb.hash_block_fwd.launches,
-            thb.hash_block_bwd.launches) == (n0 + launched, n1 + 2 * launched)
+            thb.hash_block_bwd.launches) == (n0 + launched, n1 + 3 * launched)
 
 
 @pytest.mark.cuda
@@ -360,3 +481,36 @@ def test_grad_pass_one_scatter_on_card(cuda, state):
         grads[str(dev)] = f.grad.cpu()
     want = grads["cpu"]
     assert float((grads["cuda"] - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+K3_LARGE = ["one_row_2e18", "n_2e20", "l2t_20"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_LARGE)
+def test_k3_same_bits_on_card_large(cuda, case):
+    """K3 run twice gives the same bits, equal to its plain version, where
+    the sort and the windows are large: every sample in one row of each
+    level (2^18 samples: 4,096 windows of one row), 2^20 uniform samples
+    (many waves of every launch), and log2_table_size 20 (32,768 rows a
+    level: the sort's high digit 7 bits), with a third of g zero."""
+    l2t = 20 if case == "l2t_20" else 19
+    nv = 431
+    gen = torch.Generator().manual_seed(K3_LARGE.index(case))
+    _, prim, bias = thb.init_block_state(gen, l2t, nv)
+    n = {"one_row_2e18": 1 << 18, "n_2e20": 1 << 20, "l2t_20": 393216}[case]
+    rng = np.random.RandomState(K3_LARGE.index(case))
+    if case == "one_row_2e18":
+        pts = np.float32([0.31, 0.62, 0.27]) + rng.rand(n, 3) * 1e-7
+        vol = np.full(n, 7)
+    else:
+        pts, vol = rng.rand(n, 3), rng.randint(0, nv, n)
+    g = rng.randn(n, N_LEVELS * N_CHANNELS).astype(np.float32)
+    g[rng.rand(n) < 1 / 3] = 0.0
+    prim, bias = prim.to(cuda), bias.to(cuda)
+    pts, vol, g = (torch.from_numpy(x).to(cuda) for x in (pts.astype(np.float32),
+                                                          vol.astype(np.int32), g))
+    shape = (N_LEVELS, thb.n_blocks(l2t), thb.LANES)
+    d_k = thb.hash_block_bwd(g, prim, bias, pts, vol, l2t, shape)
+    assert same_bits(thb.hash_block_bwd(g, prim, bias, pts, vol, l2t, shape), d_k)
+    assert same_bits(d_k, thb.hash_block_bwd_plain(g, prim, bias, pts, vol, l2t, shape))
