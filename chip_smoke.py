@@ -3,9 +3,9 @@
     python3 chip_smoke.py                 # every phase; needs one CUDA card
     python3 chip_smoke.py --phases build,kernels   # a subset (no final line)
     python3 chip_smoke.py --phases device,build,kernels,slice,profile \
-        --baseline DIR    # an earlier tree's K3 (a checkout in DIR), and its
-                          # slice step's launches and steps/s, beside this
-                          # tree's, in turns
+        --baseline DIR    # an earlier tree's atomic K6 (a checkout in DIR),
+                          # and its slice step's launches and steps/s,
+                          # beside this tree's, in turns
 
 Phases:
   1. device  — refuse to run without CUDA; print the card, its power limit
@@ -20,9 +20,14 @@ Phases:
                sample; K3 bit for bit its plain version and a second run,
                also at 2^18 samples in one row a level, 2^20 samples and
                log2_table_size 20; the library call for K3: index_add_ of
-               the dense rows, deterministic; with --baseline ROOT, ROOT's
-               K3 with its zero-fill in turns, uniform and skewed, and at
-               the step's own inputs), K4 at micro_gather's shape; after the slice, each
+               the dense rows, deterministic), K5 and K6 at the same uniform shape
+               (K6 bit for bit its plain version and a second run, also at
+               2^18 samples in one cell a level, 2^20 samples and
+               log2_table_size 20; its library call index_add_ of the
+               records, deterministic; with --baseline ROOT, ROOT's atomic
+               K6 with its zero-fill in turns, uniform, skewed, at
+               log2_table_size 20 and at variants (a)'s step's inputs),
+               K4 at micro_gather's shape; after the slice, each
                again at the slice's own inputs (kernels_at_slice_inputs:
                K2 on A at cap1, K3 on B at cap2 plus the edge samples with
                that step's gradient, K4 on the step's cached encodings and
@@ -113,7 +118,9 @@ Phases:
                K6/K7 once a step (K2/K3/K4 never); K5/K6/K7 at that
                step's own inputs (spied; K5's two launches, A and B +
                edges, each at its own) and K7 at a uniform shape
-               against their plain versions; one step card vs CPU;
+               against their plain versions; one step run twice from one
+               state bit for bit (step_twice) and chunk_parity, both held
+               (K6 sums in a fixed order); one step card vs CPU;
                render_image over the 24 cameras and one image card vs
                CPU; (b) HashBlock +train.single_pass=true, 10 single-pass
                steps (K3 once a step, K4 and K13 never, the offsets
@@ -123,7 +130,14 @@ Phases:
                steps each, then Trainer.reset and a step; (d) one
                two-pass eval render card vs CPU for each field.
                K5/K6 are also timed at the kernels phase's uniform shape.
- 11. data_parallel — the data-parallel path at full width on the ball
+ 11. configs — confs/llff.yaml, free.yaml, nerf-360.yaml and
+               wanjinyou_big.yaml on the ball scene at their own full
+               widths with +train.fused_adam=true (phase_configs): 10
+               steps each (steps/s, rays/s, peak memory, cap1/cap2, hit
+               cap, K1-K4's launches; K3 and K4 exactly once a step), one
+               step run twice from one state bit for bit (step_twice);
+               llff also one step card vs CPU.
+ 12. data_parallel — the data-parallel path at full width on the ball
                scene (phase_data_parallel): (a) world size 1 on NCCL, one
                step of a Trainer under the process group against a plain
                Trainer from one state with one set of draws (torch's
@@ -158,6 +172,9 @@ Phases:
                inputs and outputs fingerprinted: the ops whose output
                depends on the order of their float sums, with where they
                ran, and each gradient leaf bit for bit (phase_atomics).
+  ref_atomics — not run by default: the atomics phase on variants (a)'s
+               trainer after its 20 steps (phase_ref_atomics; --phases
+               device,build,ref_atomics [--package-root ROOT]).
   Without the slice phase, profile, atomics and launches build the slice's
   trainer and take its 20 steps uncounted (--phases
   device,build,profile,atomics), so the same script can time a parent
@@ -190,11 +207,12 @@ TIME_FROM = 4          # steps 4..20 are timed (the first ones warm up)
 
 # K1/K2 tolerances: the kernel and its plain version do the same f32
 # operations in the same order (K2 rounds its index math per operation),
-# so they agree to a few ulps. K3 sums in its plain version's order and is
-# held to it bit for bit. K6, and the parent's K3 that --baseline times,
-# sum with atomics in no fixed order: the error grows with the number of
-# terms per table entry, so it is held relative to the largest gradient
-# magnitude. K4 copies rows, so it is held to index_select bit for bit.
+# so they agree to a few ulps. K3 and K6 sum in their plain versions'
+# order and are held to them bit for bit. The earlier K6 that --baseline
+# times sums with atomics in no fixed order: the error grows with the
+# number of terms per table entry, so it is held relative to the largest
+# gradient magnitude. K4 copies rows, so it is held to
+# index_select bit for bit.
 TOL_ADAM = 1e-6
 TOL_ENCODE = 1e-6
 TOL_SCATTER_REL = 1e-5
@@ -204,7 +222,7 @@ TOL_SCATTER_REL = 1e-5
 TOL_MARCH_REL = 1e-6
 RUNNER_ITERS = 40      # the runner phase's mode=train iterations
 PHASES = ("device", "build", "kernels", "slice", "parity", "maintain", "runner",
-          "eval_parity", "bench", "variants", "data_parallel")
+          "eval_parity", "bench", "variants", "configs", "data_parallel")
 # the runner phase's train_auto calls, (iteration, chunk): chunks of
 # train.step_chunk = 10, each ending on a report/vis/stats/save cadence
 RUNNER_CHUNKS = [(0, 10), (10, 10), (20, 10), (30, 10)]
@@ -223,6 +241,10 @@ REF_OVERRIDES = ["field.type=Hash3DAnchored", "+pts_sampler.march_mode=lockstep"
 VAR_STEPS = 20
 SINGLE_PASS_STEPS = 10
 HOST_STEPS = 3
+# the configs phase: the repo's other configurations on the ball scene at
+# their own full widths, CONFIG_STEPS steps each (steps TIME_FROM on timed)
+CONFIGS = ("llff", "free", "nerf-360", "wanjinyou_big")
+CONFIG_STEPS = 10
 # the data_parallel phase: steps timed at world size 1 on NCCL, and the
 # train_auto iterations of each of the two gloo ranks (two chunks of 10;
 # the second is timed)
@@ -332,6 +354,8 @@ NO_LIBRARY_FOLD = "none: no single PyTorch call folds the votes into the counter
 LIBRARY_VOTES = "torch.Tensor.scatter_reduce amax (one of the votes' three node scatters)"
 LIBRARY_K3 = ("torch.Tensor.index_add_ of the active pairs' prebuilt dense 128-lane rows "
               "into the [16 nb, 128] table, deterministic algorithms on: the scatter alone")
+LIBRARY_K6 = ("torch.Tensor.index_add_ of the active (entry, value) records into the "
+              "[pool, 2] gradient, deterministic algorithms on: the scatter alone")
 
 
 def log(*a):
@@ -730,31 +754,148 @@ def hash3d_encode_case(args: tuple, label: str) -> dict:
                 entries=entries)
 
 
-def hash3d_scatter_case(args: tuple, label: str) -> dict:
+def k6_library_ms(args: tuple) -> float:
+    """The library yardstick for K6, as K3's: one index_add_ of every
+    active (entry, value) record (the plain version's, hash_encoding.
+    k6_records) into a zeroed [pool, 2] gradient, under
+    torch.use_deterministic_algorithms(True): the scatter alone (building
+    the records and zeroing the gradient are not timed)."""
+    from f2nerf_torch.fields import hash_encoding as he
+    g, prim, bias, pts, vol, l2t, pool = args
+    entry, val = he.k6_records(g, prim, bias, pts, vol, l2t)
+    d = torch.zeros((pool, he.N_CHANNELS), dtype=torch.float32, device=DEV)
+    torch.use_deterministic_algorithms(True)
+    try:
+        return cuda_time(lambda: d.index_add_(0, entry, val))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def hash3d_scatter_case(args: tuple, label: str, library: bool = False,
+                        time_plain: bool = True) -> dict:
     """K6 against its plain version on one input (g, prim, bias, pts, vol,
-    log2_table_size, pool_size), held to 1e-5 of the largest entry. The
-    bound: g, points and volumes read, the dense [pool, 2] gradient
-    written once."""
+    log2_table_size, pool_size), bit for bit (K6 sums in its plain
+    version's order), and against a second run of itself bit for bit
+    (``max_abs_err`` is the larger difference: 0). The bound: g, points
+    and volumes read, the dense [pool, 2] gradient written once (K6 stores
+    every entry of it). With ``library``, ``k6_library_ms``; without
+    ``time_plain`` the plain version is run once, not timed."""
     from f2nerf_torch.fields import hash_encoding as he
     g, _, _, pts, _, _, pool = args
     d_k, d_p = he.hash_encode_bwd(*args), he.hash_encode_bwd_plain(*args)
+    d_again = he.hash_encode_bwd(*args)
     torch.cuda.synchronize()
-    err = (d_k - d_p).abs().max().item()
+    same, repeat = bits_equal(d_k, d_p), bits_equal(d_k, d_again)
+    err = max((d_k - d_p).abs().max().item(), (d_k - d_again).abs().max().item())
+    differ = int((d_k.view(torch.int32) != d_p.view(torch.int32)).sum())
     scale = d_p.abs().max().item()
-    del d_k, d_p
+    del d_k, d_p, d_again
     ms = cuda_time(lambda: he.hash_encode_bwd(*args))
-    plain_ms = cuda_time(lambda: he.hash_encode_bwd_plain(*args), reps=3)
+    plain_ms = cuda_time(lambda: he.hash_encode_bwd_plain(*args), reps=3) if time_plain \
+        else None
     n = pts.shape[0]
     zero = int((g.abs().amax(dim=1) == 0).sum())
     bound = bound_ms(n * (128 + 12 + 4) + pool * 8)
+    lib_ms = k6_library_ms(args) if library else None
     log(f"[kernels] K6 hash_encode_bwd {label}: n={n} ({zero} zero-gradient rows), "
-        f"pool {pool}: max_abs_err {err:.3e} (tol {TOL_SCATTER_REL:g} x max|grad| "
-        f"{scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({100 * bound / ms:.1f}% of it); library call: none")
-    if not (np.isfinite(err) and err <= TOL_SCATTER_REL * scale):
-        raise AssertionError(f"hash_encode_bwd disagrees with its plain version "
-                             f"({label}): {err}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, n=n)
+        f"pool {pool}: bit for bit its plain version {same} ({differ} entries differ; "
+        f"max|grad| {scale:.3e}), a second run bit for bit {repeat}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms if plain_ms is None else round(plain_ms, 4)} ms, bound "
+        f"{bound:.4f} ms ({100 * bound / ms:.1f}% of it)"
+        + (f"; index_add_ of the records, deterministic {lib_ms:.4f} ms" if library else ""))
+    if not (same and repeat):
+        raise AssertionError(f"hash_encode_bwd ({label}): bit for bit its plain version "
+                             f"{same} ({differ} entries differ), a second run {repeat}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, n=n,
+                library_ms=lib_ms)
+
+
+def k6_args(gen, n: int = 393216, nv: int = 431, l2t: int = 19, skew: bool = False) -> tuple:
+    """K6's input at the uniform shape (k3_uniform_args' points, volumes
+    and g: hash_encode_bwd's arguments at log2_table_size l2t), or with
+    ``skew`` every sample within 1e-7 of one point in one volume (each
+    level's 8 entries take every record)."""
+    from f2nerf_torch.fields.hash_encoding import N_LEVELS, local_size
+    g, prim, bias, pts, vol, _, _ = k3_uniform_args(gen, n, nv, l2t)
+    if skew:
+        pts = torch.tensor([0.31, 0.62, 0.27], device=DEV) + pts * 1e-7
+        vol = torch.full_like(vol, 7)
+    return g, prim, bias, pts, vol, l2t, N_LEVELS * local_size(l2t)
+
+
+def k6_extra_cases(gen) -> dict:
+    """K6 bit for bit its plain version and a second run of itself at
+    ``skew`` (2^18 samples in one cell a level), ``n2e20`` (2^20 uniform
+    samples) and ``l2t20`` (log2_table_size 20, as confs/wanjinyou_big.yaml
+    sizes HashBlock), each one's row by name."""
+    out = {}
+    for name, make in (("skew", lambda: k6_args(gen, n=1 << 18, skew=True)),
+                       ("n2e20", lambda: k6_args(gen, n=1 << 20)),
+                       ("l2t20", lambda: k6_args(gen, l2t=20))):
+        out[name] = hash3d_scatter_case(make(), name, time_plain=False)
+        torch.cuda.empty_cache()
+    return out
+
+
+def baseline_k6(root: str):
+    """ROOT's K6 (its csrc/hash3d.cu: float2 atomics into a pool gradient
+    that its wrapper zero-filled), built alone with nvcc (the package's
+    flags) into f2nerf_torch/_build/baseline/. Returns a function of
+    hash_encode_bwd's arguments that zero-fills the gradient and launches
+    ROOT's K6 into it, as ROOT's wrapper did."""
+    from f2nerf_torch import kernels
+    from f2nerf_torch.fields.hash_encoding import N_CHANNELS, _scales, local_size
+    out = os.path.join(kernels.BUILD_DIR, "baseline")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(os.path.abspath(root), "f2nerf_torch", "csrc", "hash3d.cu")
+    so = os.path.join(out, "libbaseline_k6.so")
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    lib = ctypes.CDLL(so)
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.f2_hash3d_bwd.argtypes = [vp] * 7 + [ll, i, i, vp]
+    lib.f2_hash3d_bwd.restype = ctypes.c_int
+
+    def run(g, prim, bias, pts, vol, l2t, pool):
+        g, pts, vol = g.contiguous(), pts.contiguous(), vol.contiguous()
+        d = torch.zeros((pool, N_CHANNELS), dtype=torch.float32, device=DEV)
+        kernels.check(lib.f2_hash3d_bwd(
+            g.data_ptr(), prim.data_ptr(), bias.data_ptr(), _scales(DEV).data_ptr(),
+            pts.data_ptr(), vol.data_ptr(), d.data_ptr(), pts.shape[0], prim.shape[1],
+            local_size(l2t), kernels.stream_ptr(DEV)), "baseline hash_encode_bwd")
+        return d
+    return run
+
+
+def baseline_k6_turns(root: str, cases: dict) -> dict:
+    """--baseline ROOT: ROOT's K6 with its zero-fill (``baseline_k6``) and
+    this tree's K6, timed in turns (ROOT, this, this, ROOT, ...;
+    cuda_time_turns) on each case's arguments, ROOT's gradient held to
+    this tree's within TOL_SCATTER_REL of the largest entry (ROOT's atomics
+    sum in no fixed order). K6's time by launch is the sweep's
+    (scripts/sweep_kernels.py --kernels k6): a profiler session here would
+    come before the profiler checks of later phases."""
+    from f2nerf_torch.fields import hash_encoding as he
+    theirs = baseline_k6(root)
+    out = {}
+    for name, args in cases.items():
+        mine, old = he.hash_encode_bwd(*args), theirs(*args)
+        torch.cuda.synchronize()
+        err, scale = (mine - old).abs().max().item(), mine.abs().max().item()
+        del mine, old
+        if not (np.isfinite(err) and err <= TOL_SCATTER_REL * scale):
+            raise AssertionError(f"the baseline's K6 differs from this tree's ({name}): {err}")
+        t = cuda_time_turns({"baseline": lambda: theirs(*args),
+                             "this tree": lambda: he.hash_encode_bwd(*args)})
+        log(f"[kernels] K6 {name}, in turns with {root}: baseline K6 with its zero-fill "
+            f"{t['baseline']:.4f} ms, this tree {t['this tree']:.4f} ms (max |diff| "
+            f"{err:.3e}, max|grad| {scale:.3e})")
+        out[name] = dict(baseline_ms=t["baseline"], turns_ms=t["this tree"],
+                         baseline_max_abs_err=err)
+        torch.cuda.empty_cache()
+    return out
 
 
 def march_case(args: tuple, label: str) -> dict:
@@ -1455,68 +1596,6 @@ def votes_uniform_args(tr, seed: int, special: bool, R: int = 2048, per: int = 1
     return (tr.tree, *(torch.from_numpy(x).to(DEV) for x in (node, rid, w, a)), R)
 
 
-def baseline_k3(root: str):
-    """ROOT's K3 (its csrc/hash_block.cu: the parent's float atomics into a
-    table that its wrapper zero-filled), built alone with nvcc (the
-    package's flags) into f2nerf_torch/_build/baseline/. Returns a function
-    of hash_block_bwd's arguments that zero-fills the table and launches
-    ROOT's K3 into it, as ROOT's wrapper did."""
-    from f2nerf_torch import kernels
-    from f2nerf_torch.fields import hash_block as hb
-    from f2nerf_torch.fields.hash_encoding import _scales
-    out = os.path.join(kernels.BUILD_DIR, "baseline")
-    os.makedirs(out, exist_ok=True)
-    src = os.path.join(os.path.abspath(root), "f2nerf_torch", "csrc", "hash_block.cu")
-    so = os.path.join(out, "libbaseline_k3.so")
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    lib = ctypes.CDLL(so)
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.f2_hash_block_bwd.argtypes = [vp, vp, vp, i, vp, vp, vp, i, vp, vp, vp, vp, i, i, vp]
-    lib.f2_hash_block_bwd.restype = ctypes.c_int
-
-    def run(g, prim, bias, pts, vol, l2t, shape):
-        segs = [(gk.contiguous(), pk.contiguous(), vk.contiguous())
-                for gk, pk, vk in zip(hb._segments(g), hb._segments(pts), hb._segments(vol))]
-        ptrs = [(gk.data_ptr(), pk.data_ptr(), vk.data_ptr(), vk.shape[0])
-                for gk, pk, vk in segs] + [(None, None, None, 0)]
-        d = torch.zeros(shape, dtype=torch.float32, device=DEV)
-        kernels.check(lib.f2_hash_block_bwd(
-            *ptrs[0], *ptrs[1], prim.data_ptr(), bias.data_ptr(), _scales(DEV).data_ptr(),
-            d.data_ptr(), prim.shape[1], hb.n_blocks(l2t), kernels.stream_ptr(DEV)),
-            "baseline hash_block_bwd")
-        return d
-    return run
-
-
-def baseline_k3_turns(root: str, cases: dict) -> dict:
-    """--baseline ROOT: ROOT's K3 with its zero-fill (``baseline_k3``) and
-    this tree's K3, timed in turns (ROOT, this, this, ROOT, ...;
-    cuda_time_turns) on each case's one call, ROOT's gradient held to this
-    tree's within TOL_SCATTER_REL of the largest entry (ROOT's atomics sum
-    in no fixed order)."""
-    from f2nerf_torch.fields import hash_block as hb
-    theirs = baseline_k3(root)
-    out = {}
-    for name, (args,) in cases.items():
-        mine, old = hb.hash_block_bwd(*args), theirs(*args)
-        torch.cuda.synchronize()
-        err, scale = (mine - old).abs().max().item(), mine.abs().max().item()
-        del mine, old
-        if not (np.isfinite(err) and err <= TOL_SCATTER_REL * scale):
-            raise AssertionError(f"the baseline's K3 differs from this tree's ({name}): {err}")
-        t = cuda_time_turns({"baseline": lambda: theirs(*args),
-                             "this tree": lambda: hb.hash_block_bwd(*args)})
-        log(f"[kernels] K3 {name}, in turns with {root}: baseline K3 with its zero-fill "
-            f"{t['baseline']:.4f} ms, this tree {t['this tree']:.4f} ms (max |diff| "
-            f"{err:.3e}, max|grad| {scale:.3e})")
-        out[name] = dict(baseline_ms=t["baseline"], turns_ms=t["this tree"],
-                         baseline_max_abs_err=err)
-    return out
-
-
 def warp_compact_occupancy_rows(calls: dict, tr) -> list[dict]:
     """K12 (compact_a_warp, sample_edges), K13 (compact_keep) and K14 (the
     votes and the fold), each at one slice step's own inputs (spied; the
@@ -1843,9 +1922,6 @@ def phase_kernels(baseline: str | None = None) -> list[dict]:
                                                              time_plain=False).items()})
     r3.update({f"{case}_{k}": v for case, r in k3_extra_cases(gen).items()
                for k, v in r.items()})
-    if baseline:
-        r3.update({f"{case}_{k}": v for case, r in baseline_k3_turns(
-            baseline, {"uniform": k3_uniform, "skew": skew}).items() for k, v in r.items()})
     del skew
     rows.append(dict(name="hash_block_bwd", route="cuda",
                      source="f2nerf_torch/csrc/hash_block.cu",
@@ -1861,15 +1937,26 @@ def phase_kernels(baseline: str | None = None) -> list[dict]:
     # variants phase
     pool = torch.randn(((1 << l2t) * 16, 2), generator=gen, device=dev)
     r5 = hash3d_encode_case((pool, prim, bias, pts, vol, l2t), "uniform")
-    r6 = hash3d_scatter_case((g, prim, bias, pts, vol, l2t, pool.shape[0]), "uniform")
+    k6_uniform = (g, prim, bias, pts, vol, l2t, pool.shape[0])
+    r6 = hash3d_scatter_case(k6_uniform, "uniform", library=True)
+    del pool, g
+    torch.cuda.empty_cache()
+    r6.update({f"{case}_{k}": v for case, r in k6_extra_cases(gen).items()
+               for k, v in r.items()})
+    if baseline:
+        r6.update({f"{case}_{k}": v for case, r in baseline_k6_turns(baseline, {
+            "uniform": k6_uniform, "skew": k6_args(gen, n=1 << 18, skew=True),
+            "l2t20": k6_args(gen, l2t=20)}).items() for k, v in r.items()})
+    del k6_uniform
     for name, src, r in (("hash_encode_fwd", "f2nerf_tpu/fields/hash_encoding.py:135", r5),
                          ("hash_encode_bwd", "f2nerf_tpu/fields/hash_encoding.py:161", r6)):
+        lib = dict(library_ms=None, library=NO_LIBRARY) if r is r5 else \
+            dict(library_ms=r["library_ms"], library=LIBRARY_K6)
         rows.append(dict(name=name, route="cuda", source="f2nerf_torch/csrc/hash3d.cu",
-                         replaces=src, bound_by="bytes", library_ms=None,
-                         library=NO_LIBRARY, path="variants (a)",
+                         replaces=src, bound_by="bytes", path="variants (a)", **lib,
                          **{f"uniform_{k}": v for k, v in r.items()},
                          **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
-    del pool, g
+    torch.cuda.empty_cache()
 
     # ---- K4 at micro_gather's registered shape (:164): t 2^14, W 128, n 2^20;
     # the slice's cached-B shape follows the slice (its cap1/cap2)
@@ -1910,7 +1997,7 @@ def capture_step_inputs(tr) -> dict:
 
 
 def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
-                            launches: dict, baseline: str | None = None) -> None:
+                            launches: dict) -> None:
     """The kernels at the slice's own inputs, which become the ``ms``,
     ``plain_ms`` and ``bound_ms`` of their rows (the earlier shapes keep
     theirs under ``uniform_``/``micro_gather_``):
@@ -1919,8 +2006,7 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
       K3: that step's table-gradient scatter: B at cap2 plus the edge
           samples, with the step's own gradient (``scatter_case``: bit
           for bit its plain version and a second run, the library call;
-          the active pairs a row by level, ``k3_rows_histogram``; with
-          ``baseline``, ROOT's K3 in turns, ``baseline_k3_turns``);
+          the active pairs a row by level, ``k3_rows_histogram``);
       K4: that step's [cap1, 32] cache of A's encodings and its cap2 int64
           indices (increasing; the padding rows all at cap1 - 1). Also at
           the earlier stand-in for them (``standin_`` keys): a random
@@ -1966,9 +2052,6 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
             f"{l}: {h['pairs']}, {h['rows']}, {h['median']:g}, {h['p99']:g}, {h['max']}"
             for l, h in hist.items()))
     r3["rows_histogram"] = hist
-    if baseline:
-        r3.update({f"step_{k}": v for k, v in baseline_k3_turns(
-            baseline, {"step": calls["hash_block_bwd"]})["step"].items()})
     (cache, idx), = calls["row_gather"]
     r4 = gather_check(cache, idx, f"slice's own inputs (cap1 {cache.shape[0]}, "
                                   f"cap2 {idx.shape[0]})")
@@ -1999,9 +2082,9 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
         r["launches_per_step"] = launches.get(r["name"], 0) / N_STEPS
 
 
-def _compose(extra=()):
+def _compose(extra=(), config: str = "wanjinyou"):
     from f2nerf_torch.utils.config import compose
-    return compose(os.path.join(REPO, "confs"), "wanjinyou",
+    return compose(os.path.join(REPO, "confs"), config,
                    ["+train.fused_adam=true", *extra])
 
 
@@ -2091,13 +2174,13 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
     return launches, tr, (m["cap1"], m["cap2"])
 
 
-def step_twice(tr) -> None:
-    """One slice step run twice from one state (``trainer_snapshot``) with
-    one set of draws, torch's deterministic algorithms off, as every run of
-    the port is: every gradient leaf, parameter, Adam state leaf and
-    occupancy counter must be bit for bit (K3 sums in a fixed order, so no
-    float sum of the step depends on timing). The trainer is left as it
-    was."""
+def step_twice(tr, where: str = "slice") -> None:
+    """One step of the trainer's config run twice from one state
+    (``trainer_snapshot``) with one set of draws, torch's deterministic
+    algorithms off, as every run of the port is: every gradient leaf,
+    parameter, Adam state leaf and occupancy counter must be bit for bit
+    (K3 and K6 sum in a fixed order, so no float sum of the step depends on
+    timing). The trainer is left as it was."""
     from f2nerf_torch.utils.tree import named_leaves
 
     tr.freeze_controller()                 # one bucket and one set of caps for both
@@ -2122,7 +2205,7 @@ def step_twice(tr) -> None:
     differ = {k: int((a[k] != b[k]).sum()) if a[k].dtype != torch.float32 else
               int((a[k].view(torch.int32) != b[k].view(torch.int32)).sum())
               for k in a if not bits_equal(a[k], b[k])}
-    log(f"[slice] one step twice from iteration {snap['iter_step']}, n_rays {n_rays}, torch "
+    log(f"[{where}] one step twice from iteration {snap['iter_step']}, n_rays {n_rays}, torch "
         f"deterministic off: {len(a)} leaves (gradients, params, Adam state, occupancy "
         f"counters), {len(differ)} differ {differ}")
     if differ or a.keys() != b.keys():
@@ -2443,7 +2526,8 @@ class OpRecorder:
                     again = rec.prints((func(*a2, **k2),), {})
                 out = func(*args, **kwargs)
                 outs = None if name in OpRecorder.SKIP else rec.prints((out,), {})
-                rec.ops.append((name, ins, outs, again, rec.where()))
+                rec.ops.append((name, ins, outs, again, rec.where(),
+                                bool(getattr(func, "is_view", False))))
                 return out
 
         self.mode = Mode()
@@ -2475,7 +2559,7 @@ class OpRecorder:
         """The records with their fingerprints on the host, as int lists."""
         def host(p):
             return None if p is None else (torch.stack(p).cpu().tolist() if p else [])
-        return [(n, host(i), host(o), host(g), w) for n, i, o, g, w in self.ops]
+        return [(n, host(i), host(o), host(g), w, v) for n, i, o, g, w, v in self.ops]
 
     @staticmethod
     def where() -> str:
@@ -2500,7 +2584,7 @@ class OpRecorder:
         self.anomaly.__exit__(*exc)
 
 
-def phase_atomics(tr) -> dict:
+def phase_atomics(tr, where: str = "atomics") -> dict:
     """One slice step run twice from one state (``trainer_snapshot``) with
     one set of draws, torch's deterministic algorithms off, every aten op
     recorded (``OpRecorder``). The first run replays each op on clones of
@@ -2508,8 +2592,10 @@ def phase_atomics(tr) -> dict:
     float sums (an atomic) or of its writes, and is printed with where it
     ran and how many times a step. Across the two runs, an op whose inputs
     are the same bits and whose outputs differ is printed too, and so is
-    the first op whose inputs differ with no such op before it (where a
-    hand-written kernel's difference would enter); each leaf's gradient is
+    the first op whose inputs and outputs differ with no such op before it
+    (where a hand-written kernel's difference would enter; a view op, or
+    an op whose outputs agree, passes no difference on: its inputs may
+    hold memory not yet written); each leaf's gradient is
     compared bit for bit. Printed, not held (the slice phase's
     ``step_twice`` holds the leaves)."""
     import collections
@@ -2536,32 +2622,51 @@ def phase_atomics(tr) -> dict:
     (a, ga), (b, gb) = runs
     if [o[0] for o in a] != [o[0] for o in b]:
         raise AssertionError("the two runs of one step ran different op sequences")
-    replayed = collections.Counter((n, w) for n, _, o, g, w in a
+    replayed = collections.Counter((n, w) for n, _, o, g, w, _ in a
                                    if g is not None and o is not None and o != g)
     across = collections.Counter()
     first_input_diff = None
-    for (name, ia, oa, _, where), (_, ib, ob, _, _) in zip(a, b):
+    for (name, ia, oa, _, at, view), (_, ib, ob, _, _, _) in zip(a, b):
         if ia == ib and oa is not None and oa != ob:
-            across[(name, where)] += 1
-        elif ia != ib and first_input_diff is None and not across:
-            first_input_diff = (name, where)
+            across[(name, at)] += 1
+        elif ia != ib and oa != ob and not view and first_input_diff is None \
+                and not across:
+            # a view of memory that an op has yet to write (torch.empty),
+            # or an op that overwrites it whole, carries no difference on
+            first_input_diff = (name, at)
     leaves = {k: bits_equal(ga[k], gb[k]) for k in ga}
-    log(f"[atomics] one step twice from iteration {tr.iter_step - 1}, n_rays {n_rays}, "
+    log(f"[{where}] one step twice from iteration {tr.iter_step - 1}, n_rays {n_rays}, "
         f"{len(a)} aten ops a run (forward and backward), torch deterministic off: "
         f"{len(replayed)} op sites whose output differed when the op ran again on "
         f"the same inputs, {len(across)} whose output differed across the runs on "
         f"the same inputs")
-    for (name, where), k in replayed.most_common():
-        log(f"[atomics]   replayed: {name} x{k} at {where}")
-    for (name, where), k in across.most_common():
-        log(f"[atomics]   across the runs: {name} x{k} at {where}")
-    log(f"[atomics] first op whose inputs differ with no order-dependent op before it "
+    for (name, at), k in replayed.most_common():
+        log(f"[{where}]   replayed: {name} x{k} at {at}")
+    for (name, at), k in across.most_common():
+        log(f"[{where}]   across the runs: {name} x{k} at {at}")
+    log(f"[{where}] first op whose inputs differ with no order-dependent op before it "
         f"(a hand-written kernel's difference): {first_input_diff}")
-    log(f"[atomics] gradient leaves bit for bit: {leaves}")
+    log(f"[{where}] gradient leaves bit for bit: {leaves}")
     restore_snapshot(tr, snap)
     tr.freeze_controller(False)
     return dict(replayed=[list(k) + [v] for k, v in replayed.items()],
-                across=[list(k) + [v] for k, v in across.items()], leaves=leaves)
+                across=[list(k) + [v] for k, v in across.items()], leaves=leaves,
+                first_input_diff=first_input_diff)
+
+
+def phase_ref_atomics(tmp: str) -> dict:
+    """Not run by default (--phases device,build,ref_atomics [--package-root
+    ROOT]): variants (a)'s trainer (REF_OVERRIDES at full width), VAR_STEPS
+    steps uncounted, then ``phase_atomics`` on it: the order-dependent ops
+    of the reference-semantics step, printed (the variants phase holds its
+    leaves bit for bit: step_twice, chunk_parity)."""
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    tr = Trainer(_compose(REF_OVERRIDES), os.path.join(tmp, "exp_ref_atomics"),
+                 write_ball_dataset(os.path.join(tmp, "ball_ref_atomics")), seed=2022,
+                 device=DEV)
+    _train_checked(tr, VAR_STEPS, "ref_atomics")
+    return phase_atomics(tr, "atomics (a)")
 
 
 def step_parity(tr, max_hits: int, where: str, single_pass: bool = False) -> None:
@@ -2964,7 +3069,7 @@ def restore_snapshot(tr, snap: dict) -> None:
     tr.tree, tr.iter_step = snap["tree"], snap["iter_step"]
 
 
-def chunk_parity(tr, k: int = BENCH_CHUNK) -> None:
+def chunk_parity(tr, k: int = BENCH_CHUNK, where: str = "bench") -> None:
     """``train_many(k)`` against k ``train_one`` calls from one state
     (``trainer_snapshot``) with one set of draws, at the trainer's frozen
     controller, held to
@@ -2974,8 +3079,8 @@ def chunk_parity(tr, k: int = BENCH_CHUNK) -> None:
     moment and occupancy counter the same bits (the exact difference is
     printed). The pair runs twice: under torch's deterministic
     algorithms, then with them off, as every run of the port is. Both are
-    held: the segment ops (K10, K11) and the table-gradient scatter (K3)
-    sum in a fixed order. (Before K10/K11, torch's float atomics moved the
+    held: the segment ops (K10, K11) and the table-gradient scatters (K3,
+    K6) sum in a fixed order. (Before K10/K11, torch's float atomics moved the
     second pair 20-191x past STEP_TOL's outlier bound over 3 steps; before
     K3's order-fixed redesign the pairs agreed only within STEP_TOL;
     PERF.md §6.)"""
@@ -3011,7 +3116,7 @@ def chunk_parity(tr, k: int = BENCH_CHUNK) -> None:
         differ = [f"{part} {k}" for part, k in leaves if not bits_equal(a[part][k], b[part][k])]
         exact = max(float((a[part][k].double() - b[part][k].double()).abs().max())
                     for part, k in leaves)
-        log(f"[bench] train_many({k}) vs {k} train_one from iteration {tr.iter_step - k}, "
+        log(f"[{where}] train_many({k}) vs {k} train_one from iteration {tr.iter_step - k}, "
             f"{'torch deterministic' if deterministic else 'torch atomics'}: "
             f"{ {f: a['last'][f] for f in statics} } vs { {f: b['last'][f] for f in statics} }; "
             f"mse {a['mse']} vs {b['mse']}; errors {err} (tolerances {STEP_TOL}); per leaf "
@@ -3248,7 +3353,8 @@ def phase_march(tmp: str) -> None:
                "uniform rays, hit cap 64, 4,096 rays")
 
 
-def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
+def phase_variants(tmp: str, rows: list[dict], profile: bool = False,
+                   baseline: str | None = None) -> dict:
     """The configurations beside the default slice, on the card:
       (a) the reference-semantics config (REF_OVERRIDES: the Hash3DAnchored
           field, the lockstep marcher) at full width: VAR_STEPS steps timed
@@ -3256,9 +3362,11 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
           step launches K5 twice (A's prefilter, B + edges), K6 and K7
           once, K2/K3/K4 never; K5/K6/K7 at one step's own inputs (spied;
           both K5 launches) and K7 at a uniform shape, each against its
-          plain version; one
-          step card vs CPU; render_image over the 24 cameras (eval rays/s)
-          and one image card vs CPU;
+          plain version (K6 also beside its library call, and with
+          ``baseline`` in turns with ROOT's K6); one step run twice from
+          one state bit for bit (``step_twice``) and ``chunk_parity``,
+          both held; one step card vs CPU; render_image over the 24
+          cameras (eval rays/s) and one image card vs CPU;
       (b) HashBlock with +train.single_pass=true: SINGLE_PASS_STEPS steps,
           each single pass (B = A), K3 once a step, K4 and K13 never, the
           offsets launch once a step with K12's offsets given; the offsets
@@ -3329,7 +3437,11 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
                                       step_launches=[dict(launch=w, **r) for w, r in
                                                      zip(("A", "B + edges"), k5)]),
               "hash_encode_bwd": hash3d_scatter_case(calls["hash_encode_bwd"][0],
-                                                     "step's B + edges")}
+                                                     "step's B + edges", library=True)}
+        if baseline:
+            at["hash_encode_bwd"].update({f"{case}_{k}": v for case, r in baseline_k6_turns(
+                baseline, {"step": calls["hash_encode_bwd"][0]}).items()
+                for k, v in r.items()})
         log("[variants] (a) K5 a step: " + "; ".join(
             f"{w} n={r['n']} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({100 * r['bound_ms'] / r['ms']:.1f}% of it)"
@@ -3351,8 +3463,15 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
                 r.update({k: new[k] for k in ("ms", "plain_ms", "bound_ms")},
                          max_abs_err=max(r["max_abs_err"], new["max_abs_err"]),
                          **{f"slice_{k}": v for k, v in new.items()})
+                if new.get("library_ms") is not None:
+                    r["library_ms"] = new["library_ms"]
                 r["launches_per_step"] = launches[r["name"]] / VAR_STEPS
 
+    # (a)'s step is reproducible: K6 sums in a fixed order
+    step_twice(tr, "variants (a)")
+    tr.freeze_controller()
+    chunk_parity(tr, where="variants (a)")
+    tr.freeze_controller(False)
     step_parity(tr, max_hits=64, where="variants (a) parity")
     h, w = tr.dataset.height, tr.dataset.width
     from f2nerf_torch.data import dataset as ds
@@ -3448,6 +3567,80 @@ def phase_variants(tmp: str, rows: list[dict], profile: bool = False) -> dict:
     del tr
     torch.cuda.empty_cache()
     return {"variants (a)": launches, "variants (b)": sp}
+
+
+def phase_configs(tmp: str) -> dict:
+    """The configurations beside wanjinyou (CONFIGS: confs/llff.yaml,
+    free.yaml, nerf-360.yaml, wanjinyou_big.yaml), each composed on the
+    ball scene at its own full width with +train.fused_adam=true (no
+    other override: llff's factor 4, its bounds_factor and
+    disp_loss_weight 5e-2, the appearance embedding off in the paper's
+    three, wanjinyou_big's [16, 32768, 128] HashBlock table): CONFIG_STEPS
+    steps each (steps/s and rays/s over steps TIME_FROM on, peak memory,
+    cap1/cap2, hit cap, K1-K4's launches: K3 and K4 once a step, K2 at
+    least once; the other kernels of the path at least once), then one
+    step run twice from one state bit for bit (``step_twice``); llff also
+    one step card vs CPU (``step_parity``). Any failure fails the phase.
+    Returns the kernels' launches over the four configs."""
+    from f2nerf_torch.fields import hash_block as hb
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    from f2nerf_torch.utils.tree import named_leaves
+
+    data_dir = write_ball_dataset(os.path.join(tmp, "ball_configs"))
+    total = {}
+    for name in CONFIGS:
+        cfg = _compose(config=name)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, os.path.join(tmp, f"exp_{name}"), data_dir, seed=2022, device=DEV)
+        torch.cuda.synchronize()
+        shape = tuple(tr.params["feat_pool"].shape)
+        want = (16, hb.n_blocks(int(cfg["field"]["log2_table_size"])), hb.LANES)
+        log(f"[configs] {name}: Trainer built in {time.perf_counter() - t0:.2f} s; field "
+            f"{cfg['field']['type']} {shape}; use_app_emb {cfg['renderer']['use_app_emb']}, "
+            f"scale_by_dis {cfg['pts_sampler']['scale_by_dis']}, dataset.factor "
+            f"{cfg['dataset']['factor']}, disp_loss_weight {cfg['train']['disp_loss_weight']}; "
+            f"{tr.tree_host.n_nodes} nodes")
+        if shape != want or (name == "wanjinyou_big" and shape != (16, 32768, 128)):
+            raise AssertionError(f"{name}: HashBlock table {shape}, expected {want}")
+        n_leaves = len(list(named_leaves(tr.params)))
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rays, t_start = 0, None
+        for step in range(1, CONFIG_STEPS + 1):
+            if step == TIME_FROM:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            m = tr.train_one()
+            if step >= TIME_FROM:
+                rays += m["n_rays"]
+            log(f"[configs] {name} step {step}: n_rays {m['n_rays']} cap1 {m['cap1']} cap2 "
+                f"{m['cap2']} hit_cap {m['hit_cap']} loss {m['loss']:.6f} meaningful "
+                f"{m['n_meaningful']:.0f}")
+            if not np.isfinite(m["loss"]) or m["grads_finite"] != 1.0:
+                raise AssertionError(f"{name}: non-finite loss or gradients at step {step}")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t_start
+        launches = read_counts()
+        n_timed = CONFIG_STEPS - TIME_FROM + 1
+        log(f"[configs] {name} steps {TIME_FROM}-{CONFIG_STEPS}: {n_timed / dt:.3f} steps/s, "
+            f"{rays / dt:.1f} rays/s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; K1-K4 launches "
+            f"{ {k: launches[k] for k in KERNEL_ORDER[:4]} }; all launches {launches}")
+        check_counts(f"configs {name}", launches, {
+            "fused_adam": CONFIG_STEPS * n_leaves, "hash_block_fwd": CONFIG_STEPS,
+            "traverse": CONFIG_STEPS, "ray_march_parallel": CONFIG_STEPS,
+            **seg_need(CONFIG_STEPS), **warp_need(CONFIG_STEPS)},
+            exact={"hash_block_bwd": CONFIG_STEPS, "row_gather": CONFIG_STEPS,
+                   "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        step_twice(tr, f"configs {name}")
+        if name == "llff":
+            step_parity(tr, max_hits=64, where="configs llff parity")
+        del tr
+        torch.cuda.empty_cache()
+    return total
 
 
 # ------------------------------------------------------------ data parallel
@@ -3676,8 +3869,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--baseline", default=None, metavar="ROOT",
-                    help="a checkout of an earlier tree: its K3 (csrc/hash_block.cu, with "
-                         "the zero-fill its wrapper did) timed in turns with this tree's; "
+                    help="a checkout of an earlier tree: its atomic K6 (csrc/hash3d.cu, "
+                         "with the zero-fill its wrapper did) timed in turns with this "
+                         "tree's; "
                          "with the profile phase, its slice step's launches and steps/s "
                          "beside this tree's, one process each, in turns (ROOT, this, "
                          "this, ROOT)")
@@ -3709,7 +3903,7 @@ def main(argv=None) -> int:
             launches, tr, (cap1, cap2) = timed("slice", phase_slice, tmp)
             if rows:
                 timed("kernels_at_slice_inputs", kernels_at_slice_inputs, rows, tr,
-                      cap1, cap2, launches, args.baseline)
+                      cap1, cap2, launches)
             if "profile" in phases:
                 timed("profile", phase_profile, tr)
                 if args.baseline:
@@ -3748,7 +3942,11 @@ def main(argv=None) -> int:
         var_launches = {}
         if "variants" in phases:
             var_launches = timed("variants", phase_variants, tmp, rows,
-                                 "profile" in phases)
+                                 "profile" in phases, args.baseline)
+        if "configs" in phases:
+            paths["configs_launches"] = timed("configs", phase_configs, tmp)
+        if "ref_atomics" in phases:
+            timed("ref_atomics", phase_ref_atomics, tmp)
         if "data_parallel" in phases:
             paths["data_parallel_launches"] = timed("data_parallel", phase_data_parallel, tmp)
     log(f"[time] phases (s): {walls}")

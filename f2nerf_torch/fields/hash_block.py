@@ -29,8 +29,8 @@ import torch
 
 from .. import kernels
 from ..ops.gather import row_gather
-from .hash_encoding import (N_CHANNELS, N_LEVELS, _check_inputs, _random_primes,
-                            _scales, level_scales)
+from .hash_encoding import (N_CHANNELS, N_LEVELS, _check_inputs, _in_order,
+                            _random_primes, _runs, _scales, level_scales)
 
 BLOCK_CELLS = 3
 BLOCK_LAT = 4
@@ -135,19 +135,6 @@ def k3_list(g, prim, bias, pts, vol, nb: int, level: int):
     act = ((gl[:, 0] != 0) | (gl[:, 1] != 0)).nonzero()[:, 0]
     order = act[torch.sort(row[act], stable=True).indices]
     return row[order], order, [(c[order], [w[order] for w in ws]) for c, ws in axes]
-
-
-def _runs(key):
-    """(run id of each entry, each run's first entry) of a sorted key."""
-    new = torch.ones(key.shape, dtype=torch.bool, device=key.device)
-    new[1:] = key[1:] != key[:-1]
-    return torch.cumsum(new, 0) - 1, new.nonzero()[:, 0]
-
-
-def _in_order(rank):
-    """Index sets of the entries of rank 0, 1, ... (in entry order)."""
-    order = torch.argsort(rank, stable=True)
-    return torch.split(order, torch.bincount(rank).tolist())
 
 
 def k3_entries(g, prim, bias, pts, vol, nb: int, window: int = K3_WINDOW):

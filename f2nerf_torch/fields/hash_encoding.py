@@ -37,6 +37,13 @@ N_LEVELS = 16
 RES_BASE_POW_2 = 3.0
 RES_FINE_POW_2 = 10.0
 _M32 = 0xFFFFFFFF
+# K6's order (csrc/hash3d.cu): samples a group of its list, records a
+# chunk, and at most so many bits of a level's entry pick its bucket; K6
+# sorts levels of at most 2^20 entries
+K6_GROUP = 32
+K6_CHUNK = 2048
+K6_BUCKET_BITS = 10
+K6_MAX_LOG2_ENTRIES = 20
 
 
 def level_scales() -> np.ndarray:
@@ -141,15 +148,135 @@ def hash_encode_fwd_plain(feat_pool, prim, bias, pts, vol, log2_table_size: int)
     return torch.cat(out, dim=-1)
 
 
+def _runs(key):
+    """(run id of each entry, each run's first entry) of a sorted key."""
+    new = torch.ones(key.shape, dtype=torch.bool, device=key.device)
+    new[1:] = key[1:] != key[:-1]
+    return torch.cumsum(new, 0) - 1, new.nonzero()[:, 0]
+
+
+def _in_order(rank):
+    """Index sets of the entries of rank 0, 1, ... (in entry order)."""
+    order = torch.argsort(rank, stable=True)
+    return torch.split(order, torch.bincount(rank).tolist())
+
+
+def k6_buckets(log2_table_size: int) -> tuple[int, int]:
+    """(hi, lo): K6 cuts a level's 2^(hi + lo) entries into 2^hi buckets of
+    2^lo consecutive entries, hi = min(K6_BUCKET_BITS, log2 local_size)."""
+    bits = local_size(log2_table_size).bit_length() - 1
+    hi = min(K6_BUCKET_BITS, bits)
+    return hi, bits - hi
+
+
+def _cell_keys(prim, bias, pts, vol, lvl: int):
+    """[n, 4] int64 (volume, h0 per axis) at level ``lvl``: two samples of
+    one volume share all 8 corners where these are equal (h0 = floor *
+    prime is a bijection of the floor in uint32)."""
+    vol = vol.long()
+    p = prim[lvl, vol].long() & _M32
+    f = torch.floor(pts * float(level_scales()[lvl]) + bias[lvl, vol])
+    return torch.cat([vol[:, None], ((f.long() & _M32) * p) & _M32], 1)
+
+
+def _k6_runs(act, key, val):
+    """K6's runs within each group of K6_GROUP consecutive samples: a run
+    is a maximal stretch of active samples with one cell key. A sample's
+    values [n, 8, 2] become the inclusive scan of its run's in doubling
+    steps (x_i = x_(i-o) + x_i for o = 1, 2, 4, 8, 16 where sample i - o is
+    in i's run, all from the step's inputs), so a run's last sample holds
+    the run's value. Returns (last [n] bool: the sample ends a run, the
+    scanned values [n, 8, 2])."""
+    n, dev = act.numel(), act.device
+    groups = -(-n // K6_GROUP)
+    lane = torch.arange(K6_GROUP, device=dev)
+    a = torch.zeros(groups * K6_GROUP, dtype=torch.bool, device=dev)
+    a[:n] = act
+    a = a.reshape(groups, K6_GROUP)
+    k = torch.zeros((groups * K6_GROUP, key.shape[1]), dtype=key.dtype, device=dev)
+    k[:n] = key
+    k = k.reshape(groups, K6_GROUP, key.shape[1])
+    x = torch.zeros((groups * K6_GROUP,) + tuple(val.shape[1:]), dtype=val.dtype, device=dev)
+    x[:n] = val
+    x = x.reshape((groups, K6_GROUP) + tuple(val.shape[1:]))
+    same = torch.zeros_like(a)
+    same[:, 1:] = a[:, 1:] & a[:, :-1] & (k[:, 1:] == k[:, :-1]).all(-1)
+    start = torch.where(a & ~same, lane, -1).cummax(1).values
+    o = 1
+    while o < K6_GROUP:
+        y = torch.zeros_like(x)
+        y[:, o:] = x[:, :-o]
+        x = torch.where((a & (lane - o >= start))[:, :, None, None], y + x, x)
+        o *= 2
+    last = a.clone()
+    last[:, :-1] &= ~same[:, 1:]
+    return last.reshape(-1)[:n], x.reshape((groups * K6_GROUP,) + tuple(val.shape[1:]))[:n]
+
+
+def k6_records(g, prim, bias, pts, vol, log2_table_size: int):
+    """Every level's records in K6's list order: level by level, the
+    samples in groups of K6_GROUP consecutive ones (0-31, 32-63, ...),
+    within a group corner by corner (c = 0..7), within a corner the
+    group's runs (``_k6_runs``: active samples, g != 0 at that level, of
+    one cell) in sample order, each one record: its cell's corner c and
+    its samples' values (g_0 * w_c, g_1 * w_c) summed as ``_k6_runs``
+    states. Returns (pool index [m] int64, value [m, 2] f32)."""
+    idx = [[] for _ in range(N_LEVELS)]
+    w = [[] for _ in range(N_LEVELS)]
+    for lvl, i, wc in _corner_indices_weights(prim, bias, pts, vol, log2_table_size):
+        idx[lvl].append(i)
+        w[lvl].append(wc)
+    corner = torch.arange(8, device=g.device)
+    entries, values = [], []
+    for lvl in range(N_LEVELS):
+        gl = g[:, N_CHANNELS * lvl:N_CHANNELS * lvl + N_CHANNELS]
+        act = (gl[:, 0] != 0) | (gl[:, 1] != 0)
+        last, val = _k6_runs(act, _cell_keys(prim, bias, pts, vol, lvl),
+                             gl[:, None, :] * torch.stack(w[lvl], 1)[:, :, None])
+        sel = last.nonzero()[:, 0]
+        pos = ((sel // K6_GROUP * 8)[:, None] + corner[None, :]) * K6_GROUP \
+            + (sel % K6_GROUP)[:, None]
+        order = torch.argsort(pos.reshape(-1))
+        entries.append(torch.stack(idx[lvl], 1)[sel].reshape(-1)[order])
+        values.append(val[sel].reshape(-1, N_CHANNELS)[order])
+    return torch.cat(entries), torch.cat(values)
+
+
 def hash_encode_bwd_plain(g, prim, bias, pts, vol, log2_table_size: int,
-                          pool_size: int):
-    """Plain PyTorch version of K6: the pool gradient [pool_size, 2]."""
-    acc = torch.zeros((pool_size, N_CHANNELS), dtype=torch.float32,
-                      device=g.device)
-    for lvl, idx, w in _corner_indices_weights(prim, bias, pts, vol,
-                                               log2_table_size):
-        acc.index_add_(0, idx, g[:, 2 * lvl:2 * lvl + 2] * w[:, None])
-    return acc
+                          pool_size: int, chunk: int = K6_CHUNK):
+    """Plain PyTorch version of K6: the pool gradient [pool_size, 2],
+    summed in K6's order (csrc/hash3d.cu): per level the records in list
+    order (``k6_records``) are bucketed by entry (``k6_buckets``: 2^lo
+    consecutive entries a bucket), each bucket's list cut into chunks of
+    ``chunk`` positions; an entry is the sum from +0, in chunk order, of
+    its records in each chunk added to +0 one at a time in list order."""
+    entry, val = k6_records(g, prim, bias, pts, vol, log2_table_size)
+    d = torch.zeros((pool_size, N_CHANNELS), dtype=torch.float32, device=g.device)
+    m = entry.numel()
+    if not m:
+        return d
+    _, lo = k6_buckets(log2_table_size)
+    pos = torch.arange(m, device=g.device)
+    # each record's position in its bucket's list: the bucket (level
+    # included) sorted stably, less the bucket's first position there
+    bucket = entry >> lo
+    by_bucket = torch.sort(bucket, stable=True).indices
+    run, first = _runs(bucket[by_bucket])
+    in_bucket = torch.empty_like(pos)
+    in_bucket[by_bucket] = pos - first[run]
+    key = (entry << 32) | (in_bucket // chunk)
+    order = torch.sort(entry, stable=True).indices
+    key, val = key[order], val[order]
+    run, first = _runs(key)                      # a run: one entry in one chunk
+    part = torch.zeros((first.numel(), N_CHANNELS), dtype=torch.float32, device=g.device)
+    # the k-th records of all runs at once: no run is added to twice
+    for sel in _in_order(pos - first[run]):
+        part[run[sel]] = part[run[sel]] + val[sel]
+    prow = key[first] >> 32
+    prun, pfirst = _runs(prow)
+    for sel in _in_order(torch.arange(prow.numel(), device=g.device) - pfirst[prun]):
+        d[prow[sel]] = d[prow[sel]] + part[sel]
+    return d
 
 
 # ----------------------------------------------------------- kernel wrappers
@@ -202,31 +329,43 @@ hash_encode_fwd.launches = 0
 
 def hash_encode_bwd(g, prim, bias, pts, vol, log2_table_size: int,
                     pool_size: int):
-    """K6 pool-gradient scatter: [pool_size, 2] f32 (atomics on the card,
-    so the summation order is not fixed)."""
+    """K6 pool-gradient scatter: [pool_size, 2] f32, summed in the order
+    that ``hash_encode_bwd_plain`` states (the same bits on every run),
+    every entry stored once. The arguments are checked on every device;
+    CPU tensors take the plain version."""
+    lsz = local_size(log2_table_size)
+    if pool_size != lsz * N_LEVELS:
+        raise ValueError(f"hash_encode_bwd: pool size {pool_size}")
+    if log2_table_size > K6_MAX_LOG2_ENTRIES:
+        raise ValueError(f"hash_encode_bwd: log2_table_size {log2_table_size}; K6 sorts "
+                         f"levels of at most 2^{K6_MAX_LOG2_ENTRIES} entries")
+    g, pts, vol = g.contiguous(), pts.contiguous(), vol.contiguous()
+    if tuple(g.shape) != (pts.shape[0], N_LEVELS * N_CHANNELS):
+        raise ValueError(f"hash_encode_bwd: grad shape {tuple(g.shape)}")
+    _check_inputs("hash_encode_bwd", g, prim, bias, pts, vol)
+    n = pts.shape[0]
+    if 8 * n >= 1 << 31:
+        raise ValueError(f"hash_encode_bwd: {n} samples; K6 indexes a level's 8n "
+                         f"records in int32")
     if pts.device.type == "cpu":
         return hash_encode_bwd_plain(g, prim, bias, pts, vol, log2_table_size,
                                      pool_size)
     if pts.device.type != "cuda":
         raise ValueError(f"hash_encode_bwd: unsupported device {pts.device}")
-    lsz = local_size(log2_table_size)
-    if pool_size != lsz * N_LEVELS:
-        raise ValueError(f"hash_encode_bwd: pool size {pool_size}")
-    g, pts, vol = g.contiguous(), pts.contiguous(), vol.contiguous()
-    if tuple(g.shape) != (pts.shape[0], N_LEVELS * N_CHANNELS):
-        raise ValueError(f"hash_encode_bwd: grad shape {tuple(g.shape)}")
-    _check_inputs("hash_encode_bwd", g, prim, bias, pts, vol)
+    if n == 0:
+        return torch.zeros((pool_size, N_CHANNELS), dtype=torch.float32,
+                           device=pts.device)
     if g.data_ptr() % 8:               # read as float2: a row view may be off
         g = g.clone()
-    d = torch.zeros((pool_size, N_CHANNELS), dtype=torch.float32,
-                    device=pts.device)
-    n = pts.shape[0]
-    if n == 0:
-        return d
-    code = kernels.library().f2_hash3d_bwd(
+    d = torch.empty((pool_size, N_CHANNELS), dtype=torch.float32, device=pts.device)
+    lib = kernels.library()
+    scratch = torch.empty((lib.f2_hash3d_bwd_scratch_bytes(n),), dtype=torch.uint8,
+                          device=pts.device)
+    code = lib.f2_hash3d_bwd(
         g.data_ptr(), prim.data_ptr(), bias.data_ptr(),
         _scales(str(pts.device)).data_ptr(), pts.data_ptr(), vol.data_ptr(),
-        d.data_ptr(), n, prim.shape[1], lsz, kernels.stream_ptr(pts.device))
+        d.data_ptr(), scratch.data_ptr(), n, prim.shape[1], lsz,
+        kernels.stream_ptr(pts.device))
     kernels.check(code, "hash_encode_bwd")
     hash_encode_bwd.launches += 1
     return d

@@ -31,8 +31,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: K2/K3's, K5/K6's, K7-K9's and K12's arithmetic must
 # round exactly like the plain versions (see csrc/hash_block.cu, hash3d.cu,
-# ray_march.cu, traverse.cu, march_parallel.cu, warp.cu), and K3 and K10/K11
-# add in a fixed order (csrc/hash_block.cu, csrc/segment.cu)
+# ray_march.cu, traverse.cu, march_parallel.cu, warp.cu), and K3, K6 and
+# K10/K11 add in a fixed order (csrc/hash_block.cu, hash3d.cu, segment.cu)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,7 +47,8 @@ _SIGNATURES = {
     "f2_hash_block_bwd_scratch_bytes": [_ll, _i],
     "f2_row_gather": [_vp, _vp, _i, _vp, _ll, _i, _vp],
     "f2_hash3d_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
-    "f2_hash3d_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
+    "f2_hash3d_bwd": [_vp] * 8 + [_ll, _i, _i, _vp],
+    "f2_hash3d_bwd_scratch_bytes": [_ll],
     "f2_ray_march_lockstep": [_vp] * 16 + [_i, _i, _i, _i, _f, _i, _vp],
     "f2_traverse": [_vp] * 13 + [_i, _i, _i, _i, _vp],
     "f2_ray_march_parallel": [_vp] * 18 + [_i, _i, _i, _f, _i, _i, _i, _vp],
@@ -64,7 +65,8 @@ _SIGNATURES = {
 
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"f2_compact_keep_state_bytes": ctypes.c_longlong,
-             "f2_hash_block_bwd_scratch_bytes": ctypes.c_longlong}
+             "f2_hash_block_bwd_scratch_bytes": ctypes.c_longlong,
+             "f2_hash3d_bwd_scratch_bytes": ctypes.c_longlong}
 
 
 class _State:

@@ -1,19 +1,20 @@
-"""Sweep the launch shapes and variants of K3, K8-K14 (K14: the votes) and
-the offsets launch, and show what their time is made of, on one CUDA card.
+"""Sweep the launch shapes and variants of K3, K6, K8-K14 (K14: the votes)
+and the offsets launch, and show what their time is made of, on one CUDA
+card.
 
-    python scripts/sweep_kernels.py [--kernels k3,k8,k9,k10,k11,offsets,k12,k13,k14]
+    python scripts/sweep_kernels.py [--kernels k3,k6,k8,k9,k10,k11,offsets,k12,k13,k14]
         [--baseline ROOT] [--out results.json]
 
 Each variant is a copy of a source in f2nerf_torch/csrc/ (hash_block.cu,
-traverse.cu, march_parallel.cu, segment.cu, warp.cu, compact.cu or
+hash3d.cu, traverse.cu, march_parallel.cu, segment.cu, warp.cu, compact.cu or
 occupancy.cu) with a few text edits, built alone with nvcc (the package's
 flags) into a library of its own under f2nerf_torch/_build/sweep/, and
 timed on the same inputs as the unedited kernel, in turns (CUDA events
 after ~1 ms of a busy stream, median). Variants that keep the kernel's
 function are held to the unedited kernel's outputs bit for bit (K10's,
 which add in another order, to the plain version within 1e-5 of each
-ray's sum of |x|; K3's, K12's and K14's to their plain versions, K3's at
-the variant's window); diagnostic ones (``diag``) change the arithmetic or
+ray's sum of |x|; K3's, K6's, K12's and K14's to their plain versions,
+K3's at the variant's window, K6's at its chunk); diagnostic ones (``diag``) change the arithmetic or
 drop work to show what that work costs, and are only timed. The k13
 sweep times K13 (``K13_VARIANTS``: 2, 4 and 8 rows a thread, 2 or 4 rows'
 loads in flight, tiles from a ticket instead of the block index, padding
@@ -24,10 +25,17 @@ k3 sweep times K3 (``K3_VARIANTS``: windows of 32, 64 and 128 positions,
 in flight; diagnostics: the keys alone, the keys and the
 sort, no stores, the dense write alone, the samples read in position
 order, no walk) at a slice step's own call, the uniform shape and the skewed one,
-prints the step's active pairs a row by level, times the library call
-(index_add_ of the prebuilt dense rows, deterministic), and, with
-``--baseline ROOT`` (an earlier tree, e.g. a ``git archive`` of it),
-ROOT's K3 with the zero-fill its wrapper did, in the same turns.
+prints the step's active pairs a row by level and times the library call
+(index_add_ of the prebuilt dense rows, deterministic). The k6
+sweep times K6 (``K6_VARIANTS``: reduce chunks of 1,024, 2,048 and 4,096
+records; diagnostics: the counts and their scan alone, without the
+reduce, the scatter without its stores) at variants (a)'s step's own call (the reference-semantics
+config after 20 steps), the uniform shape, the skewed one and
+log2_table_size 20 (chip_smoke's k6_args), its launches' device ms, the
+library call (chip_smoke.k6_library_ms), and with ``--baseline ROOT`` (an
+earlier tree whose K6 adds with atomics, e.g. a ``git archive`` of it)
+ROOT's K6 with the zero-fill its wrapper did (chip_smoke.baseline_k6), in
+turns.
 
 Inputs: K8 on the slice's tree (confs/wanjinyou.yaml at full width on the
 ball scene, 945 nodes) with 2,048 uniform rays (hit cap 64) and with the
@@ -420,6 +428,19 @@ K3_VARIANTS = {
 }
 K3_WINDOWS = {"base": 64, "window32": 32, "window128": 128, "warps2": 64, "tile2048": 64,
               "finish4": 64, "finish8": 64}
+
+K6_CHUNK = "constexpr int kChunk = 2048;"
+K6_WRITE = "      out[S.base[e >> lo] + j] = make_uint4("
+K6_VARIANTS = {
+    "base": [],
+    "chunk1024": [(K6_CHUNK, "constexpr int kChunk = 1024;")],
+    "chunk4096": [(K6_CHUNK, "constexpr int kChunk = 4096;")],
+    "diag_counts": [(f"  k6_{k}_kernel<<<", f"  if (0) k6_{k}_kernel<<<")
+                    for k in ("scatter", "reduce")],
+    "diag_no_reduce": [("  k6_reduce_kernel<<<", "  if (0) k6_reduce_kernel<<<")],
+    "diag_no_write": [(K6_WRITE, "      if (j < 0) " + K6_WRITE.lstrip())],
+}
+K6_CHUNKS = {"base": 2048, "chunk1024": 1024, "chunk4096": 4096}
 
 
 def log(*a):
@@ -1115,12 +1136,11 @@ def step_k3_inputs() -> tuple:
     return args
 
 
-def sweep_k3(baseline: str | None) -> dict:
+def sweep_k3() -> dict:
     """K3 at the slice step's own call, the uniform shape and the skewed
     one (chip_smoke's k3_uniform_args, k3_skew_args): the active pairs a
     row by level at the step, the windows and the diagnostics
-    (``K3_VARIANTS``), the library call (chip_smoke.k3_library_ms), and with
-    --baseline ROOT's K3 with its zero-fill (chip_smoke.baseline_k3), all
+    (``K3_VARIANTS``) and the library call (chip_smoke.k3_library_ms), all
     timed in turns. The variants that keep the function are held bit for
     bit to the plain version at their window, and to a second run."""
     import chip_smoke as cs
@@ -1131,7 +1151,6 @@ def sweep_k3(baseline: str | None) -> dict:
         _sig(lib, "f2_hash_block_bwd", [vp, vp, vp, i, vp, vp, vp, i] + [vp] * 5 + [i, i, vp])
         lib.f2_hash_block_bwd_scratch_bytes.argtypes = [ll, i]
         lib.f2_hash_block_bwd_scratch_bytes.restype = ll
-    old = cs.baseline_k3(baseline) if baseline else None
     gen = torch.Generator(device="cuda").manual_seed(3)
     step = step_k3_inputs()
     hist = cs.k3_rows_histogram([step])
@@ -1152,8 +1171,6 @@ def sweep_k3(baseline: str | None) -> dict:
                     raise AssertionError(f"K3 {name} ({case}) differs from the plain version "
                                          f"at window {K3_WINDOWS[name]} or from its repeat")
             fns[name] = lambda lib=lib, args=args: k3_run(lib, *args)
-        if old is not None:
-            fns["baseline_with_zero_fill"] = lambda args=args: old(*args)
         del want
         t = in_turns(fns)
         lib_ms = cs.k3_library_ms([args]) if case != "skew" else None
@@ -1166,9 +1183,93 @@ def sweep_k3(baseline: str | None) -> dict:
     return res
 
 
-SWEEPS = {"k3": sweep_k3, "k8": sweep_k8, "k9": sweep_k9, "k10": sweep_k10, "k11": sweep_k11,
+def k6_run(lib, g, prim, bias, pts, vol, l2t, pool):
+    """A built f2_hash3d_bwd on hash_encode_bwd's arguments."""
+    from f2nerf_torch.fields.hash_encoding import N_CHANNELS, _scales, local_size
+    g, pts, vol = g.contiguous(), pts.contiguous(), vol.contiguous()
+    n, dev = pts.shape[0], pts.device
+    d = torch.empty((pool, N_CHANNELS), dtype=torch.float32, device=dev)
+    scratch = torch.empty((lib.f2_hash3d_bwd_scratch_bytes(n),), dtype=torch.uint8, device=dev)
+    kernels.check(lib.f2_hash3d_bwd(g.data_ptr(), prim.data_ptr(), bias.data_ptr(),
+                                    _scales(str(dev)).data_ptr(), pts.data_ptr(),
+                                    vol.data_ptr(), d.data_ptr(), scratch.data_ptr(), n,
+                                    prim.shape[1], local_size(l2t), kernels.stream_ptr(dev)),
+                  "sweep hash_encode_bwd")
+    return d
+
+
+def step_k6_inputs() -> tuple:
+    """K6's call at variants (a)'s step (confs/wanjinyou.yaml with
+    chip_smoke's REF_OVERRIDES at full width on the ball scene, after 20
+    steps): B at cap2 plus the edge samples, with the step's own gradient
+    (chip_smoke.capture_calls)."""
+    import chip_smoke as cs
+    from f2nerf_torch.fields import hash_encoding as he
+    from f2nerf_torch.train.trainer import Trainer
+    from f2nerf_torch.utils.synthetic import write_ball_dataset
+    tmp = tempfile.mkdtemp(prefix="f2sweep_")
+    tr = Trainer(cs._compose(cs.REF_OVERRIDES), os.path.join(tmp, "exp"),
+                 write_ball_dataset(os.path.join(tmp, "ball")), seed=2022, device="cuda")
+    for _ in range(20):
+        tr.train_one()
+    (args,) = cs.capture_calls(tr, {"hash_encode_bwd": he})["hash_encode_bwd"]
+    return args
+
+
+def sweep_k6(baseline: str | None) -> dict:
+    """K6 at variants (a)'s step's own call, the uniform shape, the skewed
+    one and log2_table_size 20 (chip_smoke's k6_args): the chunks and the
+    diagnostics (``K6_VARIANTS``), each launch's device ms, the library
+    call (chip_smoke.k6_library_ms), and with --baseline ROOT's K6 with its
+    zero-fill (chip_smoke.baseline_k6), all timed in turns. The variants
+    that keep the function are held bit for bit to the plain version at
+    their chunk, and to a second run."""
+    import chip_smoke as cs
+    from f2nerf_torch.fields import hash_encoding as he
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    libs = build("hash3d", K6_VARIANTS)
+    for lib in libs.values():
+        _sig(lib, "f2_hash3d_bwd", [vp] * 8 + [ll, i, i, vp])
+        lib.f2_hash3d_bwd_scratch_bytes.argtypes = [ll]
+        lib.f2_hash3d_bwd_scratch_bytes.restype = ll
+    old = cs.baseline_k6(baseline) if baseline else None
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    res = {}
+    for case, make in (("step", step_k6_inputs), ("uniform", lambda: cs.k6_args(gen)),
+                       ("skew", lambda: cs.k6_args(gen, n=1 << 18, skew=True)),
+                       ("l2t20", lambda: cs.k6_args(gen, l2t=20))):
+        args = make()
+        fns, equal = {}, {}
+        for name, lib in libs.items():
+            got = k6_run(lib, *args)
+            if name in K6_CHUNKS:
+                want = he.hash_encode_bwd_plain(*args, chunk=K6_CHUNKS[name])
+                equal[name] = (same_bits([got], [want])
+                               and same_bits([k6_run(lib, *args)], [got]))
+                del want
+                if not equal[name]:
+                    raise AssertionError(f"K6 {name} ({case}) differs from the plain version "
+                                         f"at chunk {K6_CHUNKS[name]} or from its repeat")
+            del got
+            fns[name] = lambda lib=lib, args=args: k6_run(lib, *args)
+        if old is not None:
+            fns["baseline_with_zero_fill"] = lambda args=args: old(*args)
+        t = in_turns(fns)
+        lib_ms = cs.k6_library_ms(args)
+        parts = device_breakdown(fns["base"])
+        res[case] = dict(ms=t, equal=equal, library_ms=lib_ms, base_launches_ms=parts)
+        log(f"[K6] {case} (n={args[3].shape[0]}, log2_table_size {args[5]}): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+            + f"; library index_add_ {lib_ms:.4f}; bit for bit {equal}; base by launch: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+        del args, fns
+        torch.cuda.empty_cache()
+    return res
+
+
+SWEEPS = {"k3": sweep_k3, "k6": sweep_k6, "k8": sweep_k8, "k9": sweep_k9, "k10": sweep_k10, "k11": sweep_k11,
           "offsets": sweep_offsets, "k12": sweep_k12, "k13": sweep_k13, "k14": sweep_k14}
-TAKES_BASELINE = ("k3",)
+TAKES_BASELINE = ("k6",)
 
 
 def main() -> int:
@@ -1177,9 +1278,9 @@ def main() -> int:
                     help="comma-separated sweeps to run, of " + ", ".join(SWEEPS))
     ap.add_argument("--out", default=os.path.join(SWEEP_DIR, "sweep_kernels.json"))
     ap.add_argument("--baseline", default=None, metavar="ROOT",
-                    help="an earlier tree (a git archive): the k3 sweep also builds its "
-                         "csrc/hash_block.cu and times its K3 with the zero-fill its "
-                         "wrapper did, in the same turns")
+                    help="an earlier tree (a git archive) whose K6 adds with atomics: the "
+                         "k6 sweep also builds its csrc/hash3d.cu and times its K6 with the "
+                         "zero-fill its wrapper did, in the same turns")
     args = ap.parse_args()
     chosen = args.kernels.split(",")
     unknown = [k for k in chosen if k not in SWEEPS]

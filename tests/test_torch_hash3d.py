@@ -14,10 +14,12 @@ Tolerances:
     plane may land in the neighbouring cell and are masked (ROADMAP queue
     3); the rest agree to rtol 2e-3, atol 1e-3, as
     tests/test_torch_hash_block.py holds the HashBlock encode;
-  * the pool gradient: to 1e-5 of its largest entry (scatter-adds summed
-    in another order).
-Kernel cases (``cuda`` marker, skipped without a card): K5 bit for bit and
-K6 within 1e-5 of the largest entry against the plain versions.
+  * the pool gradient: to 1e-5 of its largest finite entry (JAX sums in
+    XLA's scatter order, the port in K6's, csrc/hash3d.cu), NaN and inf
+    at the same entries; against K6's order written out in numpy
+    (``k6_order_numpy``): bit for bit.
+Kernel cases (``cuda`` marker, skipped without a card): K5 and K6 bit for
+bit against the plain versions, and K6 against a second run of itself.
 """
 
 import jax
@@ -102,6 +104,160 @@ def test_forward_matches_jax_compiled_off_lattice(state):
     np.testing.assert_allclose(got[safe], want[safe], rtol=2e-3, atol=1e-3)
 
 
+def k6_order_numpy(g, prim, bias, pts, vol, l2t, chunk):
+    """K6's order written out one record at a time (csrc/hash3d.cu): per
+    level, groups of 32 samples in turn; in a group, runs of consecutive
+    active samples of one cell, each sample's 8 corner values scanned over
+    its run in doubling steps (x_i = x_(i-o) + x_i, o = 1, 2, 4, 8, 16,
+    where sample i - o is in i's run), the run's last sample holding its
+    value; then corners 0..7, within a corner the runs in order: each run's
+    record goes to its entry's bucket in turn; each bucket's list is cut
+    into chunks of ``chunk`` records; an entry adds its records in a chunk
+    to +0 in order, and the chunks' sums to +0 in chunk order."""
+    lsz = the.local_size(l2t)
+    hi, lo = the.k6_buckets(l2t)
+    assert (hi, lo) == (min(10, lsz.bit_length() - 1), lsz.bit_length() - 1 - hi)
+    sc = the.level_scales()
+    pu = prim.view(np.uint32)
+    d = np.zeros((NL * lsz, NC), np.float32)
+    zero = np.zeros(NC, np.float32)
+    n = pts.shape[0]
+    with np.errstate(over="ignore", invalid="ignore"):
+        for l in range(NL):
+            buckets = {}
+            for s0 in range(0, n, 32):
+                lanes = list(range(s0, min(s0 + 32, n)))
+                act, key, ent, x = {}, {}, {}, {}
+                for s in lanes:
+                    gl = g[s, NC * l:NC * l + NC]
+                    act[s] = not (gl[0] == 0 and gl[1] == 0)
+                    xs = pts[s] * sc[l] + bias[l, vol[s]]
+                    f = np.floor(xs)
+                    a = xs - f
+                    h0 = f.astype(np.int32).astype(np.uint32) * pu[l, vol[s]]
+                    h1 = h0 + pu[l, vol[s]]
+                    key[s] = (int(vol[s]), *map(int, h0))
+                    ent[s], x[s] = [], []
+                    for c in range(8):
+                        b = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+                        h = np.bitwise_xor.reduce([(h1 if b[ax] else h0)[ax]
+                                                   for ax in range(3)])
+                        ent[s].append(int(h % np.uint32(lsz)))
+                        wa = [a[ax] if b[ax] else np.float32(1) - a[ax] for ax in range(3)]
+                        x[s].append(gl * ((wa[0] * wa[1]) * wa[2]))
+                same = {s: s > s0 and act[s] and act[s - 1] and key[s] == key[s - 1]
+                        for s in lanes}
+                start, cur = {}, -1
+                for s in lanes:
+                    if act[s] and not same[s]:
+                        cur = s
+                    start[s] = cur
+                o = 1
+                while o < 32:
+                    x = {s: [x[s - o][c] + x[s][c] if act[s] and s - o >= start[s]
+                             else x[s][c] for c in range(8)] for s in lanes}
+                    o *= 2
+                last = [s for s in lanes if act[s] and not (s + 1 in same and same[s + 1])]
+                for c in range(8):
+                    for s in last:
+                        buckets.setdefault(ent[s][c] >> lo, []).append((ent[s][c], x[s][c]))
+            for lst in buckets.values():
+                acc = {}
+                for k0 in range(0, len(lst), chunk):
+                    t = {}
+                    for e, v in lst[k0:k0 + chunk]:
+                        t[e] = t.get(e, zero) + v
+                    for e, tv in t.items():
+                        acc[e] = acc.get(e, zero) + tv
+                for e, av in acc.items():
+                    d[l * lsz + e] = av
+    return d
+
+
+def same_or_both_nan(a, b) -> bool:
+    """Bit for bit, NaN where the other is NaN (a NaN's payload depends on
+    the operand order of the CPU's vector adds)."""
+    nan = np.isnan(a)
+    return bool((nan == np.isnan(b)).all()
+                and np.array_equal(a[~nan].view(np.int32), b[~nan].view(np.int32)))
+
+
+def special_g(g, rng):
+    """g with NaN, +inf and -inf sprinkled in, and zero rows."""
+    g = g.copy()
+    u = rng.rand(*g.shape)
+    g[u < 0.01] = np.nan
+    g[(u >= 0.01) & (u < 0.02)] = np.inf
+    g[(u >= 0.02) & (u < 0.03)] = -np.inf
+    g[::5] = 0.0
+    return g
+
+
+@pytest.mark.parametrize("case", ["random", "chunk8", "nan_inf", "one_cell", "rays", "empty"])
+def test_pool_gradient_follows_k6_order(state, case):
+    """The plain version against K6's order written out in numpy: chunks
+    of 2,048 (one a bucket here) and of 8 (records cut by chunks), NaN and
+    inf in g, every sample in one cell a level (runs of a whole group: 8
+    entries a level), samples along rays (runs of every length, cut by
+    zero rows and by the groups of 32), no sample at all."""
+    _, prim, bias = state
+    rng = np.random.RandomState(40 + len(case))
+    pts, vol, g = inputs(30, 160)
+    g[::7] = 0.0
+    if case == "nan_inf":
+        g = special_g(g, rng)
+    if case == "one_cell":
+        pts = (np.float32([0.31, 0.62, 0.27]) + rng.rand(*pts.shape) * 1e-7).astype(np.float32)
+        vol[:] = 1
+    if case == "rays":
+        pts = ray_points(rng, 4, 40, 2e-3)
+        vol = np.repeat(rng.randint(0, NV, 4), 40).astype(np.int32)
+    if case == "empty":
+        pts, vol, g = pts[:0], vol[:0], g[:0]
+    chunk = 8 if case in ("chunk8", "one_cell", "rays") else the.K6_CHUNK
+    _, tp, tb = port(*state)
+    got = the.hash_encode_bwd_plain(torch.from_numpy(g), tp, tb, torch.from_numpy(pts),
+                                    torch.from_numpy(vol), L2T, NL * the.local_size(L2T),
+                                    chunk=chunk).numpy()
+    want = k6_order_numpy(g, np.asarray(prim).astype(np.int32), np.asarray(bias), pts,
+                          vol, L2T, chunk)
+    assert same_or_both_nan(got, want)
+    if case not in ("nan_inf", "empty"):
+        assert np.abs(want).max() > 0
+
+
+@pytest.mark.parametrize("case", ["nan_inf", "zero_rows", "one_cell"])
+def test_pool_gradient_matches_jax_special(state, case):
+    """The plain version against JAX's pool gradient run op by op (the same
+    cells): within 1e-5 of the largest finite entry, NaN and +-inf at the
+    same entries. Cases: NaN/inf in g, half the rows zero, every sample in
+    one cell a level."""
+    feat, prim, bias = state
+    rng = np.random.RandomState(50 + len(case))
+    pts, vol, g = inputs(31, 96)
+    if case == "nan_inf":
+        g = special_g(g, rng)
+    if case == "zero_rows":
+        g[rng.rand(g.shape[0]) < 0.5] = 0.0
+    if case == "one_cell":
+        pts = (np.float32([0.31, 0.62, 0.27]) + rng.rand(*pts.shape) * 1e-7).astype(np.float32)
+        vol[:] = 2
+    with jax.disable_jit():
+        gj = np.asarray(jax.grad(lambda f: jnp.sum(jhe.hash_encode(
+            f, prim, bias, jnp.asarray(pts), jnp.asarray(vol), L2T) * g))(feat))
+    _, tp, tb = port(feat, prim, bias)
+    got = the.hash_encode_bwd(torch.from_numpy(g), tp, tb, torch.from_numpy(pts),
+                              torch.from_numpy(vol), L2T, feat.shape[0]).numpy()
+    for test in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(test(got), test(gj))
+    fin = np.isfinite(gj)
+    scale = float(np.abs(gj[fin]).max())
+    assert scale > 0
+    assert float(np.abs(got[fin] - gj[fin]).max()) <= 1e-5 * scale
+    if case == "one_cell":            # 8 entries a level
+        assert int((np.abs(got).sum(1) > 0).sum()) <= 8 * NL
+
+
 def test_pool_gradient_matches_jax(state):
     feat, prim, bias = state
     pts, vol, g = inputs(3, 128)
@@ -139,6 +295,31 @@ def test_init_hash_state_shapes_ranges_primes():
     assert jb.shape == tuple(bias.shape) and jp.dtype == jnp.uint32
 
 
+@pytest.mark.parametrize("case", ["pool_size", "table_size", "grad_shape", "grad_dtype",
+                                  "vol_dtype", "pts_shape"])
+def test_k6_wrapper_refuses_bad_arguments(state, case):
+    """hash_encode_bwd checks its arguments on every device (here the CPU,
+    before the plain version): the pool size, log2_table_size past K6's
+    2^20 entries a level, g's shape and dtype, vol's dtype, pts' shape."""
+    _, prim, bias = port(*state)
+    pts, vol, g = (torch.from_numpy(x) for x in inputs(5, 8))
+    l2t, pool = L2T, NL * the.local_size(L2T)
+    if case == "pool_size":
+        pool += NL
+    if case == "table_size":
+        l2t, pool = 21, NL * the.local_size(21)
+    if case == "grad_shape":
+        g = g[:, :30]
+    if case == "grad_dtype":
+        g = g.double()
+    if case == "vol_dtype":
+        vol = vol.long()
+    if case == "pts_shape":
+        pts = pts[:, :2]
+    with pytest.raises(ValueError):
+        the.hash_encode_bwd(g, prim, bias, pts, vol, l2t, pool)
+
+
 def test_wrappers_refuse_other_devices(state):
     feat, prim, bias = port(*state)
     meta = [t.to("meta") for t in (feat, prim, bias)]
@@ -159,7 +340,7 @@ def cuda():
 
 
 CARD_CASES = ["n1", "n33", "n5000", "one_cell", "zero_rows", "ray_ordered",
-              "two_volumes", "tile_tail", "zero_tile", "many_blocks", "n0"]
+              "two_volumes", "tile_tail", "zero_tile", "many_blocks", "n0", "nan_inf"]
 
 
 def ray_points(rng, n_rays, n_per_ray, step):
@@ -172,30 +353,44 @@ def ray_points(rng, n_rays, n_per_ray, step):
     return (o + d * t).reshape(-1, 3).astype(np.float32)
 
 
+def bits_equal(a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_k6(g, prim, bias, pts, vol, l2t):
+    """K6 bit for bit its plain version and a second run of itself, NaN
+    included (the card's NaN is one bit pattern), one launch a call."""
+    pool = NL * the.local_size(l2t)
+    n1 = the.hash_encode_bwd.launches
+    d_p = the.hash_encode_bwd_plain(g, prim, bias, pts, vol, l2t, pool)
+    d_k = the.hash_encode_bwd(g, prim, bias, pts, vol, l2t, pool)
+    d_again = the.hash_encode_bwd(g, prim, bias, pts, vol, l2t, pool)
+    torch.cuda.synchronize()
+    assert bits_equal(d_k, d_p), int((d_k.view(torch.int32) != d_p.view(torch.int32)).sum())
+    assert bits_equal(d_again, d_k)
+    assert the.hash_encode_bwd.launches == n1 + 2 * int(pts.shape[0] > 0)
+
+
 def check_kernels(cuda, feat, prim, bias, pts, vol, g):
-    """K5 bit for bit and K6 within 1e-5 of the largest entry against the
-    plain versions, one launch each (none for n = 0)."""
+    """K5 bit for bit against its plain version, one launch (none for n =
+    0), and K6 (``check_k6``)."""
     pts, vol, g = (torch.from_numpy(x).to(cuda) for x in (pts, vol, g))
-    n0, n1 = the.hash_encode_fwd.launches, the.hash_encode_bwd.launches
+    n0 = the.hash_encode_fwd.launches
     assert torch.equal(the.hash_encode_fwd(feat, prim, bias, pts, vol, L2T),
                        the.hash_encode_fwd_plain(feat, prim, bias, pts, vol, L2T))
-    d_p = the.hash_encode_bwd_plain(g, prim, bias, pts, vol, L2T, feat.shape[0])
-    d_k = the.hash_encode_bwd(g, prim, bias, pts, vol, L2T, feat.shape[0])
-    torch.cuda.synchronize()
-    assert float((d_k - d_p).abs().max()) <= 1e-5 * float(d_p.abs().max())
-    one = int(pts.shape[0] > 0)
-    assert (the.hash_encode_fwd.launches, the.hash_encode_bwd.launches) == (n0 + one, n1 + one)
+    assert the.hash_encode_fwd.launches == n0 + int(pts.shape[0] > 0)
+    check_k6(g, prim, bias, pts, vol, L2T)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
 def test_kernels_match_plain_on_card(cuda, state, case):
-    """K5 bit for bit and K6 within 1e-5 of the largest entry against the
-    plain versions. The cases reach the kernels' tiles (32 samples) and
-    level groups: samples along rays (lanes merge on a shared cell), two
-    volumes alternating at the same points and floors (no merge across
-    volumes), n = 32k +- 1, a whole tile of zero gradient, many tiles and
-    level groups in flight, n = 0."""
+    """K5 and K6 bit for bit against the plain versions. The cases reach
+    K5's tiles (32 samples) and level groups and K6's tiles, rounds and
+    chunks: samples along rays (neighbours share cells), two volumes
+    alternating at the same points and floors, n = 32k +- 1, a whole tile
+    of zero gradient, many tiles and level groups in flight, n = 0, NaN
+    and +-inf in g."""
     rng = np.random.RandomState(CARD_CASES.index(case))
     n = {"n1": 1, "n33": 33, "n5000": 5000, "tile_tail": 32 * 47 + 1,
          "many_blocks": 100_003, "n0": 0}.get(case, 2048)
@@ -210,6 +405,8 @@ def test_kernels_match_plain_on_card(cuda, state, case):
         vol = np.repeat(rng.randint(0, NV, 4), n // 4 + 1)[:n].astype(np.int32)
     if case == "zero_tile":
         g[32:64] = 0.0
+    if case == "nan_inf":
+        g = special_g(g, rng)
     if case == "two_volumes":
         # volumes 0 and 1 share their bias, so a point's floors are equal in
         # both, while their primes (so their corners) differ
@@ -220,3 +417,28 @@ def test_kernels_match_plain_on_card(cuda, state, case):
     if case == "tile_tail":            # n = 32k - 1 here, 32k + 1 below
         check_kernels(cuda, feat, prim, bias, pts[:-2], vol[:-2], g[:-2])
     check_kernels(cuda, feat, prim, bias, pts, vol, g[:pts.shape[0]])
+
+
+LARGE_CASES = ["uniform", "skew", "n2e20", "l2t20"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LARGE_CASES)
+def test_k6_matches_plain_on_card_at_scale(cuda, case):
+    """K6 bit for bit its plain version and a repeat at the shapes the
+    training step gives it and beyond: 393,216 uniform samples at
+    log2_table_size 19 (431 volumes, a random one a sample, g ~ N(0, 1)),
+    2^18 samples in one cell a level (each level's 8 entries hold every
+    record: 128 chunks a bucket), 2^20 samples, and log2_table_size 20."""
+    gen = torch.Generator(device=cuda).manual_seed(LARGE_CASES.index(case))
+    n = {"skew": 1 << 18, "n2e20": 1 << 20}.get(case, 393216)
+    l2t = 20 if case == "l2t20" else 19
+    _, prim, bias = the.init_hash_state(torch.Generator().manual_seed(3), 4, 431,
+                                        device=cuda)
+    pts = torch.rand((n, 3), generator=gen, device=cuda)
+    vol = torch.randint(0, 431, (n,), generator=gen, device=cuda).to(torch.int32)
+    g = torch.randn((n, NL * NC), generator=gen, device=cuda)
+    if case == "skew":
+        pts = torch.tensor([0.31, 0.62, 0.27], device=cuda) + pts * 1e-7
+        vol = torch.full_like(vol, 7)
+    check_k6(g, prim, bias, pts, vol, l2t)

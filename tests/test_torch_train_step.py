@@ -81,13 +81,17 @@ def steps(tmp_path_factory):
     return one_step_both(tmp_path_factory, OVERRIDES, n_steps=2)
 
 
-def one_step_both(tmp_path_factory, overrides, n_steps):
-    """A tiny JAX Trainer takes ``n_steps`` steps and saves; then one more
-    step of the JAX package and one of the port from that state, with the
-    same draws and static shapes. The port's state after its step is
-    saved too (``port_ckpt``)."""
+LOSS_TERMS = ("color_loss", "disp_loss", "tv_loss", "var_loss")
+
+
+def one_step_both(tmp_path_factory, overrides, n_steps, config_name="wanjinyou"):
+    """A tiny JAX Trainer of ``confs/<config_name>.yaml`` takes ``n_steps``
+    steps and saves; then one more step of the JAX package and one of the
+    port from that state, with the same draws and static shapes. The
+    port's state after its step is saved too (``port_ckpt``); each side's
+    loss terms are kept (``terms``)."""
     data_dir = write_ball_dataset(str(tmp_path_factory.mktemp("ball")))
-    cfg = compose(os.path.join(REPO, "confs"), "wanjinyou", overrides)
+    cfg = compose(os.path.join(REPO, "confs"), config_name, overrides)
     jt = jtr.Trainer(cfg, str(tmp_path_factory.mktemp("jax_exp")), data_dir, seed=2022)
     for _ in range(n_steps):
         jt.train_one()
@@ -154,6 +158,8 @@ def one_step_both(tmp_path_factory, overrides, n_steps):
         occ={k: getattr(tree_t, k).numpy() for k in OCC})
     pt.tree = tree_t
     pt.save_checkpoint()
+    jax_side["terms"] = {k: float(aux_g[k]) for k in LOSS_TERMS}
+    port_side["terms"] = {k: float(aux_t[k]) for k in LOSS_TERMS}
     return dict(jax=jax_side, port=port_side, lr=runtime["lr"], cfg=cfg,
                 data_dir=data_dir, grad_loss=float(aux_g["loss"]), jax_trainer=jt,
                 port_trainer=pt, statics=st,
