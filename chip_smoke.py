@@ -155,9 +155,8 @@ Phases:
   profile    — not run by default: torch.profiler over 3 more slice steps,
                per-span host/device time, the device busy share (device
                events only, beside the earlier count that took a kernel
-               launched through an aten op twice), the segment layer's
-               device time, the top kernels and a step's launches (device
-               activities, outermost aten ops)
+               launched through an aten op twice), the top kernels and
+               a step's launches (device activities, outermost aten ops)
                (--phases device,build,kernels,slice,profile); with the
                variants phase, also over 3 more steps of its config (a);
                with --baseline ROOT, the launches phase of ROOT's package
@@ -302,8 +301,12 @@ LAUNCH_TURN_STEPS = 40
 # device activities and dispatches at most STEP_ATEN_OPS outermost aten ops
 # (before K13 wrote B's segments: 1,482 and 1,615; then 1,474-1,475 and
 # 1,609; since K3 is 9 launches and a memset where it was a zero-fill and
-# one launch, PERF.md §5): launch_turns holds them
-STEP_DEVICE_LAUNCHES = 1483
+# one launch, PERF.md §5): launch_turns holds them. The count leaves out
+# the spans' device-side annotations, which it took in until 13 a step
+# (1,474-1,475 then; 1,460 without them): the bound was 1,483 with them
+STEP_DEVICE_LAUNCHES = 1470
+# the ranges of f2nerf_torch/utils/spans.py, by family
+SPAN_PREFIXES = ("step.", "render.", "eval.", "setup.", "build.", "backward.", "image.")
 STEP_ATEN_OPS = 1610
 OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
@@ -321,10 +324,6 @@ TOL_SCAN = 1e-6
 # K10/K11's uniform case: 2,048 rays of 192 samples (the slice's cap1)
 SEG_RAYS, SEG_PER_RAY = 2048, 192
 NO_LIBRARY_SCAN = "none: no single PyTorch call computes a segmented scan"
-# the segment layer's functions, as the renderer, activations and trainer
-# modules call them (phase_profile's segment ranges)
-SEGMENT_FUNCS = ("segment_sum", "segment_cumsum", "local_index", "ray_offsets", "ray_gather",
-                 "weight_var", "_image_rows")
 # the spans that must not synchronize the host on the card (sync_counts):
 # every span of the render and the occupancy fold
 NO_SYNC_SPANS = ("render.traverse", "render.march", "render.compact_a_warp",
@@ -2215,36 +2214,24 @@ def step_twice(tr, where: str = "slice") -> None:
 class SpanSyncCounter:
     """While active: torch's synchronizing-call warnings (under
     ``torch.cuda.set_sync_debug_mode("warn")``), counted by the innermost
-    span open when each was raised (f2nerf_torch/utils/spans.py; the
-    step's spans nest the render's). Wraps ``Spans``' methods and
-    ``warnings.showwarning``; the real ones run as always."""
+    span open on the raising thread when each was raised
+    (``f2nerf_torch.utils.spans.current``, with the span table collected
+    meanwhile). Wraps ``warnings.showwarning``; other warnings show as
+    always."""
 
     def __enter__(self):
         import collections
         import warnings
-        from f2nerf_torch.utils.spans import Spans
+        from f2nerf_torch.utils import spans
         self.counts = collections.Counter()
-        self.real = (Spans.__call__, Spans.close)
-        real_call, real_close = self.real
-        stack = []
-
-        def call(sp, name):
-            real_call(sp, name)             # closes sp's open span first
-            stack.append((id(sp), name))
-
-        def close(sp):
-            if sp._cur is not None:
-                i = max(k for k, (owner, _) in enumerate(stack) if owner == id(sp))
-                del stack[i]
-            real_close(sp)
+        self.was = spans.collect(True)
 
         def show(message, category, *a, **kw):
             if "synchroniz" in str(message):
-                self.counts[stack[-1][1] if stack else "(outside the step's spans)"] += 1
+                self.counts[spans.current() or "(outside the step's spans)"] += 1
             else:
                 self.real_show(message, category, *a, **kw)
 
-        Spans.__call__, Spans.close = call, close
         self.warn = warnings.catch_warnings()
         self.warn.__enter__()
         warnings.simplefilter("always")
@@ -2253,10 +2240,10 @@ class SpanSyncCounter:
         return self
 
     def __exit__(self, *exc):
-        from f2nerf_torch.utils.spans import Spans
+        from f2nerf_torch.utils import spans
         torch.cuda.set_sync_debug_mode("default")
         self.warn.__exit__(*exc)
-        Spans.__call__, Spans.close = self.real
+        spans.collect(self.was)
 
 
 def sync_counts(tr, k: int = 10) -> dict:
@@ -2279,79 +2266,6 @@ def sync_counts(tr, k: int = 10) -> dict:
     return per_step
 
 
-class SegmentRanges:
-    """While active: each call of the segment layer's functions
-    (SEGMENT_FUNCS, in the modules that call them: ops/segment.py,
-    ops/activations.py, render/renderer.py, train/trainer.py) runs inside a
-    profiler range named ``segment.<function>``; the real functions run as
-    always. A function a module does not have (an older tree's package) is
-    skipped."""
-
-    def __enter__(self):
-        from f2nerf_torch.ops import activations, segment
-        from f2nerf_torch.render import renderer
-        from f2nerf_torch.train import trainer
-        self.saved = []
-        for mod in (segment, activations, renderer, trainer):
-            for name in SEGMENT_FUNCS:
-                fn = getattr(mod, name, None)
-                if fn is None:
-                    continue
-
-                def ranged(*a, _fn=fn, _name=name, **kw):
-                    with torch.profiler.record_function("segment." + _name):
-                        return _fn(*a, **kw)
-                ranged.launches = 0          # a wrapper counts through its global
-                self.saved.append((mod, name, fn, ranged))
-                setattr(mod, name, ranged)
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn, ranged in self.saved:
-            setattr(mod, name, fn)
-            if hasattr(fn, "launches"):
-                fn.launches += ranged.launches
-
-
-def segment_device_ms(events) -> tuple[float, float]:
-    """Device ms of the segment layer in a profile (``SegmentRanges``): the
-    kernels under the outermost ``segment.*`` ranges (forward), and those
-    of the backward functions whose forward op ran under one (the
-    profiler's sequence numbers link the two)."""
-    from torch.autograd import DeviceType
-
-    def cpu(e):
-        return e.device_type == DeviceType.CPU
-
-    def ancestor(e, pred):
-        p = e.cpu_parent
-        while p is not None:
-            if pred(p):
-                return p
-            p = p.cpu_parent
-        return None
-
-    def is_seg(e):
-        return e.name.startswith("segment.")
-
-    fwd, seqs = 0.0, set()
-    for e in events:
-        if not cpu(e):
-            continue
-        if is_seg(e) and ancestor(e, is_seg) is None:
-            fwd += e.device_time_total
-        elif e.sequence_nr >= 0 and ancestor(e, is_seg) is not None:
-            seqs.add((e.sequence_nr, e.thread))
-
-    def is_bwd(e):
-        return getattr(e, "scope", 0) == 1
-
-    bwd = sum(e.device_time_total for e in events
-              if cpu(e) and is_bwd(e) and ancestor(e, is_bwd) is None
-              and (e.sequence_nr, e.fwd_thread) in seqs)
-    return fwd / 1e3, bwd / 1e3
-
-
 def outermost_aten(e) -> bool:
     """An aten op that no other aten op called: one op the host dispatched."""
     if not e.name.startswith("aten::"):
@@ -2367,8 +2281,7 @@ def outermost_aten(e) -> bool:
 def phase_profile(tr, n_steps: int = 3, where: str = "profile") -> dict:
     """torch.profiler over n_steps more steps: host and device time of each
     step span (f2nerf_torch/utils/spans.py), the device busy share, the
-    segment layer's device time (``segment_device_ms``), the kernels
-    that take the most device time and a step's launches: the device
+    kernels that take the most device time and a step's launches: the device
     activities (kernels, copies and sets, the hand-written kernels among
     them: what the card runs) and the outermost aten ops (what the host
     dispatches). Device busy counts device-type events
@@ -2380,8 +2293,7 @@ def phase_profile(tr, n_steps: int = 3, where: str = "profile") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with SegmentRanges(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             tr.train_one()
@@ -2394,21 +2306,17 @@ def phase_profile(tr, n_steps: int = 3, where: str = "profile") -> dict:
         return getattr(e, name, None) or getattr(e, name.replace("device", "cuda"), 0.0)
 
     def is_range(e):
-        return e.key.startswith(("step.", "render.", "segment."))
+        return e.key.startswith(SPAN_PREFIXES)
 
     def is_device(e):
         return e.device_type != DeviceType.CPU and not is_range(e)
 
     old_ms = sum(dev(e, True) for e in avgs if not is_range(e)) / 1e3
     busy_ms = sum(dev(e, True) for e in avgs if is_device(e)) / 1e3
-    seg_fwd, seg_bwd = segment_device_ms(prof.events())
     log(f"[{where}] {n_steps} steps: wall {wall_ms / n_steps:.2f} ms/step, device busy "
         f"{busy_ms / n_steps:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}% of wall; device "
         f"events only); the earlier count (aten ops and their kernels alike) "
         f"{old_ms / n_steps:.2f} ms/step ({100 * old_ms / wall_ms:.1f}%)")
-    log(f"[{where}] segment layer ({', '.join(SEGMENT_FUNCS)}): device "
-        f"{(seg_fwd + seg_bwd) / n_steps:.3f} ms/step (forward {seg_fwd / n_steps:.3f}, "
-        f"backward {seg_bwd / n_steps:.3f})")
     for e in sorted((e for e in avgs if is_range(e) and e.cpu_time_total > 0),
                     key=lambda e: -e.cpu_time_total):
         log(f"[{where}] span {e.key:24s} host {e.cpu_time_total / 1e3 / n_steps:8.2f} ms/step"
@@ -2419,13 +2327,21 @@ def phase_profile(tr, n_steps: int = 3, where: str = "profile") -> dict:
         log(f"[{where}] kernel {e.key[:70]:70s} {dev(e, True) / 1e3 / n_steps:8.3f} ms/step"
             f"  launches {e.count // n_steps}")
     events = prof.events()
+    # the spans also appear on the device's timeline (annotations, named
+    # as the host's ranges): no work, so not counted
+    host = {e.name for e in events if e.device_type == DeviceType.CPU}
+    on_dev = [e for e in events if e.device_type != DeviceType.CPU]
+    notes = [e for e in on_dev if e.name in host]
     out = dict(wall_ms=wall_ms / n_steps, busy_ms=busy_ms / n_steps,
                busy_share=busy_ms / wall_ms,
-               device_launches=sum(e.device_type != DeviceType.CPU for e in events) / n_steps,
+               device_launches=(len(on_dev) - len(notes)) / n_steps,
                aten_ops=sum(e.device_type == DeviceType.CPU and outermost_aten(e)
                             for e in events) / n_steps)
+    step_notes = sum(e.name.startswith(("step.", "render.")) for e in notes) / n_steps
     log(f"[{where}] launches a step: {out['device_launches']:.1f} device activities "
-        f"(kernels, copies, sets), {out['aten_ops']:.1f} outermost aten ops")
+        f"(kernels, copies, sets; {len(notes) / n_steps:.1f} span annotations left out, "
+        f"{step_notes:.1f} of them step.* and render.*), {out['aten_ops']:.1f} outermost "
+        f"aten ops")
     return out
 
 

@@ -29,6 +29,7 @@ import torch
 
 from .. import kernels
 from ..ops.gather import row_gather
+from ..utils.spans import span
 from .hash_encoding import (N_CHANNELS, N_LEVELS, _check_inputs, _in_order,
                             _random_primes, _runs, _scales, level_scales)
 
@@ -286,9 +287,10 @@ class _HashBlockEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        prim, bias, pts, vol = ctx.saved_tensors
-        log2t, shape = ctx.meta
-        d = hash_block_bwd(g, prim, bias, pts, vol, log2t, shape)
+        with span("backward.field"):
+            prim, bias, pts, vol = ctx.saved_tensors
+            log2t, shape = ctx.meta
+            d = hash_block_bwd(g, prim, bias, pts, vol, log2t, shape)
         return d, None, None, None, None, None
 
 
@@ -312,10 +314,11 @@ class _GradPass(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, g_edge):
-        prim, bias, pts, vol, edge_pts, edge_vol = ctx.saved_tensors
-        log2t, shape = ctx.meta
-        d = hash_block_bwd((g, g_edge), prim, bias, (pts, edge_pts),
-                           (vol, edge_vol), log2t, shape)
+        with span("backward.field"):
+            prim, bias, pts, vol, edge_pts, edge_vol = ctx.saved_tensors
+            log2t, shape = ctx.meta
+            d = hash_block_bwd((g, g_edge), prim, bias, (pts, edge_pts),
+                               (vol, edge_vol), log2t, shape)
         return (d,) + (None,) * 9
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils.spans import span
 
 N_CHANNELS = 2
 N_LEVELS = 16
@@ -386,9 +387,10 @@ class _HashEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        prim, bias, pts, vol = ctx.saved_tensors
-        log2t, pool_size = ctx.meta
-        d = hash_encode_bwd(g, prim, bias, pts, vol, log2t, pool_size)
+        with span("backward.field"):
+            prim, bias, pts, vol = ctx.saved_tensors
+            log2t, pool_size = ctx.meta
+            d = hash_encode_bwd(g, prim, bias, pts, vol, log2t, pool_size)
         return d, None, None, None, None, None
 
 

@@ -139,9 +139,12 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, under the span
+    ``setup.kernels``)."""
     if _state.lib is None:
-        lib = ctypes.CDLL(str(build()))
+        from .utils.spans import span
+        with span("setup.kernels"):
+            lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -77,9 +77,12 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded engine (built on first call)."""
+    """The loaded engine (built on first call, under the span
+    ``setup.kernels``)."""
     if _state.lib is None:
-        lib = ctypes.CDLL(str(build()))
+        from ..utils.spans import span
+        with span("setup.kernels"):
+            lib = ctypes.CDLL(str(build()))
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils.spans import span
 
 
 # ------------------------------------------------------------ plain versions
@@ -305,8 +306,9 @@ class SegmentSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (ray_id,) = ctx.saved_tensors
-        return _gather_rows(g, ray_id), None, None, None
+        with span("backward.segment"):
+            (ray_id,) = ctx.saved_tensors
+            return _gather_rows(g, ray_id), None, None, None
 
 
 class SegmentCumsum(torch.autograd.Function):
@@ -321,8 +323,9 @@ class SegmentCumsum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (is_first,) = ctx.saved_tensors
-        return segment_scan(g, is_first, ctx.exclusive, True), None, None
+        with span("backward.segment"):
+            (is_first,) = ctx.saved_tensors
+            return segment_scan(g, is_first, ctx.exclusive, True), None, None
 
 
 class RayGather(torch.autograd.Function):
@@ -337,8 +340,9 @@ class RayGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        ray_id, offsets = ctx.saved_tensors
-        return segment_reduce(g, ray_id, ctx.n_rays, offsets), None, None, None
+        with span("backward.segment"):
+            ray_id, offsets = ctx.saved_tensors
+            return segment_reduce(g, ray_id, ctx.n_rays, offsets), None, None, None
 
 
 def segment_sum(x: torch.Tensor, ray_id: torch.Tensor, n_rays: int,

@@ -20,7 +20,8 @@ optional resume (``Trainer.reset``). ``F2_TORCH_PROFILE=<dir>`` traces
 iterations 30-50 of ``train()`` with ``torch.profiler`` (host and CUDA)
 and writes a chrome trace there: the counterpart of the JAX package's
 ``F2_JAX_PROFILE`` window. A chunk also ends at the window's edges, so
-the trace holds exactly those iterations.
+the trace holds exactly those iterations. The same iterations' host ms
+by span (the span table of ``utils/spans.py``) are printed beside it.
 
 Under data parallel (``torchrun``: one rank a shard) every rank trains;
 rank 0 alone writes (train_info.txt, stats.npy, checkpoints, images/,
@@ -46,6 +47,7 @@ import yaml
 from ..data import dataset as ds
 from ..parallel import data_parallel as dp
 from ..utils import io
+from ..utils import spans as span_table
 from ..utils.metrics import make_lpips, psnr_float, rgb_ssim
 from .trainer import Trainer
 
@@ -55,12 +57,15 @@ class ProfileWindow:
     written as ``<out_dir>/trace_<first>_<last>.json`` (chrome trace).
     Nothing happens without ``out_dir``. The trace also ends, and is
     written, when training stops inside the window. CUDA activity is
-    traced where a card is present."""
+    traced where a card is present. The program's span table is collected
+    over the same iterations, and its host ms an iteration by span printed
+    at the close."""
 
     def __init__(self, out_dir: str | None, start: int = 30, stop: int = 50):
         self.out_dir, self.start, self.stop = out_dir, start, stop
         self.prof = None
         self.first = None
+        self.was = self.table0 = None
 
     def at(self, it: int) -> None:
         """Called before iteration ``it``."""
@@ -72,6 +77,8 @@ class ProfileWindow:
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
             self.prof = profile(activities=acts)
+            self.was = span_table.collect(True)
+            self.table0 = span_table.snapshot()
             self.prof.start()
             self.first = it
         elif self.prof is not None and it >= self.stop:
@@ -89,10 +96,18 @@ class ProfileWindow:
         if self.prof is None:
             return
         self.prof.stop()
+        table = span_table.diff(span_table.snapshot(), self.table0)
+        span_table.collect(self.was)
         os.makedirs(self.out_dir, exist_ok=True)
         path = os.path.join(self.out_dir, f"trace_{self.first}_{it}.json")
         self.prof.export_chrome_trace(path)
         print(f"[profile] iterations {self.first}-{it} traced to {path}", flush=True)
+        n = max(it - self.first, 1)
+        rows = sorted(table.items(), key=lambda kv: -kv[1]["total_ns"])
+        print("[profile] host ms an iteration by span (total, self, entries; held by): "
+              + json.dumps(
+                  {k: [round(v["total_ns"] / 1e6 / n, 3), round(v["self_ns"] / 1e6 / n, 3),
+                       v["count"], v["parent"]] for k, v in rows}), flush=True)
         self.prof, self.out_dir = None, None
 
 

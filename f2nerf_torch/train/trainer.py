@@ -39,7 +39,7 @@ from ..render.renderer import (FIELD_TYPES, RenderStatics, check_supported,
 from ..sampler import device as dv
 from ..sampler import octree as oc
 from ..utils import convert
-from ..utils.spans import Spans
+from ..utils.spans import Spans, span
 from ..utils.tree import map_leaves, named_leaves
 from . import schedules
 
@@ -467,6 +467,8 @@ class Trainer:
         self.end_iter = int(tcfg["end_iter"])
         self.iter_step = 0
 
+        sp = Spans()
+        sp("setup.dataset")
         self.dataset = ds.Dataset(data_path, cfg["dataset"])
         self.data_at_gpu = bool(cfg["dataset"].get("data_at_gpu", True))
         self.single_image = str(cfg["dataset"].get(
@@ -481,9 +483,11 @@ class Trainer:
 
         c2w, w2c, intri, bounds = self.dataset.train_arrays
         if tree_host is None:
+            sp("setup.octree")
             tree_host = oc.build_octree(c2w, w2c, intri, bounds,
                                         cfg["pts_sampler"], seed=seed,
                                         device=self.device)
+        sp.close()
         self.tree_host = tree_host
         self.train_cams = (intri, w2c, bounds)
         self.n_volumes = self.tree_host.n_trans
@@ -492,10 +496,12 @@ class Trainer:
         self.max_trans = int(caps_cfg.get("max_trans", 32768))
         self.max_edges = int(caps_cfg.get("max_edges", 262144))
         self._grow_capacities()
+        sp("setup.device_tree")
         self.tree = dv.to_device_tree(self.tree_host, self.max_nodes,
                                       self.max_trans, self.max_edges,
                                       device=self.device)
 
+        sp("setup.params")
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.params, self.consts = init_params(
             self.generator, cfg, self.dataset.n_images,
@@ -505,6 +511,7 @@ class Trainer:
             self.generator = torch.Generator(device=self.device).manual_seed(
                 dp.rank_seed(seed, self.rank))
         self.opt_state = init_adam_state(self.params)
+        sp.close()
 
         self.compact_freq = int(cfg["pts_sampler"]["compact_freq"])
         # EMA seeds (GlobalDataPool.h:23-25)
@@ -566,13 +573,14 @@ class Trainer:
                                         self.ema_oct)
         key = (n_rays, cap1, cap2, single_pass, self.hit_cap)
         if key not in self._step_cache:
-            st = render_statics(self.cfg, n_local, self.dataset.near,
-                                train=True, max_s=max_s, cap1=cap1, cap2=cap2,
-                                max_hits=self.hit_cap)
-            st = st._replace(single_pass=single_pass)
-            fn = make_core(self.cfg, st, self.dataset.height, self.dataset.width,
-                           dist=self.reduce)
-            self._step_cache[key] = (fn, st)
+            with span("build.step"):
+                st = render_statics(self.cfg, n_local, self.dataset.near,
+                                    train=True, max_s=max_s, cap1=cap1, cap2=cap2,
+                                    max_hits=self.hit_cap)
+                st = st._replace(single_pass=single_pass)
+                fn = make_core(self.cfg, st, self.dataset.height, self.dataset.width,
+                               dist=self.reduce)
+                self._step_cache[key] = (fn, st)
         return self._step_cache[key]
 
     def cur_batch_size(self) -> int:
@@ -645,16 +653,21 @@ class Trainer:
         this rank's traversal iterations among them) and its host-side
         extras (the step's statics); nothing is read back from the
         device."""
+        sp = Spans()
+        sp("step.draw")
         if draws is None:
             draws = self.draw(st, n_rays)
+        sp.close()
         self.tree, aux, _ = core(self.params, self.opt_state, self.tree,
                                  self.consts, self.data, runtime, draws,
                                  n_rays // self.n_shards)
+        sp("step.metrics_row")
         names = [k for k, v in aux.items() if torch.is_tensor(v)]
         skeys = list(aux["stats"])
         row = torch.stack([aux[k].to(torch.float32).reshape(()) for k in names]
                           + [aux["stats"][k].to(torch.float32).reshape(())
                              for k in skeys])
+        sp.close()
         extra = dict(cap1=st.cap1, cap2=st.cap2, hit_cap=st.max_hits,
                      single_pass=st.single_pass)
         return (tuple(names), tuple(skeys)), row, extra
@@ -667,29 +680,38 @@ class Trainer:
         ``pipeline_depth`` entries are pending, so the EMAs lag by up to
         that many entries; the training math is the same). ``draws``
         overrides the step's random draws (see ``draw_step``)."""
-        n_rays = self.cur_batch_size()
-        core, st = self._get_step(n_rays)
-        keys, row, extra = self._step(core, st, n_rays, self.runtime(), draws)
+        n_rays, core, st, (runtime,) = self._plan(1)
+        keys, row, extra = self._step(core, st, n_rays, runtime, draws)
         self.iter_step += 1
         self._pending.append((n_rays, keys, row[None], [extra]))
         out = self._drain(sync)
         self.maybe_maintain_tree()
         return out
 
+    def _plan(self, k: int):
+        """The controller's part of a chunk of ``k`` iterations (span
+        ``step.controller``): the bucket, its step (``_get_step``) and the
+        k schedules. Returns (n_rays, core, statics, runtimes)."""
+        with span("step.controller"):
+            n_rays = self.cur_batch_size()
+            core, st = self._get_step(n_rays)
+            return n_rays, core, st, self._runtimes(k)
+
     def _drain(self, sync: bool):
         """Ingest pending metrics: all with ``sync``, else the oldest
         until ``pipeline_depth`` entries are left. One device-to-host copy
-        an entry (a step or a chunk). Returns the last step's metrics, or
-        None when nothing was drained."""
+        an entry (a step or a chunk), which waits for the device. Returns
+        the last step's metrics, or None when nothing was drained."""
         out = None
-        while self._pending and (sync or len(self._pending) > self.pipeline_depth):
-            n_rays, (names, skeys), rows, extras = self._pending.pop(0)
-            for vals, extra in zip(rows.cpu().tolist(), extras):
-                aux = dict(zip(names, vals))
-                aux["trav_iters"] = int(aux["trav_iters"])
-                aux["stats"] = dict(zip(skeys, vals[len(names):]))
-                out = self._ingest_aux(n_rays, aux)
-                out.update(extra)
+        with span("step.drain"):
+            while self._pending and (sync or len(self._pending) > self.pipeline_depth):
+                n_rays, (names, skeys), rows, extras = self._pending.pop(0)
+                for vals, extra in zip(rows.cpu().tolist(), extras):
+                    aux = dict(zip(names, vals))
+                    aux["trav_iters"] = int(aux["trav_iters"])
+                    aux["stats"] = dict(zip(skeys, vals[len(names):]))
+                    out = self._ingest_aux(n_rays, aux)
+                    out.update(extra)
         return out
 
     def _chunk_k(self, limit: int | None = None) -> int:
@@ -730,9 +752,7 @@ class Trainer:
         rows go to ``_pending`` as one entry, then ``_drain`` and octree
         maintenance, as the JAX Trainer's scan chunk. The training math is
         that of k ``train_one`` calls."""
-        n_rays = self.cur_batch_size()
-        core, st = self._get_step(n_rays)
-        runtimes = self._runtimes(k)
+        n_rays, core, st, runtimes = self._plan(k)
         rows, extras = [], []
         for i in range(k):
             keys, row, extra = self._step(core, st, n_rays, runtimes[i],
@@ -800,19 +820,20 @@ class Trainer:
         need_compact = self.iter_step % self.compact_freq == 0
         if not (need_milestone or need_compact):
             return
-        intri, w2c, bounds = self.train_cams
-        self.tree_host = dv.sync_host_tree(self.tree_host, self.tree)
-        self.tree_host, changed = oc.maintain(
-            self.tree_host, self.iter_step, self.compact_freq, intri, w2c, bounds)
-        if need_milestone and not self.controller_frozen:
-            want = pow2ceil(2.0 * max(self.oct_max, 1.0))
-            self.hit_cap = min(max(self.hit_cap, want), self.hit_cap_limit)
-            self.oct_max = self.oct_max * 0.5
-        if changed:
-            self._grow_capacities()
-            self.tree = dv.to_device_tree(self.tree_host, self.max_nodes,
-                                          self.max_trans, self.max_edges,
-                                          device=self.device)
+        with span("step.maintain"):
+            intri, w2c, bounds = self.train_cams
+            self.tree_host = dv.sync_host_tree(self.tree_host, self.tree)
+            self.tree_host, changed = oc.maintain(
+                self.tree_host, self.iter_step, self.compact_freq, intri, w2c, bounds)
+            if need_milestone and not self.controller_frozen:
+                want = pow2ceil(2.0 * max(self.oct_max, 1.0))
+                self.hit_cap = min(max(self.hit_cap, want), self.hit_cap_limit)
+                self.oct_max = self.oct_max * 0.5
+            if changed:
+                self._grow_capacities()
+                self.tree = dv.to_device_tree(self.tree_host, self.max_nodes,
+                                              self.max_trans, self.max_edges,
+                                              device=self.device)
 
     def _grow_capacities(self):
         """Device tree capacities: at least the host tree's counts, rounded
@@ -875,57 +896,60 @@ class Trainer:
         (o = 0, d = 1), which count in its truncation indicator as in the
         JAX package. All chunks are launched before their indicators are
         read (one device-to-host copy). ``last_redo`` keeps the start rays
-        of the chunks rendered again. Chunk size: ``eval.chunk`` (4096)."""
-        if chunk is None:
-            chunk = int(self.cfg.get("eval", {}).get("chunk", 4096))
-        dev = self.device
-        rays_o, rays_d = (torch.as_tensor(np.array(r, np.float32)) if
-                          isinstance(r, np.ndarray) else r.to(torch.float32)
-                          for r in (rays_o, rays_d))
-        rays_o, rays_d = rays_o.to(dev), rays_d.to(dev)
-        cap_fast = cap_bucket(min(max(2.0 * self.ema_sampled, 64.0) * chunk,
-                                  chunk * max_s))
-        fast = self._eval_fn_for(chunk, max_s, cap_fast)
-        n = rays_o.shape[0]
-        fineness = torch.tensor(
-            schedules.ray_march_fineness(self.iter_step, self.cfg["train"]),
-            dtype=torch.float32, device=dev)
-        colors = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        disp = torch.zeros((n,), dtype=torch.float32, device=dev)
-        oct_d = torch.ones((n,), dtype=torch.float32, device=dev)
+        of the chunks rendered again. Chunk size: ``eval.chunk`` (4096).
+        Spans: ``image.render`` holds an ``eval.chunk`` a chunk and an
+        ``eval.chunk_exact`` a chunk rendered again."""
+        with span("image.render"):
+            if chunk is None:
+                chunk = int(self.cfg.get("eval", {}).get("chunk", 4096))
+            dev = self.device
+            rays_o, rays_d = (torch.as_tensor(np.array(r, np.float32)) if
+                              isinstance(r, np.ndarray) else r.to(torch.float32)
+                              for r in (rays_o, rays_d))
+            rays_o, rays_d = rays_o.to(dev), rays_d.to(dev)
+            cap_fast = cap_bucket(min(max(2.0 * self.ema_sampled, 64.0) * chunk,
+                                      chunk * max_s))
+            fast = self._eval_fn_for(chunk, max_s, cap_fast)
+            n = rays_o.shape[0]
+            fineness = torch.tensor(
+                schedules.ray_march_fineness(self.iter_step, self.cfg["train"]),
+                dtype=torch.float32, device=dev)
+            colors = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+            disp = torch.zeros((n,), dtype=torch.float32, device=dev)
+            oct_d = torch.ones((n,), dtype=torch.float32, device=dev)
 
-        def launch(fn, lo, span):
-            hi = min(lo + chunk, n)
-            ro = torch.zeros((chunk, 3), dtype=torch.float32, device=dev)
-            rd = torch.ones((chunk, 3), dtype=torch.float32, device=dev)
-            ro[: hi - lo] = rays_o[lo:hi]
-            rd[: hi - lo] = rays_d[lo:hi]
-            with torch.profiler.record_function(span):
-                return lo, hi, fn(self.params, self.consts, self.tree, ro, rd,
-                                  fineness)
+            def launch(fn, lo, name):
+                hi = min(lo + chunk, n)
+                ro = torch.zeros((chunk, 3), dtype=torch.float32, device=dev)
+                rd = torch.ones((chunk, 3), dtype=torch.float32, device=dev)
+                ro[: hi - lo] = rays_o[lo:hi]
+                rd[: hi - lo] = rays_d[lo:hi]
+                with span(name):
+                    return lo, hi, fn(self.params, self.consts, self.tree, ro, rd,
+                                      fineness)
 
-        def store(lo, hi, c, d, f):
-            colors[lo:hi] = c[: hi - lo]
-            disp[lo:hi] = d[: hi - lo]
-            oct_d[lo:hi] = f[: hi - lo]
+            def store(lo, hi, c, d, f):
+                colors[lo:hi] = c[: hi - lo]
+                disp[lo:hi] = d[: hi - lo]
+                oct_d[lo:hi] = f[: hi - lo]
 
-        pending = [launch(fast, lo, "eval.chunk") for lo in range(0, n, chunk)]
-        trunc = torch.stack([out[3] for _, _, out in pending]).cpu().tolist() \
-            if pending else []
-        redo = []
-        for (lo, hi, (c, d, f, _)), ov in zip(pending, trunc):
-            if max_s < max_s_hi and ov > 0:
-                redo.append(lo)
-                continue
-            store(lo, hi, c, d, f)
-        del pending
-        if redo:
-            slow = self._eval_fn_for(chunk, max_s_hi)
-            for lo in redo:
-                lo, hi, (c, d, f, _) = launch(slow, lo, "eval.chunk_exact")
+            pending = [launch(fast, lo, "eval.chunk") for lo in range(0, n, chunk)]
+            trunc = torch.stack([out[3] for _, _, out in pending]).cpu().tolist() \
+                if pending else []
+            redo = []
+            for (lo, hi, (c, d, f, _)), ov in zip(pending, trunc):
+                if max_s < max_s_hi and ov > 0:
+                    redo.append(lo)
+                    continue
                 store(lo, hi, c, d, f)
-        self.last_redo = redo
-        return colors.cpu().numpy(), disp.cpu().numpy(), oct_d.cpu().numpy()
+            del pending
+            if redo:
+                slow = self._eval_fn_for(chunk, max_s_hi)
+                for lo in redo:
+                    lo, hi, (c, d, f, _) = launch(slow, lo, "eval.chunk_exact")
+                    store(lo, hi, c, d, f)
+            self.last_redo = redo
+            return colors.cpu().numpy(), disp.cpu().numpy(), oct_d.cpu().numpy()
 
     # ------------------------------------------------------------- checkpoints
 
