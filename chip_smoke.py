@@ -60,7 +60,10 @@ Phases:
                one ray and B exactly full, the degenerate warp's inf and
                NaN, NaN, +-inf and -0.0 weights), every output bit for bit
                its plain version, each launch repeated bit for bit, the
-               votes beside one scatter_reduce amax).
+               votes beside one scatter_reduce amax); K15 (the rays) at
+               the step's own draws and tables and over one whole image
+               in its camera form, bit for bit its plain route and a
+               repeated launch.
                K7's and K8's
                bounds also have a chain term (march_case, traverse_case):
                the longest ray's dependent operations at the card's max
@@ -70,8 +73,8 @@ Phases:
                losses finite, grads finite, params moved, every kernel
                launched by the main path (launch counters reset just before),
                the table-gradient scatter K3, the traversal K8, the
-               marcher K9, K12's two entry points, K13 and K14's two
-               exactly once a step, K10 five times and K11 three times a
+               marcher K9, K12's two entry points, K13, K14's two and
+               K15 exactly once a step, K10 five times and K11 three times a
                step, the offsets launch never (K13 writes B's segments);
                then one pipelined
                train_many chunk under torch.cuda.set_sync_debug_mode:
@@ -134,7 +137,7 @@ Phases:
                wanjinyou_big.yaml on the ball scene at their own full
                widths with +train.fused_adam=true (phase_configs): 10
                steps each (steps/s, rays/s, peak memory, cap1/cap2, hit
-               cap, K1-K4's launches; K3 and K4 exactly once a step), one
+               cap, K1-K4's launches; K3, K4 and K15 exactly once a step), one
                step run twice from one state bit for bit (step_twice);
                llff also one step card vs CPU.
  12. data_parallel — the data-parallel path at full width on the ball
@@ -303,17 +306,18 @@ LAUNCH_TURN_STEPS = 40
 # 1,609; since K3 is 9 launches and a memset where it was a zero-fill and
 # one launch, PERF.md §5): launch_turns holds them. The count leaves out
 # the spans' device-side annotations, which it took in until 13 a step
-# (1,474-1,475 then; 1,460 without them): the bound was 1,483 with them
-STEP_DEVICE_LAUNCHES = 1470
+# (1,474-1,475 then; 1,460 without them): the bound was 1,483 with them.
+# Since K15 makes the rays in one launch: 537 and 655 (from 1,460 and 1,610)
+STEP_DEVICE_LAUNCHES = 547
 # the ranges of f2nerf_torch/utils/spans.py, by family
 SPAN_PREFIXES = ("step.", "render.", "eval.", "setup.", "build.", "backward.", "image.")
-STEP_ATEN_OPS = 1610
+STEP_ATEN_OPS = 655
 OCC_FIELDS = ("weight_stats", "alpha_stats", "visit_cnt", "trans_idx")
 KERNEL_ORDER = ("fused_adam", "hash_block_fwd", "hash_block_bwd", "row_gather",
                 "hash_encode_fwd", "hash_encode_bwd", "ray_march", "traverse",
                 "ray_march_parallel", "ray_offsets", "segment_reduce", "segment_scan",
                 "compact_a_warp", "sample_edges", "compact_keep", "compute_occupancy_adders",
-                "apply_occupancy_adders")
+                "apply_occupancy_adders", "rays_kernel")
 # K10/K11 tolerances against their plain versions: K10 sums f32 in another
 # order than index_add, so it is held to 1e-5 of each ray's sum of |x|; K11
 # and the plain version both sum in f64 and round once to f32 (an f32 ulp
@@ -350,6 +354,12 @@ NO_LIBRARY_WARP = "none: no PyTorch call warps points through per-leaf projectio
 NO_LIBRARY_KEEP = ("none: no single PyTorch call compacts kept rows into a padded buffer "
                    "(torch.nonzero_static, the indices alone, timed beside)")
 NO_LIBRARY_FOLD = "none: no single PyTorch call folds the votes into the counters"
+NO_LIBRARY_RAYS = "none: no PyTorch call undistorts pixels into rays"
+# K15's bytes: a camera's rows (pose 48, intrinsics 36, distortion 16) and
+# in the training form its train id (4) and bounds (8); a training ray's
+# 3 image bytes and 48 bytes out (rays_o, rays_d, gt, bounds, img_idx)
+RAYS_CAM_BYTES, RAYS_TRAIN_CAM_BYTES = 100, 112
+RAYS_RAY_BYTES = 3 + 48
 LIBRARY_VOTES = "torch.Tensor.scatter_reduce amax (one of the votes' three node scatters)"
 LIBRARY_K3 = ("torch.Tensor.index_add_ of the active pairs' prebuilt dense 128-lane rows "
               "into the [16 nb, 128] table, deterministic algorithms on: the scatter alone")
@@ -418,6 +428,7 @@ def wrappers():
     from f2nerf_torch.fields import hash_encoding as he
     from f2nerf_torch.ops import fused_adam as fa
     from f2nerf_torch.ops import gather as ga
+    from f2nerf_torch.ops import rays as ry
     from f2nerf_torch.ops import segment as sg
     from f2nerf_torch.sampler import device as dv
     from f2nerf_torch.render import renderer as rd
@@ -425,7 +436,7 @@ def wrappers():
             he.hash_encode_fwd, he.hash_encode_bwd, dv.ray_march, dv.traverse,
             dv.ray_march_parallel, sg.ray_offsets, sg.segment_reduce, sg.segment_scan,
             rd.compact_a_warp, dv.sample_edges, rd.compact_keep, dv.compute_occupancy_adders,
-            dv.apply_occupancy_adders)
+            dv.apply_occupancy_adders, ry.rays_kernel)
 
 
 def seg_need(k: int, single_pass: bool = False) -> dict:
@@ -440,13 +451,14 @@ def seg_need(k: int, single_pass: bool = False) -> dict:
 
 def warp_need(k: int, train: bool = True, two_pass: bool = True) -> dict:
     """K12's A side at least k times (every render), K13 where the render
-    has a prefilter (two passes), K12's edge samples and K14's votes and
-    fold where it trains."""
+    has a prefilter (two passes), K12's edge samples, K14's votes and
+    fold and K15 (the step's rays) where it trains."""
     need = {"compact_a_warp": k}
     if two_pass:
         need["compact_keep"] = k
     if train:
-        need.update(sample_edges=k, compute_occupancy_adders=k, apply_occupancy_adders=k)
+        need.update(sample_edges=k, compute_occupancy_adders=k, apply_occupancy_adders=k,
+                    rays_kernel=k)
     return need
 
 
@@ -1673,6 +1685,41 @@ def warp_compact_occupancy_rows(calls: dict, tr) -> list[dict]:
     return rows
 
 
+def rays_rows(calls: dict, tr) -> list[dict]:
+    """K15 at one slice step's own draws and tables (the step's
+    ``sample_rays`` call, spied, against ``sample_rays_plain``: the row's
+    ms, plain_ms and bound_ms) and beside it in its camera form over one
+    of the scene's whole image grids (``pixel_to_ray`` on ``camera_rays``'
+    grid against ``pixel_to_ray_plain``), each bit for bit and launched twice
+    (``exact_case``). Bound: bytes, the draws in, RAYS_RAY_BYTES a ray and
+    each camera's rows once; the image: its f32 pixels in, the rays out,
+    one camera's rows."""
+    from f2nerf_torch.core import camera
+    from f2nerf_torch.data import dataset as ds
+    (args,) = calls["sample_rays"]
+    data, pick = args[0], args[1]
+    n = pick.shape[0]
+    cams = int(torch.unique(data["train_ids"][pick.long()]).numel())
+    nbytes = n * (3 * pick.element_size() + RAYS_RAY_BYTES) + cams * RAYS_TRAIN_CAM_BYTES
+    step = exact_case("K15 sample_rays", f"slice step's own draws: n={n} "
+                      f"{str(pick.dtype)[6:]}, {cams} cameras",
+                      lambda: ds.sample_rays(*args), lambda: ds.sample_rays_plain(*args), nbytes)
+    h, w = tr.dataset.height, tr.dataset.width
+    ii, jj = ds._pixel_grid(h, w, 1, pick.device)
+    cam = [data[k][0] for k in ("poses", "intri", "dist")]
+    image = exact_case("K15 pixel_to_ray", f"camera 0's whole {h}x{w} image",
+                       lambda: camera.pixel_to_ray(*cam, ii, jj),
+                       lambda: camera.pixel_to_ray_plain(*cam, ii, jj),
+                       h * w * (8 + 24) + RAYS_CAM_BYTES)
+    cases = {"step": step, "image": image}
+    return [dict(name="rays_kernel", route="cuda", source="f2nerf_torch/csrc/rays.cu",
+                 replaces="f2nerf_tpu/data/dataset.py:154", library=NO_LIBRARY_RAYS,
+                 bound_by="bytes", **{k: step[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "library_ms")},
+                 max_abs_err=max(r["max_abs_err"] for r in cases.values()),
+                 **{f"{c}_{k}": v for c, r in cases.items() for k, v in r.items()})]
+
+
 def uniform_rays(gen, R: int, lo: float = -1.0, hi: float = 1.0):
     """R rays on the card with origins uniform in [lo, hi]^3 and uniform
     directions."""
@@ -1980,8 +2027,10 @@ def capture_step_inputs(tr) -> dict:
     """One more slice step with K2's, K3's and K4's wrappers spied on (as
     fields/hash_block.py calls them), K8's, K9's, the offsets launch's,
     K12's, K13's and K14's (as render/renderer.py and train/trainer.py call
-    them) and K10's and K11's (as ops/segment.py calls them): the arguments
-    of every call, in order (``capture_calls``)."""
+    them), K10's and K11's (as ops/segment.py calls them) and
+    ``sample_rays``, K15's training form (as train/trainer.py calls it):
+    the arguments of every call, in order (``capture_calls``)."""
+    from f2nerf_torch.data import dataset as ds
     from f2nerf_torch.fields import hash_block as hb
     from f2nerf_torch.ops import segment as sg
     from f2nerf_torch.sampler import device as dv
@@ -1992,7 +2041,7 @@ def capture_step_inputs(tr) -> dict:
                               "ray_offsets": renderer, "compact_a_warp": renderer,
                               "compact_keep": renderer, "sample_edges": dv,
                               "compute_occupancy_adders": dv, "apply_occupancy_adders": dv,
-                              "first_flags_from_ray_id": renderer})
+                              "first_flags_from_ray_id": renderer, "sample_rays": ds})
 
 
 def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
@@ -2018,7 +2067,9 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
           (``segment_step_cases``: the rows' times become the sums over
           the step's calls; the uniform case keeps its under ``uniform_``);
       K12/K13/K14: that step's call of each entry point (new rows; also
-          their edge cases, ``warp_compact_occupancy_rows``)."""
+          their edge cases, ``warp_compact_occupancy_rows``);
+      K15: that step's draws and tables, and one whole image in the
+          camera form (a new row, ``rays_rows``)."""
     dev = torch.device("cuda")
     calls = capture_step_inputs(tr)
     (trav,), (march,) = calls["traverse"], calls["ray_march_parallel"]
@@ -2062,6 +2113,7 @@ def kernels_at_slice_inputs(rows: list[dict], tr, cap1: int, cap2: int,
         raise AssertionError(f"first_flags_from_ray_id ran on {firsts}, expected A's alone")
     seg = segment_step_cases(calls)
     rows += warp_compact_occupancy_rows(calls, tr)
+    rows += rays_rows(calls, tr)
     del calls, fwd, cache, idx
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -2151,7 +2203,8 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
         f"{launches['compact_a_warp'] / N_STEPS:g}, {launches['sample_edges'] / N_STEPS:g} / "
         f"{launches['compact_keep'] / N_STEPS:g} / "
         f"{launches['compute_occupancy_adders'] / N_STEPS:g}, "
-        f"{launches['apply_occupancy_adders'] / N_STEPS:g}")
+        f"{launches['apply_occupancy_adders'] / N_STEPS:g}; K15 "
+        f"{launches['rays_kernel'] / N_STEPS:g}")
     if not moved > 0:
         raise AssertionError("params did not move")
     # one table-gradient scatter a step: the grad pass's B and edge samples
@@ -2160,7 +2213,8 @@ def phase_slice(tmp: str) -> tuple[dict, object, tuple[int, int]]:
     # composite's sums, weight_var's two, the backwards of the appearance
     # gather and of weight_var's mean gather), K11 three times (the
     # prefilter's and the composite's scans, the composite's backward);
-    # K12's A side and edge samples, K13 and K14's votes and fold once each
+    # K12's A side and edge samples, K13, K14's votes and fold and K15 (the
+    # step's rays) once each
     check_counts("the slice", launches, {
         "fused_adam": N_STEPS * len(p0), "hash_block_fwd": N_STEPS},
         exact={"hash_block_bwd": N_STEPS, "row_gather": N_STEPS, "hash_encode_fwd": 0,
@@ -3548,7 +3602,8 @@ def phase_configs(tmp: str) -> dict:
             "traverse": CONFIG_STEPS, "ray_march_parallel": CONFIG_STEPS,
             **seg_need(CONFIG_STEPS), **warp_need(CONFIG_STEPS)},
             exact={"hash_block_bwd": CONFIG_STEPS, "row_gather": CONFIG_STEPS,
-                   "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0})
+                   "hash_encode_fwd": 0, "hash_encode_bwd": 0, "ray_march": 0,
+                   "rays_kernel": CONFIG_STEPS})
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         step_twice(tr, f"configs {name}")

@@ -12,12 +12,19 @@ Semantics match the reference:
     (Dataset.cpp:127-146), host numpy.
   * Pose interpolation: quaternion slerp + translation lerp
     (CameraUtils.cpp:11-41), host numpy.
+
+``pixel_to_ray`` launches kernel K15 (``ops/rays.py``, ``csrc/rays.cu``)
+on CUDA tensors, in its camera form, and runs ``pixel_to_ray_plain``, the torch ops, on CPU tensors; the two
+are bit for bit equal on the card.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import kernels
+from ..ops import rays
 
 
 def apply_distortion(params: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
@@ -57,9 +64,10 @@ def undistort(params: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return x, y
 
 
-def pixel_to_ray(pose: torch.Tensor, intri: torch.Tensor, dist: torch.Tensor,
-                 i: torch.Tensor, j: torch.Tensor, n_undistort_iters: int = 10):
-    """Pixel (i=row, j=col, already +0.5-shifted) -> world ray (o, d).
+def pixel_to_ray_plain(pose: torch.Tensor, intri: torch.Tensor, dist: torch.Tensor,
+                       i: torch.Tensor, j: torch.Tensor, n_undistort_iters: int = 10):
+    """Plain PyTorch version of K15's ``pixel_to_ray``: pixel (i=row,
+    j=col, already +0.5-shifted) -> world ray (o, d).
 
     ``pose`` [..., 3, 4] c2w, ``intri`` [..., 3, 3], ``dist`` [..., 4]
     (Img2WorldRayKernel, Dataset.cu:98-123)."""
@@ -79,6 +87,34 @@ def pixel_to_ray(pose: torch.Tensor, intri: torch.Tensor, dist: torch.Tensor,
                           for a in range(3)], dim=-1)
     rays_o = pose[..., :3, 3].expand_as(rays_d)
     return rays_o, rays_d
+
+
+def pixel_to_ray(pose: torch.Tensor, intri: torch.Tensor, dist: torch.Tensor,
+                 i: torch.Tensor, j: torch.Tensor, n_undistort_iters: int = 10):
+    """Pixel (i=row, j=col, already +0.5-shifted) -> world ray (o, d)
+    (Img2WorldRayKernel, Dataset.cu:98-123), in one of two forms the shapes
+    tell apart: a camera a ray (``pose`` [n, 3, 4], ``intri`` [n, 3, 3],
+    ``dist`` [n, 4]) or one camera for every ray (``pose`` [3, 4],
+    ``intri`` [3, 3], ``dist`` [4]); i, j [n] f32. Returns (rays_o,
+    rays_d) [n, 3]. CPU tensors take ``pixel_to_ray_plain``; CUDA tensors
+    launch K15, bit for bit the plain version."""
+    n = i.shape[0] if i.dim() == 1 else -1
+    lead = () if pose.dim() == 2 else (n,)
+    if n < 0 or tuple(j.shape) != (n,) or tuple(pose.shape) != (*lead, 3, 4) \
+            or tuple(intri.shape) != (*lead, 3, 3) or tuple(dist.shape) != (*lead, 4):
+        raise ValueError(f"pixel_to_ray: shapes pose {tuple(pose.shape)}, intri "
+                         f"{tuple(intri.shape)}, dist {tuple(dist.shape)}, i "
+                         f"{tuple(i.shape)}, j {tuple(j.shape)}")
+    if any(x.dtype != torch.float32 for x in (pose, intri, dist, i, j)):
+        raise ValueError(f"pixel_to_ray: every tensor must be float32, got "
+                         f"{[str(x.dtype) for x in (pose, intri, dist, i, j)]}")
+    if i.device.type == "cpu":
+        return pixel_to_ray_plain(pose, intri, dist, i, j, n_undistort_iters)
+    if i.device.type != "cuda":
+        raise ValueError(f"pixel_to_ray: unsupported device {i.device}")
+    ins = [x.contiguous() for x in (i, j, pose, intri, dist)]
+    kernels.require_cuda("pixel_to_ray", *ins)
+    return rays.rays_kernel(*ins, n_iters=n_undistort_iters, cam_step=len(lead))
 
 
 def normalize_scene(poses: np.ndarray, bounds: np.ndarray):

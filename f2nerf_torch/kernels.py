@@ -29,10 +29,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# no --use_fast_math: K2/K3's, K5/K6's, K7-K9's and K12's arithmetic must
-# round exactly like the plain versions (see csrc/hash_block.cu, hash3d.cu,
-# ray_march.cu, traverse.cu, march_parallel.cu, warp.cu), and K3, K6 and
-# K10/K11 add in a fixed order (csrc/hash_block.cu, hash3d.cu, segment.cu)
+# no --use_fast_math: K2/K3's, K5/K6's, K7-K9's, K12's and K15's arithmetic
+# must round exactly like the plain versions (see csrc/hash_block.cu,
+# hash3d.cu, ray_march.cu, traverse.cu, march_parallel.cu, warp.cu,
+# rays.cu), and K3, K6 and K10/K11 add in a fixed order
+# (csrc/hash_block.cu, hash3d.cu, segment.cu)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -61,6 +62,7 @@ _SIGNATURES = {
     "f2_compact_keep_state_bytes": [_ll],
     "f2_occupancy_votes": [_vp] * 8 + [_ll, _i, _i, _vp],
     "f2_occupancy_fold": [_vp] * 12 + [_i, _vp],
+    "f2_rays": [_vp] * 3 + [_i] + [_vp] * 11 + [_ll] * 5 + [_i, _i, _vp],
 }
 
 # entry points that return something other than a cudaError_t

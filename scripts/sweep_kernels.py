@@ -1,8 +1,8 @@
 """Sweep the launch shapes and variants of K3, K6, K8-K14 (K14: the votes)
-and the offsets launch, and show what their time is made of, on one CUDA
-card.
+and the offsets launch, time K15 against its plain route, and show what
+their time is made of, on one CUDA card.
 
-    python scripts/sweep_kernels.py [--kernels k3,k6,k8,k9,k10,k11,offsets,k12,k13,k14]
+    python scripts/sweep_kernels.py [--kernels k3,k6,k8,k9,k10,k11,offsets,k12,k13,k14,k15]
         [--baseline ROOT] [--out results.json]
 
 Each variant is a copy of a source in f2nerf_torch/csrc/ (hash_block.cu,
@@ -55,8 +55,12 @@ samples) and at the slice's uniform shape (K12: ``uniform_a``, 393,216
 slots at random leaves; votes: ``uniform_votes``); K13 on the step's buffer
 A (``step_keep_inputs``: those 262,144 slots, 97% of the valid ones kept,
 cap2 262,144) and at the slice's uniform shape (393,216 rows of 2,048 rays,
-half kept, cap2 262,144). A one-element torch add is timed the same way:
-the floor of a launch.
+half kept, cap2 262,144). The k15 sweep times K15 (``sample_rays`` at 512
+and 2,048 draws, ``pixel_to_ray`` over one 756x1008 image) on a scene
+shaped as the benchmark's (``rays_scene``), bit for bit against the plain
+route, whose device ms is the sum of its launches (torch.profiler) and
+whose host ms a call it prints beside. A one-element torch add is timed
+the same way: the floor of a launch.
 """
 
 from __future__ import annotations
@@ -1267,8 +1271,86 @@ def sweep_k6(baseline: str | None) -> dict:
     return res
 
 
+K15_CAM_BYTES = 4 + 48 + 36 + 16 + 8  # a camera's train id, pose, intrinsics, distortion, bounds
+
+
+def rays_scene(seed: int = 15, n_cams: int = 24, h: int = 756, w: int = 1008) -> dict:
+    """Camera tables and train images shaped as the benchmark's scene (24
+    cameras at 756x1008, every eighth a test camera), distorted, on the
+    card."""
+    rng = np.random.RandomState(seed)
+    rot = np.linalg.qr(rng.randn(n_cams, 3, 3))[0]
+    poses = np.concatenate([rot, rng.randn(n_cams, 3, 1)], axis=2)
+    intri = np.zeros((n_cams, 3, 3))
+    intri[:, 0, 0], intri[:, 1, 1] = rng.uniform(700, 900, n_cams), rng.uniform(700, 900, n_cams)
+    intri[:, 0, 2], intri[:, 1, 2], intri[:, 2, 2] = w / 2, h / 2, 1.0
+    dist = np.array([0.05, -0.01, 0.001, -0.002]) * rng.uniform(0.5, 2.0, (n_cams, 4))
+    bounds = np.stack([rng.uniform(0.01, 0.5, n_cams), rng.uniform(2, 9, n_cams)], -1)
+    ids = np.nonzero(np.arange(n_cams) % 8 != 0)[0].astype(np.int32)
+    images = rng.randint(0, 256, (len(ids), h, w, 3)).astype(np.uint8)
+    out = dict(poses=poses, intri=intri, dist=dist, bounds=bounds)
+    out = {k: torch.from_numpy(v.astype(np.float32)).cuda() for k, v in out.items()}
+    out.update(train_ids=torch.from_numpy(ids).cuda(), train_images=torch.from_numpy(images).cuda())
+    return out
+
+
+def sweep_k15() -> dict:
+    """K15 at the step's 512 rays, at 2,048, and over one full 756x1008
+    image (the one-camera form, as camera_rays calls it), against the plain
+    route on the card (its device ms summed over its launches, its launches
+    and its host ms a call) and the bytes bound (a ray's draws in, 3 image
+    bytes in and 48 bytes out, each camera's rows once; the image: the f32
+    pixel in and the rays out)."""
+    from f2nerf_torch.core import camera as cam
+    from f2nerf_torch.data import dataset as ds
+    data = rays_scene()
+    h, w = data["train_images"].shape[1:3]
+    g = torch.Generator(device="cuda").manual_seed(15)
+    res = {}
+    for case in ("step_512", "rays_2048", "image_756x1008"):
+        if case == "image_756x1008":
+            ii, jj = ds._pixel_grid(h, w, 1, "cuda")
+            args = (data["poses"][1], data["intri"][1], data["dist"][1], ii, jj)
+            k15 = lambda args=args: cam.pixel_to_ray(*args)  # noqa: E731
+            plain = lambda args=args: cam.pixel_to_ray_plain(*args)  # noqa: E731
+            n = ii.shape[0]
+            nbytes = n * (8 + 24) + K15_CAM_BYTES - 12  # the camera without train id, bounds
+        else:
+            n = int(case.split("_")[1])
+            d = ds.draw_rays(data, g, n, h, w)
+            args = (data, d["cam_pick"], d["i"], d["j"])
+            k15 = lambda args=args: ds.sample_rays(*args)  # noqa: E731
+            plain = lambda args=args: ds.sample_rays_plain(*args)  # noqa: E731
+            n_cams = int(torch.unique(data["train_ids"][d["cam_pick"]]).numel())
+            nbytes = n * (24 + 3 + 48) + n_cams * K15_CAM_BYTES
+        equal = all(torch.equal(bits(a.contiguous()), bits(b.contiguous()))
+                    for a, b in zip(k15(), plain()))
+        ms = statistics.median(cuda_ms(k15))
+        dev = {k: device_breakdown(f) for k, f in (("k15", k15), ("plain", plain))}
+        host = {}
+        for k, f in (("k15", k15), ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REPS):
+                f()
+            torch.cuda.synchronize()
+            host[k] = (time.perf_counter() - t0) * 1e3 / REPS
+        res[case] = dict(n=n, k15_ms=ms, k15_device_ms=sum(dev["k15"].values()),
+                         plain_device_ms=sum(dev["plain"].values()),
+                         plain_launches=len(dev["plain"]), k15_call_ms=host["k15"],
+                         plain_call_ms=host["plain"], bound_ms=nbytes / 3.35e12 * 1e3,
+                         bytes=nbytes, equal=equal)
+        r = res[case]
+        log(f"[K15] {case} ({n} rays): K15 {ms:.4f} ms (device {r['k15_device_ms']:.4f}), plain "
+            f"device {r['plain_device_ms']:.4f} ms over {r['plain_launches']} kernel names; a "
+            f"call K15 {host['k15']:.4f} / plain {host['plain']:.4f} ms; bound "
+            f"{r['bound_ms']:.5f} ms ({nbytes} bytes); bit for bit {equal}")
+    return res
+
+
 SWEEPS = {"k3": sweep_k3, "k6": sweep_k6, "k8": sweep_k8, "k9": sweep_k9, "k10": sweep_k10, "k11": sweep_k11,
-          "offsets": sweep_offsets, "k12": sweep_k12, "k13": sweep_k13, "k14": sweep_k14}
+          "offsets": sweep_offsets, "k12": sweep_k12, "k13": sweep_k13, "k14": sweep_k14,
+          "k15": sweep_k15}
 TAKES_BASELINE = ("k6",)
 
 
